@@ -1,0 +1,157 @@
+"""Single-file model archives, shared with the JAX package.
+
+Counterpart of ``deeplearning4j_tpu/models/serializer.py`` and the function
+that carries weights between the two packages. The zip is the same:
+``configuration.json`` (the config tree), ``coefficients.npz`` (the
+parameters), ``metadata.json`` and, optionally, ``updaterState.npz``.
+
+``coefficients.npz`` holds ``leaf_0 .. leaf_N`` in the JAX package's
+``jax.tree.leaves`` order of ``{"params": ..., "model_state": ...}``: dict
+keys sorted as strings, recursively. So ``"model_state"`` < ``"params"``,
+``"layer_10"`` < ``"layer_2"`` and ``"W"`` < ``"W_rec"`` < ``"b"`` <
+``"peephole"``. :func:`tree_leaves` reproduces that order without JAX.
+
+The port has no optimizer yet: it writes no ``updaterState.npz`` and ignores
+one it reads.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import zipfile
+from typing import Any, List
+
+import numpy as np
+import torch
+
+_CONF = "configuration.json"
+_COEFF = "coefficients.npz"
+_META = "metadata.json"
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Leaves of nested dicts/lists/tuples in ``jax.tree.leaves`` order:
+    dict keys sorted, sequences in order, ``None`` dropped."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten_like(like, leaves: List[Any]):
+    """Rebuild ``like``'s structure from ``leaves`` (in :func:`tree_leaves`
+    order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            rebuilt = {k: build(node[k]) for k in sorted(node)}
+            return {k: rebuilt[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return None if node is None else next(it)
+
+    return build(like)
+
+
+def params_from_numpy(tree, device=None, dtype=None):
+    """The JAX package's parameters, as nested dicts of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, net.train_state.params)``), as the port's
+    nested dicts of tensors on ``device``; floating leaves cast to ``dtype``
+    when given."""
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)  # numpy's bfloat16 extension has no torch view
+        t = torch.from_numpy(np.array(a))  # a writable copy the tensor owns
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device) if device is not None else t
+
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return conv(tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        raise TypeError("bfloat16 parameters cannot be written to coefficients.npz "
+                        "without a bfloat16 numpy type; keep default_dtype float32")
+    return t.numpy()
+
+
+def _save_leaves(tree) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **{f"leaf_{i}": _to_numpy(l) for i, l in enumerate(tree_leaves(tree))})
+    return buf.getvalue()
+
+
+def _load_leaves(data: bytes, like):
+    z = np.load(io.BytesIO(data))
+    leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+    like_leaves = tree_leaves(like)
+    if len(leaves) != len(like_leaves):
+        raise ValueError(f"Archive has {len(leaves)} arrays; model expects {len(like_leaves)}")
+    coerced = []
+    for a, ref in zip(leaves, like_leaves):
+        if tuple(a.shape) != tuple(ref.shape):
+            raise ValueError(f"Archive array of shape {a.shape} where the model "
+                             f"expects {tuple(ref.shape)}")
+        coerced.append(params_from_numpy(a, device=ref.device, dtype=ref.dtype))
+    return tree_unflatten_like(like, coerced)
+
+
+class ModelSerializer:
+    @staticmethod
+    def write_model(net, path: str) -> None:
+        net._ensure_init()
+        rng_state = net.rng.get_state()
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+            zf.writestr(_CONF, net.conf.to_json())
+            zf.writestr(_META, json.dumps({
+                "model_type": type(net).__name__,
+                "iteration": net._iteration,
+                "epoch": net._epoch,
+                "rng_seed": rng_state["seed"],
+                "rng_key": rng_state["key"],
+                "framework": "deeplearning4j_tpu_torch",
+            }))
+            zf.writestr(_COEFF, _save_leaves({"params": net.params(),
+                                              "model_state": net._model_state}))
+
+    @staticmethod
+    def restore_model(path: str, device=None):
+        """Type-dispatching restore; only ``MultiLayerNetwork`` archives are
+        ported so far."""
+        with zipfile.ZipFile(path) as zf:
+            names = zf.namelist()
+            meta = json.loads(zf.read(_META).decode()) if _META in names else {}
+        kind = meta.get("model_type", "MultiLayerNetwork")
+        if kind != "MultiLayerNetwork" or "quantization.json" in names:
+            raise NotImplementedError(
+                f"restoring a {kind if kind != 'MultiLayerNetwork' else 'quantized'} "
+                "archive is not ported to deeplearning4j_tpu_torch yet")
+        return ModelSerializer.restore_multi_layer_network(path, device=device)
+
+    @staticmethod
+    def restore_multi_layer_network(path: str, device=None):
+        """Restore on ``device`` (``cuda`` unless the caller or the
+        environment asks for the CPU)."""
+        from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+        with zipfile.ZipFile(path) as zf:
+            conf = MultiLayerConfiguration.from_json(zf.read(_CONF).decode())
+            net = MultiLayerNetwork(conf, device=device).init()
+            coeff = _load_leaves(zf.read(_COEFF), {"params": net.params(),
+                                                   "model_state": net._model_state})
+            meta = json.loads(zf.read(_META).decode()) if _META in zf.namelist() else {}
+        net._params = coeff["params"]
+        net._model_state = coeff["model_state"]
+        net._iteration = int(meta.get("iteration", 0))
+        net._epoch = int(meta.get("epoch", 0))
+        if meta.get("rng_seed") is not None:
+            net.rng.set_state({"seed": meta["rng_seed"], "key": meta.get("rng_key")})
+        return net

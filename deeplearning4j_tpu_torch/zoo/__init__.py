@@ -1,0 +1,6 @@
+"""Model zoo (counterpart of ``deeplearning4j_tpu.zoo``)."""
+
+from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.textgen_lstm import TextGenerationLSTM
+
+__all__ = ["TextGenerationLSTM", "ZooModel"]
