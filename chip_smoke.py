@@ -10,29 +10,46 @@ the card and exits nonzero if any phase fails:
             (one process per source, all started together) and prints the
             build time and each kernel's register use;
 2. kernels: every kernel against its plain PyTorch version on the card, in
-            float32 and bfloat16, at the serving shape (B=64, T=256, H=512)
-            and at ragged shapes, with a random mask holding all-zero rows
-            for the peephole/mask kernel; max error beside the tolerance;
+            float32 and bfloat16, at the serving/training shape (B=64,
+            T=256, H=512) and at ragged shapes and B > 64 (two launches),
+            with a random mask holding all-zero rows for the peephole/mask
+            cell: the inference forward, the saving forward (ys, hT, cT and
+            the residuals), and the backward (ds, dh0, dc0, on the same
+            residuals); then the whole autograd wrapper's float32 gradients
+            against ``torch.autograd`` of the plain forward. Max error beside
+            the tolerance;
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
             ``ModelRegistry.load`` and served to 8 client threads sending
             requests of 1-64 rows at T=256. Every answer is held against a
             forward pass built from the plain versions; the launch counts
-            of the run must show the kernels ran; ``rnn_time_step`` over 4
-            chunks of 64 steps must equal the whole-sequence output. Once
-            with ``graves=True`` (GravesLSTM, kernel of
+            of the run must show the inference kernels ran; ``rnn_time_step``
+            over 4 chunks of 64 steps must equal the whole-sequence output.
+            Once with ``graves=True`` (GravesLSTM, kernels of
             ``fused_lstm_graves``) and once with ``graves=False`` (LSTM,
-            kernel of ``fused_lstm``);
-4. times  : each kernel's time at the serving shape (CUDA events, after
-            warm-up) beside its bound, its plain version's time and, for the
-            plain cell, ``torch.nn.LSTM`` (cuDNN) as a yardstick the port
-            never calls; one 64-row request's latency and tokens/s.
+            kernels of ``fused_lstm``);
+4. train  : the training path at full width. The same network with
+            ``tbptt_length=256`` is trained by ``fit`` in bf16 compute on 20
+            seeded batches of B=64, T=256 (``bench_char_rnn``'s shape); the
+            launch counts must show one saving forward and one backward per
+            layer per step and nothing of the other cell, and the loss must
+            fall. It prints step ms and tokens/s. The first 3 steps' losses
+            are held, in float32 and bfloat16, against the same training
+            with the recurrences computed by the plain forward under
+            autograd. Once per cell, as the slice phase;
+5. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
+            after warm-up) beside its bound, its plain version's time and,
+            for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
+            forward and backward as a yardstick the port never calls; the
+            kernels' share of a training step.
 
-Before the last line it prints one JSON object ``{"kernels": [...]}`` and
-the card's name and power limit as ``nvidia-smi`` gives them; the last line
-is ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
-rest of the repository beside it, it prints no result and exits nonzero.
+Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
+row per kernel instance: the inference and saving forwards and the backward
+of each cell) and the card's name and power limit as ``nvidia-smi`` gives
+them; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
+device, or without the rest of the repository beside it, it prints no
+result and exits nonzero.
 """
 
 from __future__ import annotations
@@ -59,12 +76,43 @@ KERNEL_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (SERVE_T, 1, HIDDEN), (5, 3, 200),
 # step, so a tie broken the other way by that order carries one bf16 ulp
 # (0.0078 at |c| in [1, 2)) down the sequence; 4 ulps of headroom.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 3.2e-2}
+# Backward kernel vs plain version, max abs error over ds/dh0/dc0 divided by
+# max(1, max |plain|): the dh carry grows along the reverse sequence, so the
+# error is held relative to it. float32: summation order of ds @ W_rec^T.
+# bfloat16: both round ds to bf16 at every step, so one rounding tie broken
+# the other way carries a bf16 ulp (2^-8 relative) into dh; 8 ulps of headroom.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3.2e-2}
+# The autograd wrapper's float32 gradients vs torch.autograd of the plain
+# forward, max abs error / max(1, max |plain|) per input: dW_rec and dpeep sum
+# T*B products in another order on each side.
+GRAD_TOL = 1e-3
+# (cell, peepholes, mask) triples each kernel check runs
+CELLS = (("fused_lstm", False, False), ("fused_graves_lstm", True, True),
+         ("fused_graves_lstm", True, False))
+# Shapes of the autograd check: the training shape, and two launches of rows
+GRAD_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (3, 130, 64)]
 # Served softmax probabilities vs the plain forward (bf16 compute).
 SERVE_TOL = 1e-2
 # rnn_time_step in 4 chunks vs the whole sequence: the chunks hand h/c over
 # in bf16 where the whole sequence keeps c in fp32 inside the kernel.
 CHUNK_TOL = 2e-2
 CLIENTS, REQUESTS_PER_CLIENT = 8, 3
+# Training: bench_char_rnn's shape (B=64, T=256 = one tBPTT chunk per batch),
+# TRAIN_STEPS batches through fit; the first CMP_STEPS against the plain trainer.
+TRAIN_B, TRAIN_T, TRAIN_STEPS, CMP_STEPS = 64, 256, 20, 3
+# Per-step loss, kernels vs the plain trainer (the same network, optimizer and
+# weights, with autograd through lstm_reference), max |difference| over the
+# first CMP_STEPS steps. float32: summation order only. bfloat16: the two
+# sides round differently placed values to bf16 (one-ulp differences in ys and
+# ds), and RmsProp's first steps turn a near-zero gradient's sign into a full
+# +-4.5e-3 weight step, so a few weights move apart.
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The mean loss of the last 3 steps must be below this share of the first
+# step's (about ln 96 = 4.56 from random weights). The batches follow a seeded
+# table of 4 successors per character, whose skewed character frequencies
+# alone are worth about 3% of that; RmsProp at the zoo's 1e-3 learns them
+# within TRAIN_STEPS steps, the successors themselves only later.
+LOSS_FALL = 0.98
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -110,17 +158,83 @@ def lstm_inputs(T, B, H, dtype, device, seed, peep, mask):
             for k, v in a.items()}
 
 
-def bound(a, outs):
+def max_err(got, want, relative=False):
+    """Max abs difference over paired tensors; ``relative`` divides it by
+    max(1, max |want|)."""
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+    if not relative:
+        return err
+    return err / max(1.0, max(float(y.float().abs().max()) for y in want))
+
+
+def bound(tensors, flops, dtype):
     """Least time the card could take: each input read once and each output
-    written once at the memory rate, vs the recurrent product's operations
-    at the peak rate of the input type. Returns (ms, 'bytes'|'operations')."""
-    T, B, H4 = a["zx"].shape
-    moved = sum(t.numel() * t.element_size() for t in list(a.values()) + list(outs)
-                if t is not None)
-    flops = 2.0 * T * B * (H4 // 4) * H4
-    rate = PEAK_FLOPS[str(a["zx"].dtype).replace("torch.", "")]
+    written once at the memory rate, vs ``flops`` (the recurrent product) at
+    the peak rate of ``dtype``. Returns (ms, 'bytes'|'operations')."""
+    moved = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    rate = PEAK_FLOPS[str(dtype).replace("torch.", "")]
     t_bytes, t_ops = moved / PEAK_BYTES * 1e3, flops / rate * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def char_batches(n, seed):
+    """``n`` one-hot (x, y) batches of next-character prediction, B=TRAIN_B,
+    T=TRAIN_T: sequences drawn from a seeded table that gives each of the
+    VOCAB characters 4 possible successors."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, VOCAB, (VOCAB, 4))
+    eye = np.eye(VOCAB, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = np.empty((TRAIN_B, TRAIN_T + 1), np.int64)
+        ids[:, 0] = rng.integers(0, VOCAB, TRAIN_B)
+        pick = rng.integers(0, 4, (TRAIN_B, TRAIN_T))
+        for t in range(TRAIN_T):
+            ids[:, t + 1] = succ[ids[:, t], pick[:, t]]
+        out.append((eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    return out
+
+
+def clone_tree(tree):
+    return {k: {n: t.detach().clone() for n, t in v.items()} for k, v in tree.items()}
+
+
+class StepStamps:
+    """A listener that records the host clock when each iteration is done;
+    it reads the loss first, which waits for the device."""
+
+    def __init__(self, stamps):
+        self.stamps = stamps
+
+    def iteration_done(self, model, iteration, epoch, score):
+        float(score)
+        self.stamps.append(time.perf_counter())
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+
+class plain_recurrences:
+    """Within the block the recurrent layers run the plain forward under
+    autograd (``lstm_reference``) in place of the kernels' wrappers: a
+    trainer built from the plain versions, for comparison only."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn import recurrent_layers as rl
+        from deeplearning4j_tpu_torch.ops.kernels.fused_lstm import lstm_reference
+        self.rl, self.saved = rl, (rl.fused_lstm, rl.fused_graves_lstm)
+        rl.fused_lstm = lambda zx, w, h0, c0: lstm_reference(zx, w, None, h0, c0, None)
+        rl.fused_graves_lstm = lambda zx, w, p, h0, c0, m=None: lstm_reference(
+            zx, w, p, h0, c0, m)
+        return self
+
+    def __exit__(self, *exc):
+        self.rl.fused_lstm, self.rl.fused_graves_lstm = self.saved
+        return False
 
 
 class Smoke:
@@ -130,6 +244,7 @@ class Smoke:
         self.device = device
         self.failures = []
         self.kernels = {}  # name -> JSON row
+        self.train_step_ms = {}  # graves -> median step ms of the train phase
 
     def check(self, ok, what):
         log(("ok   " if ok else "FAIL ") + what)
@@ -158,47 +273,104 @@ class Smoke:
             for line in lib.build_log.splitlines():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
-                    # lstm_fwd_kernel<T, PEEP, MASK> from its mangled name
-                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)Lb(\d)ELb(\d)E", kernel)
-                    kernel = f"{m[1]}<{m[2]}, {m[3]}, {m[4]}>" if m else kernel
+                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE> from its mangled name
+                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:Lb\dE)+)", kernel)
+                    if m:
+                        flags = ", ".join(re.findall(r"Lb(\d)E", m[3]))
+                        kernel = f"{m[1]}<{m[2]}, {flags}>"
                 elif "Used" in line and "registers" in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
 
     def kernel_phase(self):
         torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for T, B, H in KERNEL_SHAPES:
+                for cell, peep, mask in CELLS:
+                    self.check_kernels(cell, T, B, H, dtype, peep, mask)
+        for T, B, H in GRAD_SHAPES:
+            for cell, peep, mask in CELLS:
+                self.check_autograd(cell, T, B, H, peep, mask)
+
+    def check_kernels(self, cell, T, B, H, dtype, peep, mask):
+        """The inference forward, the saving forward and the backward kernel
+        of one cell against their plain versions, on the same inputs; the
+        backward of both sides reads the plain forward's residuals."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
+        mod = self.cell_module(cell)
+        dname = str(dtype).replace("torch.", "")
+        a = lstm_inputs(T, B, H, dtype, self.device, seed=T * 7 + B, peep=peep, mask=mask)
+        fwd = (a["zx"], a["w_rec"], a["peep"], a["h0"], a["c0"], a["mask"])
+        with torch.no_grad():
+            got = fl.launch_lstm_fwd(*fwd, mod.counter)
+            got_save = fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True)
+            want_save = fl.lstm_reference(*fwd, save=True)
+            g = torch.Generator().manual_seed(T * 11 + B)
+            cot = [torch.randn(s, generator=g).to(dtype).to(self.device)
+                   for s in ((T, B, H), (B, H), (B, H))]
+            gates, cseq = want_save[3], want_save[4]
+            bwd = (*cot, gates, cseq, a["c0"], a["w_rec"], a["peep"], a["mask"])
+            got_bwd = fl.launch_lstm_bwd(*bwd, mod.bwd_counter)
+            torch.cuda.synchronize()
+            want_bwd = fl.lstm_bwd_reference(*bwd)
+        torch.cuda.synchronize()
+        tag = f"{dname:8s} T={T:3d} B={B:3d} H={H:3d} mask={'yes' if mask else 'no '}"
+        for name, got_, want_, tol, rel in (
+                (mod.counter.name, got, want_save[:3], KERNEL_TOL[dname], False),
+                (mod.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
+                (mod.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)):
+            err = max_err(got_, want_, relative=rel)
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in got_)
+            self.check(finite and err <= tol,
+                       f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
+                       f"tol={tol:g}")
+            if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16 and not mask:
+                self.kernels.setdefault(name, {})["max_abs_err"] = err
+        if mask:  # an all-masked row: no gradient reaches its inputs
+            zero = float(got_bwd[0][:, 0].float().abs().max())
+            self.check(zero == 0.0, f"{mod.bwd_counter.name:22s} {tag} all-masked row: "
+                                    f"max |ds| = {zero:g} (expected 0)")
+
+    def check_autograd(self, cell, T, B, H, peep, mask):
+        """The whole autograd wrapper in float32: gradients of every
+        differentiable input against ``torch.autograd`` of the plain
+        forward."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
+        mod = self.cell_module(cell)
+        a = lstm_inputs(T, B, H, torch.float32, self.device, seed=T + B, peep=peep, mask=mask)
+        names = [k for k in ("zx", "w_rec", "peep", "h0", "c0") if a[k] is not None]
+        g = torch.Generator().manual_seed(T * 13 + B)
+        cot = [torch.randn(s, generator=g).to(self.device) for s in ((T, B, H), (B, H), (B, H))]
+        grads = []
+        for run in (self.run_wrapper(cell, mod), fl.lstm_reference):
+            leaves = {k: a[k].detach().clone().requires_grad_() for k in names}
+            args = {**a, **leaves}
+            ys, h_t, c_t = run(args["zx"], args["w_rec"], args["peep"], args["h0"],
+                               args["c0"], args["mask"])
+            loss = (ys * cot[0]).sum() + (h_t * cot[1]).sum() + (c_t * cot[2]).sum()
+            grads.append(torch.autograd.grad(loss, [leaves[k] for k in names]))
+        torch.cuda.synchronize()
+        errs = {k: max_err([x], [y], relative=True) for k, x, y in zip(names, *grads)}
+        worst = max(errs.values())
+        self.check(worst <= GRAD_TOL,
+                   f"{cell:18s} autograd vs plain float32 T={T:3d} B={B:3d} H={H:3d} "
+                   f"mask={'yes' if mask else 'no '} max_rel_err "
+                   + " ".join(f"{k}={v:.3g}" for k, v in errs.items()) + f" tol={GRAD_TOL:g}")
+
+    @staticmethod
+    def cell_module(cell):
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).replace("torch.", "")
-            for T, B, H in KERNEL_SHAPES:
-                for name, peep, mask in (("fused_lstm", False, False),
-                                         ("fused_graves_lstm", True, True),
-                                         ("fused_graves_lstm", True, False)):
-                    a = lstm_inputs(T, B, H, dtype, self.device, seed=T * 7 + B, peep=peep,
-                                    mask=mask)
-                    if name == "fused_lstm":
-                        got = fl.fused_lstm(a["zx"], a["w_rec"], a["h0"], a["c0"])
-                        torch.cuda.synchronize()
-                        want = fl.fused_lstm_reference(a["zx"], a["w_rec"], a["h0"], a["c0"])
-                    else:
-                        got = fg.fused_graves_lstm(a["zx"], a["w_rec"], a["peep"], a["h0"],
-                                                   a["c0"], a["mask"])
-                        torch.cuda.synchronize()
-                        want = fg.fused_graves_lstm_reference(
-                            a["zx"], a["w_rec"], a["peep"], a["h0"], a["c0"], a["mask"])
-                    torch.cuda.synchronize()
-                    err = max((x.float() - y.float()).abs().max().item()
-                              for x, y in zip(got, want))
-                    finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
-                    tol = KERNEL_TOL[dname]
-                    self.check(finite and err <= tol,
-                               f"{name:18s} {dname:8s} T={T:3d} B={B:3d} H={H:3d} "
-                               f"mask={'yes' if mask else 'no '} max_abs_err={err:.3g} "
-                               f"tol={tol:g}")
-                    if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16 \
-                            and not mask:
-                        row = self.kernels.setdefault(name, {})
-                        row["max_abs_err"] = err
+        return fl if cell == "fused_lstm" else fg
+
+    @staticmethod
+    def run_wrapper(cell, mod):
+        """The public wrapper with the (zx, w_rec, peep, h0, c0, mask)
+        argument list."""
+        if cell == "fused_lstm":
+            return lambda zx, w, p, h0, c0, m: mod.fused_lstm(zx, w, h0, c0)
+        return mod.fused_graves_lstm
 
     def plain_forward(self, net, x):
         """The network's forward with every kernel replaced by its plain
@@ -342,57 +514,158 @@ class Smoke:
         reg.shutdown()
         self.check(not served.batcher._worker.is_alive(), f"{tag} registry shut down")
 
+    def train_phase(self, graves):
+        """``fit`` of the full-width char-RNN in bf16 through the kernels
+        (the main path, counted), then the first steps again in float32 and
+        bfloat16 against a trainer built from the plain versions."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+        env = get_environment()
+        kernel = self.cell_module("fused_graves_lstm" if graves else "fused_lstm")
+        other = self.cell_module("fused_lstm" if graves else "fused_graves_lstm")
+        tag = f"graves={graves}"
+        conf = lambda: TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN,  # noqa: E731
+                                          layers=LAYERS, tbptt_length=TRAIN_T,
+                                          graves=graves).conf()
+        init = MultiLayerNetwork(conf(), device=self.device).init().params()
+        batches = char_batches(TRAIN_STEPS, seed=77 + graves)
+        counters = [m.counter for m in (kernel, other)] + \
+            [m.save_counter for m in (kernel, other)] + [m.bwd_counter for m in (kernel, other)]
+
+        def fit(steps, dtype):
+            env.set_compute_dtype(dtype)
+            net = MultiLayerNetwork(conf(), device=self.device).init(params=clone_tree(init))
+            scores, stamps = CollectScoresListener(), []
+            net.set_listeners(scores, StepStamps(stamps))
+            net.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches[:steps]]))
+            return [v for _, v in scores.scores], stamps
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        losses, stamps = fit(TRAIN_STEPS, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        want[kernel.save_counter.name] = want[kernel.bwd_counter.name] = LAYERS * TRAIN_STEPS
+        self.check(counts == want, f"{tag} train launch counts over {TRAIN_STEPS} steps: "
+                                   f"{counts} (expected {want})")
+        for c in (kernel.save_counter, kernel.bwd_counter):
+            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+        finite = all(np.isfinite(v) for v in losses)
+        tail = sum(losses[-3:]) / 3
+        self.check(finite and len(losses) == TRAIN_STEPS and tail < LOSS_FALL * losses[0],
+                   f"{tag} bf16 loss {losses[0]:.4f} -> mean of the last 3 {tail:.4f} over "
+                   f"{len(losses)} steps (must fall below {LOSS_FALL} x the first): "
+                   + " ".join(f"{v:.4f}" for v in losses))
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        self.train_step_ms[graves] = med
+        log(f"{tag} train: {TRAIN_STEPS} steps of B={TRAIN_B} T={TRAIN_T} in {wall:.3f} s; "
+            f"step ms after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
+            f"{step_ms[-1]:.2f}); {TRAIN_B * TRAIN_T / med * 1e3:.0f} tokens/s at the median; "
+            f"first step {1e3 * (stamps[0] - t0):.1f} ms")
+
+        # ---- kernels vs the plain trainer, the first CMP_STEPS steps
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            got = losses[:CMP_STEPS] if dtype == torch.bfloat16 else fit(CMP_STEPS, dtype)[0]
+            with plain_recurrences():
+                want_l = fit(CMP_STEPS, dtype)[0]
+            err = max(abs(a - b) for a, b in zip(got, want_l))
+            self.check(err <= TRAIN_TOL[dname],
+                       f"{tag} {dname} first {CMP_STEPS} losses, kernels "
+                       f"{' '.join(f'{v:.5f}' for v in got)} vs plain "
+                       f"{' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
+                       f"tol={TRAIN_TOL[dname]:g}")
+        env.allow_bfloat16()
+
     def times_phase(self):
+        """Each kernel's time at the serving/training shape, bf16, with the
+        main path's arguments (GravesLSTM: peepholes, no mask), beside its
+        bound, its plain version's time and, for the plain cell, cuDNN's."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
         T, B, H = KERNEL_SHAPES[0]
         dt = torch.bfloat16
-        specs = [
-            ("fused_graves_lstm", True,
-             "deeplearning4j_tpu/ops/pallas/fused_lstm_graves.py:146"),
-            ("fused_lstm", False, "deeplearning4j_tpu/ops/pallas/fused_lstm.py:162"),
-        ]
-        for name, peep, replaces in specs:
-            # the main path's arguments: GravesLSTM has peepholes, no mask
+        cudnn = self.cudnn_ms(T, B, H, dt)
+        log(f"torch.nn.LSTM (cuDNN), layer 0's work incl. its input projection, T={T} B={B} "
+            f"H={H} bf16: inference {cudnn['infer']:.3f} ms, training forward "
+            f"{cudnn['fwd']:.3f} ms + backward {cudnn['bwd']:.3f} ms = "
+            f"{cudnn['fwd'] + cudnn['bwd']:.3f} ms")
+        pallas = "deeplearning4j_tpu/ops/pallas/"
+        specs = [("fused_graves_lstm", True, pallas + "fused_lstm_graves.py:146",
+                  pallas + "fused_lstm_graves.py:241"),
+                 ("fused_lstm", False, pallas + "fused_lstm.py:162", pallas + "fused_lstm.py:242")]
+        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
+        for cell, peep, fwd_line, bwd_line in specs:
+            mod = self.cell_module(cell)
             a = lstm_inputs(T, B, H, dt, self.device, seed=5, peep=peep, mask=False)
-            if peep:
-                def kern():
-                    return fg.fused_graves_lstm(a["zx"], a["w_rec"], a["peep"], a["h0"], a["c0"])
-
-                def plain():
-                    return fg.fused_graves_lstm_reference(a["zx"], a["w_rec"], a["peep"],
-                                                          a["h0"], a["c0"])
-            else:
-                def kern():
-                    return fl.fused_lstm(a["zx"], a["w_rec"], a["h0"], a["c0"])
-
-                def plain():
-                    return fl.fused_lstm_reference(a["zx"], a["w_rec"], a["h0"], a["c0"])
-            outs = kern()
-            ms = cuda_ms(kern, reps=10)
-            plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            bound_ms, bound_by = bound(a, outs)
-            library_ms = None if peep else self.cudnn_ms(T, B, H, dt)
-            row = self.kernels.setdefault(name, {})
-            row.update({"name": name, "route": "cuda",
-                        "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/lstm_fwd.cu",
-                        "replaces": replaces, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms})
-            log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
-                f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
-                f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+            fwd = (a["zx"], a["w_rec"], a["peep"], a["h0"], a["c0"], None)
+            outs = fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True)
+            g = torch.Generator().manual_seed(6)
+            cot = [torch.randn(s_, generator=g).to(dt).to(self.device)
+                   for s_ in ((T, B, H), (B, H), (B, H))]
+            bwd = (*cot, outs[3], outs[4], a["c0"], a["w_rec"], a["peep"], None)
+            grads = fl.launch_lstm_bwd(*bwd, mod.bwd_counter)
+            rows = [
+                (mod.counter.name, "lstm_fwd.cu", fwd_line, fwd, outs[:3],
+                 lambda: fl.launch_lstm_fwd(*fwd, mod.counter),
+                 lambda: fl.lstm_reference(*fwd), cudnn["infer"]),
+                (mod.save_counter.name, "lstm_fwd.cu", fwd_line, fwd, outs,
+                 lambda: fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True),
+                 lambda: fl.lstm_reference(*fwd, save=True), cudnn["fwd"]),
+                (mod.bwd_counter.name, "lstm_bwd.cu", bwd_line, bwd, grads,
+                 lambda: fl.launch_lstm_bwd(*bwd, mod.bwd_counter),
+                 lambda: fl.lstm_bwd_reference(*bwd), cudnn["bwd"]),
+            ]
+            for name, src, replaces, ins, outs_, kern, plain, lib in rows:
+                ms = cuda_ms(kern, reps=10)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                bound_ms, bound_by = bound(list(ins) + list(outs_), 2.0 * T * B * H * 4 * H, dt)
+                library_ms = None if peep else lib
+                self.kernels.setdefault(name, {}).update({
+                    "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms})
+                log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
+                    f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
+                    f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+            step = self.train_step_ms.get(peep)
+            if step is not None:
+                kms = LAYERS * (self.kernels[mod.save_counter.name]["ms"]
+                                + self.kernels[mod.bwd_counter.name]["ms"])
+                log(f"graves={peep} training step: the recurrent kernels take {LAYERS} x "
+                    f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
+                    f"({100 * kms / step:.0f}%)")
 
     def cudnn_ms(self, T, B, H, dtype):
         """``torch.nn.LSTM`` (cuDNN) on layer 0's work: the input projection
-        from the 96-wide one-hot plus the recurrence. A yardstick only."""
+        from the 96-wide one-hot plus the recurrence. Inference, training
+        forward, and the backward alone (on a retained graph). A yardstick
+        only: the port never calls it."""
         torch = self.torch
         lstm = torch.nn.LSTM(VOCAB, H).to(self.device, dtype)
         lstm.flatten_parameters()
         x = torch.randn(T, B, VOCAB, device=self.device, dtype=dtype)
         with torch.inference_mode():
-            return cuda_ms(lambda: lstm(x), reps=10)
+            infer = cuda_ms(lambda: lstm(x), reps=10)
+        xg = x.clone().requires_grad_()
+        fwd = cuda_ms(lambda: lstm(xg), reps=10)
+        out, _ = lstm(xg)
+        dy = torch.randn_like(out)
+        wrt = list(lstm.parameters()) + [xg]
+        bwd = cuda_ms(lambda: torch.autograd.grad(out, wrt, dy, retain_graph=True), reps=10)
+        return {"infer": infer, "fwd": fwd, "bwd": bwd}
 
 
 def nvidia_smi():
@@ -437,6 +710,8 @@ def main() -> int:
     try:
         smoke.phase("slice graves=True", lambda: smoke.slice_phase(True, workdir))
         smoke.phase("slice graves=False", lambda: smoke.slice_phase(False, workdir))
+        smoke.phase("train graves=True", lambda: smoke.train_phase(True))
+        smoke.phase("train graves=False", lambda: smoke.train_phase(False))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("times", smoke.times_phase)

@@ -1,15 +1,23 @@
-"""MultiLayerNetwork: linear layer stack, inference path.
+"""MultiLayerNetwork: linear layer stack, training and inference.
 
 Counterpart of ``deeplearning4j_tpu/models/multi_layer_network.py``:
-``init``, ``output``, the stateful RNN API (``rnn_time_step``,
-``rnn_time_step_external``, ``rnn_get_state``/``rnn_set_state``/
-``rnn_zero_state``/``rnn_clear_previous_state``) and ``save``/``load``.
-``_forward`` keeps the JAX semantics of ``:156-215``: the input and the
-parameters are cast to ``compute_dtype``; the output layer runs through
-``activate`` (a softmax at every timestep for ``RnnOutputLayer``); carries
-start in ``carry_dtype``. PyTorch runs eagerly, so there is no jit cache;
-every entry point runs under ``torch.inference_mode``. ``fit`` comes with
-training.
+``init``, ``fit`` (with truncated BPTT), ``score``, ``output``, listeners,
+the stateful RNN API (``rnn_time_step``, ``rnn_time_step_external``,
+``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
+``rnn_clear_previous_state``) and ``save``/``load``. ``_forward`` keeps the
+JAX semantics of ``:156-215``: the input and the parameters are cast to
+``compute_dtype`` (the parameters stay ``default_dtype`` masters, and their
+gradients come back through the cast); layers apply their input dropout in
+training; the output layer runs through ``activate`` (a softmax at every
+timestep for ``RnnOutputLayer``); carries start in ``carry_dtype``.
+
+PyTorch runs eagerly, so there is no jit cache and no packed, grouped or
+prefetched step: ``fit`` is a plain loop of ``_loss`` -> ``torch.autograd``
+-> :class:`~..train.updaters.NetworkOptimizer`, one iteration and one
+listener call per batch, or per truncated-BPTT chunk with the carries
+detached between chunks (JAX ``:505-524``). The inference entry points run
+under ``torch.inference_mode``, so the recurrent layers launch the kernels'
+inference instance there.
 
 Parameters live on one device, chosen at :meth:`init`: ``cuda`` unless the
 caller asks for the CPU (``device="cpu"`` or
@@ -24,12 +32,17 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.models._tbptt import carry_dtype
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.models._tbptt import (carry_dtype, is_sequence_array,
+                                                    slice_time)
 from deeplearning4j_tpu_torch.nn.base import Layer, cast_floating
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer
 
 
 def _layer_key(i: int, layer: Layer) -> str:
@@ -55,8 +68,14 @@ class MultiLayerNetwork:
         self.device: Optional[torch.device] = None
         self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._model_state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._optimizer: Optional[NetworkOptimizer] = None
+        # updaterState.npz arrays of a restored archive, loaded into the
+        # optimizer when it is built
+        self._restored_updater_leaves: Optional[List[np.ndarray]] = None
+        self._listeners: List[TrainingListener] = []
         self._iteration = 0
         self._epoch = 0
+        self._score = float("nan")
         self._rnn_carries: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------ init
@@ -82,6 +101,8 @@ class MultiLayerNetwork:
             new_params = params
         self._params = _map_tensors(new_params, lambda t: t.to(self.device))
         self._model_state = _map_tensors(model_state, lambda t: t.to(self.device))
+        self._optimizer = None  # built at the first fit, on these parameters
+        self._restored_updater_leaves = None
         self._rnn_carries = None
         return self
 
@@ -98,25 +119,49 @@ class MultiLayerNetwork:
         return t.to(self.device)
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, model_state, x, *, fmask=None,
+    def _forward(self, params, model_state, x, *, training: bool = False,
+                 generator: Optional[torch.Generator] = None, fmask=None,
                  carries: Optional[Dict] = None):
-        """Compose all layers (inference); returns ``(out, new_carries)``."""
+        """Compose all layers; returns ``(out, last_in, new_carries)``.
+        ``last_in`` is the output layer's input after its input dropout, so
+        the loss and the output see the same activations."""
         cdt = get_environment().compute_dtype
         if x.is_floating_point() and x.dtype != cdt:
             x = x.to(cdt)
         params = cast_floating(params, cdt)
         new_carries = {} if carries is not None else None
+        last_in = x
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             k = _layer_key(i, layer)
             p = params.get(k, {})
             if i == n - 1 and hasattr(layer, "compute_loss"):
+                x = layer._apply_input_dropout(x, layer._g, training, generator)
+                last_in = x
                 x = layer.activate(p, x)
             elif carries is not None and isinstance(layer, BaseRecurrentLayer):
-                x, new_carries[k] = layer.forward_with_carry(p, carries[k], x, mask=fmask)
+                x = layer._apply_input_dropout(x, layer._g, training, generator)
+                x, new_carries[k] = layer.forward_with_carry(
+                    p, carries[k], x, training=training, generator=generator, mask=fmask)
             else:
-                x, _ = layer.forward(p, model_state.get(k, {}), x, mask=fmask)
-        return x, new_carries
+                x, _ = layer.forward(p, model_state.get(k, {}), x, training=training,
+                                     generator=generator, mask=fmask)
+        return x, last_in, new_carries
+
+    def _loss(self, params, model_state, x, y, generator=None, fmask=None, lmask=None,
+              carries=None, training: bool = True):
+        """The output layer's loss on ``(x, y)`` (JAX ``:217-251``); returns
+        ``(loss, new_carries)``."""
+        final = self.layers[-1]
+        if not hasattr(final, "compute_loss"):
+            raise ValueError("Last layer must be an output/loss layer to compute loss")
+        params = cast_floating(params, get_environment().compute_dtype)
+        _, last_in, new_carries = self._forward(params, model_state, x, training=training,
+                                                generator=generator, fmask=fmask,
+                                                carries=carries)
+        k = _layer_key(len(self.layers) - 1, final)
+        loss = final.compute_loss(params.get(k, {}), last_in, y, mask=lmask)
+        return loss, new_carries
 
     def _zero_carries(self, batch: int, dtype) -> Dict[str, Any]:
         return {_layer_key(i, layer): layer.init_carry(batch, dtype, self.device)
@@ -125,19 +170,21 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------- inference
     def output(self, x, training: bool = False, mask=None) -> torch.Tensor:
-        """Forward pass (reference ``output(INDArray)``)."""
-        if training:
-            raise NotImplementedError("training-mode forward comes with fit")
+        """Forward pass (reference ``output(INDArray)``). As in the JAX
+        package (``:612-625``), ``training`` is accepted and the pass runs
+        in inference mode: no dropout, no gradient."""
         self._ensure_init()
         with torch.inference_mode():
             m = None if mask is None else self._as_input(mask)
-            out, _ = self._forward(self._params, self._model_state, self._as_input(x),
-                                   fmask=m)
+            out, _, _ = self._forward(self._params, self._model_state, self._as_input(x),
+                                      fmask=m)
         return out
 
     def _rnn_step(self, carries, x):
         with torch.inference_mode():
-            return self._forward(self._params, self._model_state, x, carries=carries)
+            out, _, new_carries = self._forward(self._params, self._model_state, x,
+                                                carries=carries)
+        return out, new_carries
 
     def rnn_time_step(self, x) -> torch.Tensor:
         """Stateful sequence inference (reference ``rnnTimeStep``): feeds a
@@ -189,6 +236,136 @@ class MultiLayerNetwork:
         else:
             state = _map_tensors(state, lambda t: torch.as_tensor(t).to(self.device))
         return self._rnn_step(state, x)
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, epochs: int = 1, mask=None,
+            labels_mask=None) -> "MultiLayerNetwork":
+        """``fit(iterator)``, ``fit(iterator, epochs=N)`` or
+        ``fit(x, y[, mask, labels_mask])`` (JAX ``:370-409``). ``mask`` is
+        the features mask; the labels mask of per-timestep labels defaults
+        to it."""
+        self._ensure_init()
+        if labels is not None:
+            ds = DataSet(np.asarray(data), np.asarray(labels), features_mask=mask,
+                         labels_mask=labels_mask)
+            iterator = ListDataSetIterator([ds], batch_size=len(ds))
+        else:
+            iterator = data
+        self._run_epochs(iterator, int(epochs))
+        return self
+
+    def _coerce_batch(self, ds):
+        """A DataSet minibatch as tensors ``(x, y, fm, lm)`` on the device
+        (JAX ``train/prefetch.py:70-84``)."""
+        x, y = self._as_input(ds.features), self._as_input(ds.labels)
+        fm = None if ds.features_mask is None else self._as_input(ds.features_mask)
+        lm = self._as_input(ds.labels_mask) if ds.labels_mask is not None \
+            else (fm if y.dim() == 3 else None)
+        return x, y, fm, lm
+
+    def _run_epochs(self, iterator, epochs: int) -> None:
+        if self.conf.global_conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
+            raise NotImplementedError(
+                f"optimization_algo={self.conf.global_conf.optimization_algo!r} is not "
+                "ported to deeplearning4j_tpu_torch yet")
+        for _ in range(epochs):
+            for lst in self._listeners:
+                lst.on_epoch_start(self, self._epoch)
+            for ds in iterator:
+                x, y, fm, lm = self._coerce_batch(ds)
+                if self.conf.tbptt_fwd_length and is_sequence_array(x):
+                    self._fit_tbptt(x, y, fm, lm)
+                else:
+                    loss, _ = self._train_step(x, y, fm, lm)
+                    self._iteration_done(loss)
+            for lst in self._listeners:
+                lst.on_epoch_end(self, self._epoch)
+            self._epoch += 1
+
+    def _fit_tbptt(self, x, y, fmask, lmask) -> None:
+        """Split the time axis into tbptt-length chunks, carrying the hidden
+        state across them with the gradient cut (JAX ``:505-524``)."""
+        L = int(self.conf.tbptt_fwd_length)
+        carries = self._zero_carries(
+            x.shape[0], carry_dtype(x, get_environment().compute_dtype))
+        for t0 in range(0, x.shape[1], L):
+            loss, carries = self._train_step(
+                slice_time(x, t0, L), y[:, t0:t0 + L] if y.dim() >= 3 else y,
+                None if fmask is None else fmask[:, t0:t0 + L],
+                None if lmask is None else lmask[:, t0:t0 + L], carries)
+            carries = _map_tensors(carries, lambda t: t.detach())
+            self._iteration_done(loss)
+
+    def _train_step(self, x, y, fmask, lmask, carries=None):
+        """One step: loss, gradients of the float parameters through the
+        compute-dtype cast, and the optimizer's update in place. Returns the
+        detached loss and the new carries."""
+        optimizer = self._ensure_optimizer()
+        leaves = [(k, n, t) for k, layer in self._params.items()
+                  for n, t in layer.items() if t.is_floating_point()]
+        for _, _, t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, new_carries = self._loss(self._params, self._model_state, x, y,
+                                           self.rng.next_generator(), fmask, lmask, carries)
+            grads = torch.autograd.grad(loss, [t for _, _, t in leaves], allow_unused=True)
+        finally:
+            for _, _, t in leaves:
+                t.requires_grad_(False)
+        tree: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (k, n, t), g in zip(leaves, grads):
+            tree.setdefault(k, {})[n] = torch.zeros_like(t) if g is None else g
+        optimizer.step(self._params, tree)
+        return loss.detach(), new_carries
+
+    def _iteration_done(self, loss) -> None:
+        self._score = loss
+        self._iteration += 1
+        for lst in self._listeners:
+            lst.iteration_done(self, self._iteration, self._epoch, loss)
+
+    def score(self, dataset=None) -> float:
+        """Loss on a DataSet without dropout (reference ``score(DataSet)``,
+        JAX ``:742-760``), or the most recent minibatch's loss when called
+        with no argument."""
+        if dataset is None:
+            return float(self._score)
+        self._ensure_init()
+        with torch.inference_mode():
+            x, y, fm, lm = self._coerce_batch(dataset)
+            loss, _ = self._loss(self._params, self._model_state, x, y, None, fm, lm,
+                                 training=False)
+        return float(loss)
+
+    def set_listeners(self, *listeners: TrainingListener) -> None:
+        self._listeners = list(listeners)
+
+    def add_listeners(self, *listeners: TrainingListener) -> None:
+        self._listeners.extend(listeners)
+
+    def get_listeners(self) -> List[TrainingListener]:
+        return list(self._listeners)
+
+    def _ensure_optimizer(self) -> NetworkOptimizer:
+        """The optimizer, built at first use (it raises by name on an
+        updater or option that is not ported); moments restored from an
+        archive are loaded into it then."""
+        if self._optimizer is None:
+            keys = [_layer_key(i, l) for i, l in enumerate(self.layers)]
+            opt = NetworkOptimizer.for_network(self.layers, keys, self.conf.global_conf,
+                                               self._params)
+            if self._restored_updater_leaves is not None:
+                from deeplearning4j_tpu_torch.models.serializer import load_leaves_like
+                opt.state = load_leaves_like(self._restored_updater_leaves, opt.state)
+                self._restored_updater_leaves = None
+            self._optimizer = opt
+        return self._optimizer
+
+    def updater_state(self):
+        """The optimizer's moments, ``{layer_key: {param: tensor}}``, in the
+        leaf order of the JAX package's ``opt_state`` (empty for ``Sgd``)."""
+        self._ensure_init()
+        return self._ensure_optimizer().state
 
     # -------------------------------------------------------------- plumbing
     def params(self):

@@ -11,8 +11,13 @@ keys sorted as strings, recursively. So ``"model_state"`` < ``"params"``,
 ``"layer_10"`` < ``"layer_2"`` and ``"W"`` < ``"W_rec"`` < ``"b"`` <
 ``"peephole"``. :func:`tree_leaves` reproduces that order without JAX.
 
-The port has no optimizer yet: it writes no ``updaterState.npz`` and ignores
-one it reads.
+``updaterState.npz`` holds the optimizer's moments in the leaf order of the
+JAX package's ``jax.tree.leaves(opt_state)`` (JAX ``serializer.py:33-48``,
+``:75``, ``:132``): for ``RmsProp``, each layer's ``nu`` in sorted layer-key
+and parameter-name order; nothing for ``Sgd``. So an archive written by
+either package resumes training in the other with its optimizer state. The
+port writes the file once its network has an optimizer (after ``fit``, or
+after restoring one), and reads it into the optimizer when that is built.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 _CONF = "configuration.json"
 _COEFF = "coefficients.npz"
+_UPDATER = "updaterState.npz"
 _META = "metadata.json"
 
 
@@ -75,7 +81,9 @@ def params_from_numpy(tree, device=None, dtype=None):
     return conv(tree)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):  # restored updater leaves written back as read
+        return t
     t = t.detach().to("cpu")
     if t.dtype == torch.bfloat16:
         raise TypeError("bfloat16 parameters cannot be written to coefficients.npz "
@@ -89,9 +97,19 @@ def _save_leaves(tree) -> bytes:
     return buf.getvalue()
 
 
-def _load_leaves(data: bytes, like):
+def _read_leaves(data: bytes) -> List[np.ndarray]:
     z = np.load(io.BytesIO(data))
-    leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+    return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+
+def _load_leaves(data: bytes, like):
+    return load_leaves_like(_read_leaves(data), like)
+
+
+def load_leaves_like(leaves: List[np.ndarray], like):
+    """``like``'s structure rebuilt from numpy ``leaves`` in
+    :func:`tree_leaves` order, each on its reference leaf's device and in
+    its dtype; raises on a count or shape mismatch."""
     like_leaves = tree_leaves(like)
     if len(leaves) != len(like_leaves):
         raise ValueError(f"Archive has {len(leaves)} arrays; model expects {len(like_leaves)}")
@@ -121,6 +139,10 @@ class ModelSerializer:
             }))
             zf.writestr(_COEFF, _save_leaves({"params": net.params(),
                                               "model_state": net._model_state}))
+            if net._optimizer is not None:
+                zf.writestr(_UPDATER, _save_leaves(net._optimizer.state))
+            elif net._restored_updater_leaves is not None:
+                zf.writestr(_UPDATER, _save_leaves(net._restored_updater_leaves))
 
     @staticmethod
     def restore_model(path: str, device=None):
@@ -148,6 +170,8 @@ class ModelSerializer:
             coeff = _load_leaves(zf.read(_COEFF), {"params": net.params(),
                                                    "model_state": net._model_state})
             meta = json.loads(zf.read(_META).decode()) if _META in zf.namelist() else {}
+            if _UPDATER in zf.namelist():
+                net._restored_updater_leaves = _read_leaves(zf.read(_UPDATER))
         net._params = coeff["params"]
         net._model_state = coeff["model_state"]
         net._iteration = int(meta.get("iteration", 0))

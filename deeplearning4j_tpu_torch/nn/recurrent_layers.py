@@ -12,10 +12,15 @@ runs in a kernel, routed as in the JAX package (``:139-164``):
   :func:`~..ops.kernels.fused_lstm_graves.fused_graves_lstm`.
 
 Unlike the TPU kernels, these take every batch size, width and length, so
-the default cell always routes to a kernel. A cell with other activations
-runs the plain time loop. Stateful inference uses the explicit carry API
-(``init_carry`` + ``forward_with_carry``); ``MultiLayerNetwork`` owns the
-stored carries. GRU, SimpleRnn, Bidirectional and LastTimeStep come in a
+the default cell always routes to a kernel. The wrappers are differentiable:
+in training (some input needs a gradient) they launch the forward kernel's
+saving instance and, in the backward pass, the backward kernel; under
+``torch.inference_mode`` they launch the inference instance. A cell with
+other activations runs the plain time loop, which autograd differentiates.
+``forward(..., training=True, generator=...)`` drops the layer's input as
+the JAX layer does. Stateful inference and truncated BPTT use the explicit
+carry API (``init_carry`` + ``forward_with_carry``); ``MultiLayerNetwork``
+owns the carries. GRU, SimpleRnn, Bidirectional and LastTimeStep come in a
 later slice.
 """
 

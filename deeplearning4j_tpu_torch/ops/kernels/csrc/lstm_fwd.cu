@@ -7,7 +7,10 @@
 //     (pallas_call at :146, kernel _fwd_kernel :73): peephole cell with a
 //     per-step mask (masked steps hold h/c and emit the held h).
 // One template serves both: PEEP and MASK switch the peephole terms and the
-// mask blend on or off, and T is the storage type (float or bf16).
+// mask blend on or off, and T is the storage type (float or bf16). SAVE
+// (training) also writes the residuals the backward kernel (lstm_bwd.cu)
+// reads, as the Pallas kernels do with save_residuals=True: the activated
+// gates (T, B, 4H) and the carried cell sequence c' (T, B, H), both in T.
 //
 // Function (gate order [i, f, g, o], peepholes [p_i, p_f, p_o]):
 //   z   = zx_t + round_T(h) @ W_rec        (products of T values, fp32 sum)
@@ -39,14 +42,13 @@
 // raises.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
+using namespace dl4j_lstm;
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct Args {
   const void* zx;    // (T, B, 4H)
@@ -58,45 +60,22 @@ struct Args {
   void* ys;          // (T, B, H)
   void* hT;          // (B, H)
   void* cT;          // (B, H)
+  void* gates;       // (T, B, 4H) activated [i, f, g, o], or null: SAVE only
+  void* cseq;        // (T, B, H) carried cell, or null: SAVE only
   int T, B, H;
   int r0, rows;      // batch rows [r0, r0 + rows) handled by this launch
   int units;         // hidden units per block
   int chunk;         // rows of h staged in shared memory at once
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch and XLA cast
-}
-
-// Loads that bypass L1: h_{t-1} was written by other blocks before the
-// barrier, so it must come from L2.
-template <typename T> __device__ __forceinline__ T load_l2(const T* p);
-template <> __device__ __forceinline__ float load_l2<float>(const float* p) {
-  return __ldcg(p);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 load_l2<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
 template <typename T>
-size_t smem_bytes(int H, int rows, int units, int chunk) {
+size_t smem_bytes(int H, int rows, int units, int chunk, bool save) {
   const int C = 4 * units;
   return sizeof(float) * ((size_t)rows * C + 2 * (size_t)rows * units) +
-         sizeof(T) * ((size_t)H * C + (size_t)chunk * H);
+         sizeof(T) * ((save ? (size_t)rows * C : 0) + (size_t)H * C + (size_t)chunk * H);
 }
 
-template <typename T, bool PEEP, bool MASK>
+template <typename T, bool PEEP, bool MASK, bool SAVE>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -105,7 +84,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   float* zb = reinterpret_cast<float*>(smem);  // (R, C) recurrent products
   float* hown = zb + (size_t)R * C;            // (R, U) fp32 h carry
   float* cown = hown + (size_t)R * U;          // (R, U) fp32 c carry
-  T* ws = reinterpret_cast<T*>(cown + (size_t)R * U);  // (H, C) W_rec slice
+  T* gs = reinterpret_cast<T*>(cown + (size_t)R * U);  // (R*U, 4) gates, SAVE only
+  T* ws = gs + (SAVE ? (size_t)R * C : 0);             // (H, C) W_rec slice
   T* hs = ws + (size_t)H * C;                          // (RC, H) staged h
 
   const T* zx = static_cast<const T*>(a.zx);
@@ -117,6 +97,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   T* ys = static_cast<T*>(a.ys);
   T* hT = static_cast<T*>(a.hT);
   T* cT = static_cast<T*>(a.cT);
+  T* gates = static_cast<T*>(a.gates);
+  T* cseq = static_cast<T*>(a.cseq);
   const int j0 = blockIdx.x * U;
 
   // Pin this block's gate columns: ws[k, g*U + u] = W_rec[k, g*H + j0 + u].
@@ -132,7 +114,25 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   }
   __syncthreads();
 
+  // SAVE: write step ts's gates, kept in gs since before its barrier. Issued
+  // after the barrier, the stores drain while the next step computes instead
+  // of holding up the barrier's fence (written before it, they added ~60% to
+  // the launch). Each thread writes back what it put in gs.
+  auto flush_gates = [&](int ts) {
+    for (int idx = threadIdx.x; idx < R * U; idx += kThreads) {
+      const int j = j0 + idx % U;
+      if (j >= H) continue;
+      T* gr = gates + ((size_t)ts * B + a.r0 + idx / U) * 4 * H;
+      const T* g = gs + (size_t)idx * 4;
+      gr[j] = g[0];
+      gr[H + j] = g[1];
+      gr[2 * H + j] = g[2];
+      gr[3 * H + j] = g[3];
+    }
+  };
+
   for (int t = 0; t < a.T; ++t) {
+    if (SAVE && t > 0) flush_gates(t - 1);
     const T* hprev = t == 0 ? h0 : ys + (size_t)(t - 1) * B * H;
     for (int rc0 = 0; rc0 < R; rc0 += RC) {
       const int nr = min(RC, R - rc0);
@@ -169,7 +169,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
       const float ig = sigmoid(zi), fg = sigmoid(zf), gg = tanhf(zg);
       float cn = fg * c + ig * gg;
       if (PEEP) zo += cn * to_f(peep[2 * H + j]);
-      float hn = sigmoid(zo) * tanhf(cn);
+      const float og = sigmoid(zo);
+      float hn = og * tanhf(cn);
       if (MASK) {
         const float m = to_f(mask[(size_t)t * B + b]);
         hn = m * hn + (1.0f - m) * h;
@@ -178,6 +179,14 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
       hown[idx] = hn;
       cown[idx] = cn;
       ys[((size_t)t * B + b) * H + j] = from_f<T>(hn);
+      if (SAVE) {  // the backward's residuals, in T
+        T* g = gs + (size_t)idx * 4;
+        g[0] = from_f<T>(ig);
+        g[1] = from_f<T>(fg);
+        g[2] = from_f<T>(gg);
+        g[3] = from_f<T>(og);
+        cseq[((size_t)t * B + b) * H + j] = from_f<T>(cn);
+      }
       if (t == a.T - 1) {
         hT[(size_t)b * H + j] = from_f<T>(hn);
         cT[(size_t)b * H + j] = from_f<T>(cn);
@@ -186,65 +195,46 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
     // every block's ys[t] must be written before any block stages it
     if (t + 1 < a.T) grid.sync();
   }
+  if (SAVE) flush_gates(a.T - 1);
 }
 
-// Pick the units per block and the staged row chunk so that every block of
-// the grid is co-resident (a cooperative launch refuses otherwise): start
-// from about one block per SM and widen the blocks until they fit.
-template <typename T, bool PEEP, bool MASK>
-cudaError_t plan_and_launch(Args a, cudaStream_t stream) {
-  auto kern = lstm_fwd_kernel<T, PEEP, MASK>;
-  int dev = 0, sms = 0, optin = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  for (int units = (a.H + sms - 1) / sms; units <= a.H; ++units) {
-    const size_t fixed = smem_bytes<T>(a.H, a.rows, units, 0);
-    if (fixed + sizeof(T) * a.H > (size_t)optin) break;
-    int chunk = (int)(((size_t)optin - fixed) / (sizeof(T) * a.H));
-    chunk = chunk < a.rows ? chunk : a.rows;
-    const size_t smem = smem_bytes<T>(a.H, a.rows, units, chunk);
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    const int blocks = (a.H + units - 1) / units;
-    if (blocks > per_sm * sms) continue;
-    a.units = units;
-    a.chunk = chunk;
-    void* params[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks), dim3(kThreads), params,
-                                      smem, stream);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidConfiguration;
+template <typename T, bool PEEP, bool MASK, bool SAVE>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto smem = [&](int units, int chunk) {
+    return smem_bytes<T>(a.H, a.rows, units, chunk, SAVE);
+  };
+  return launch_cooperative(lstm_fwd_kernel<T, PEEP, MASK, SAVE>, a, smem,
+                            sizeof(T) * a.H, stream);
+}
+
+template <typename T, bool SAVE>
+cudaError_t dispatch_cell(const Args& a, cudaStream_t s) {
+  if (a.peep && a.mask) return launch<T, true, true, SAVE>(a, s);
+  if (a.peep) return launch<T, true, false, SAVE>(a, s);
+  if (a.mask) return launch<T, false, true, SAVE>(a, s);
+  return launch<T, false, false, SAVE>(a, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t s) {
-  if (a.peep && a.mask) return plan_and_launch<T, true, true>(a, s);
-  if (a.peep) return plan_and_launch<T, true, false>(a, s);
-  if (a.mask) return plan_and_launch<T, false, true>(a, s);
-  return plan_and_launch<T, false, false>(a, s);
+  return a.gates ? dispatch_cell<T, true>(a, s) : dispatch_cell<T, false>(a, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. peep and mask may be null. Handles batch
-// rows [r0, r0 + rows) of the (T, B, .) tensors. Returns the cudaError_t of
-// the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. peep and mask may be null. gates and
+// cseq are both null (the inference instance) or both set (the training
+// instance, which also saves the backward's residuals). Handles batch rows
+// [r0, r0 + rows) of the (T, B, .) tensors. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int dl4j_lstm_fwd(int dtype, const void* zx, const void* w_rec, const void* peep,
                              const void* h0, const void* c0, const void* mask, void* ys,
-                             void* hT, void* cT, int T, int B, int H, int r0, int rows,
-                             void* stream) {
-  if (T < 1 || B < 1 || H < 1 || rows < 1 || r0 < 0 || r0 + rows > B)
+                             void* hT, void* cT, void* gates, void* cseq, int T, int B,
+                             int H, int r0, int rows, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || rows < 1 || r0 < 0 || r0 + rows > B ||
+      (gates == nullptr) != (cseq == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args a{zx, w_rec, peep, h0, c0, mask, ys, hT, cT, T, B, H, r0, rows, 0, 0};
+  Args a{zx, w_rec, peep, h0, c0, mask, ys, hT, cT, gates, cseq, T, B, H, r0, rows, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, s);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, s);

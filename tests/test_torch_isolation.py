@@ -84,6 +84,8 @@ def _entry_points(path):
             TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).conf()).output(x),
         "MultiLayerNetwork.rnn_time_step": lambda: MultiLayerNetwork(
             TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).conf()).rnn_time_step(x),
+        "MultiLayerNetwork.fit": lambda: MultiLayerNetwork(
+            TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).conf()).fit(x, x),
         "MultiLayerNetwork.load": lambda: MultiLayerNetwork.load(path),
         "ModelSerializer.restore_model": lambda: ModelSerializer.restore_model(path),
         "ModelRegistry.load": lambda: ModelRegistry().load("m", path),
@@ -91,7 +93,8 @@ def _entry_points(path):
 
 
 ENTRY_POINTS = ["zoo.init", "MultiLayerNetwork.init", "MultiLayerNetwork.output",
-                "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.load",
+                "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.fit",
+                "MultiLayerNetwork.load",
                 "ModelSerializer.restore_model", "ModelRegistry.load"]
 
 
