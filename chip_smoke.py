@@ -17,7 +17,12 @@ the card and exits nonzero if any phase fails:
             the residuals), and the backward (ds, dh0, dc0, on the same
             residuals); then the whole autograd wrapper's float32 gradients
             against ``torch.autograd`` of the plain forward. Max error beside
-            the tolerance;
+            the tolerance. The flash-attention kernel, both instances
+            (inference: o; saving: o and lse), against its plain version in
+            float32 and bfloat16 at BERT-base serving's shape (with and
+            without a key-padding mask holding a length-1 row and a fully
+            masked row), at T=4096 causal, and at ragged, cross-attention,
+            d_v != d and d=256 shapes;
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -28,7 +33,13 @@ the card and exits nonzero if any phase fails:
             over 4 chunks of 64 steps must equal the whole-sequence output.
             Once with ``graves=True`` (GravesLSTM, kernels of
             ``fused_lstm_graves``) and once with ``graves=False`` (LSTM,
-            kernels of ``fused_lstm``);
+            kernels of ``fused_lstm``). Then ``slice bert``: ``Bert.base()``
+            (L=12, H=768, A=12) with random weights from its zoo seed, bf16
+            compute, through an archive and ``ModelRegistry.load``, serving
+            8 client threads requests of 1-64 rows of T=128 token ids: every
+            answer against the forward with the plain attention, 12 flash
+            launches per batch, masked rows against the same rows cut to
+            their tokens, p50 of a 64-row request and samples/s;
 4. train  : the training path at full width. The same network with
             ``tbptt_length=256`` is trained by ``fit`` in bf16 compute on 20
             seeded batches of B=64, T=256 (``bench_char_rnn``'s shape); the
@@ -42,12 +53,17 @@ the card and exits nonzero if any phase fails:
             after warm-up) beside its bound, its plain version's time and,
             for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
             forward and backward as a yardstick the port never calls; the
-            kernels' share of a training step.
+            kernels' share of a training step. The flash kernel in bf16 at
+            BERT-base serving's shape (unmasked as served, and masked) and
+            at T=4096 causal, beside its bound, its saving instance, its
+            plain version and ``scaled_dot_product_attention`` (a yardstick
+            the port never calls); attention's share of a BERT request.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
-row per kernel instance: the inference and saving forwards and the backward
-of each cell) and the card's name and power limit as ``nvidia-smi`` gives
-them; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
+row per kernel instance on a main path: the inference and saving forwards
+and the backward of each LSTM cell, and the inference flash attention)
+and the card's name and power limit as ``nvidia-smi`` gives them; the last
+line is ``{"ok": true, "device": {...}}``. With no CUDA
 device, or without the rest of the repository beside it, it prints no
 result and exits nonzero.
 """
@@ -113,6 +129,33 @@ TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # alone are worth about 3% of that; RmsProp at the zoo's 1e-3 learns them
 # within TRAIN_STEPS steps, the successors themselves only later.
 LOSS_FALL = 0.98
+# Flash attention kernel checks: (b, h, t_q, t_k, d, d_v, key-padding mask,
+# causal). BERT-base serving (with and without a mask that holds a length-1
+# row and a fully masked row), the causal heads of
+# examples/long_context_attention.py (12 x d=64) at T=4096, ragged lengths,
+# cross attention, d_v != d, and the widest head the kernel takes.
+FLASH_SHAPES = [(64, 12, 128, 128, 64, 64, False, False), (64, 12, 128, 128, 64, 64, True, False),
+                (1, 12, 4096, 4096, 64, 64, False, True), (3, 2, 77, 77, 64, 64, True, False),
+                (3, 2, 77, 77, 64, 64, True, True), (2, 4, 100, 300, 32, 32, True, False),
+                (2, 2, 256, 256, 128, 128, True, False), (2, 2, 256, 256, 128, 128, False, True),
+                (2, 3, 33, 47, 48, 160, True, False), (2, 2, 70, 70, 256, 256, True, True)]
+# Flash kernel vs its plain version, max abs error of o and of lse. float32:
+# summation order only (the online softmax rescales partial sums the dense
+# softmax never forms). bfloat16: both round P to bf16 before P @ V, the
+# kernel relative to the running max, the plain version relative to the
+# final one, so a P value and then o can land one bf16 ulp apart (0.0078 at
+# |o| in [1, 2)); 4 ulps of headroom. lse is fp32 on both sides from the same
+# scores: summation order of up to 4096 terms of l.
+FLASH_TOL = {"float32": (2e-5, 1e-3), "bfloat16": (3.2e-2, 1e-3)}
+# BERT-base serving: Bert.base() (L=12, H=768, A=12), bf16 compute over fp32
+# weights, requests of 1-64 rows of T=128 token ids, as bench_zoo_bert.
+BERT_T, BERT_B, BERT_LAYERS, BERT_VOCAB = 128, 64, 12, 30522
+# Served class probabilities vs the forward built from the plain versions,
+# and masked rows vs the same rows cut to their tokens: bf16 compute, where a
+# one-ulp difference in an attention output (see FLASH_TOL) or in a product
+# of another shape passes through 12 residual + LayerNorm layers into the
+# pooler and the softmax.
+BERT_TOL = 2e-2
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -156,6 +199,36 @@ def lstm_inputs(T, B, H, dtype, device, seed, peep, mask):
         a["mask"] = None
     return {k: None if v is None else v.to(dtype).to(device).contiguous()
             for k, v in a.items()}
+
+
+def flash_inputs(b, h, t_q, t_k, d, d_v, dtype, device, seed, mask):
+    """q, k, v in the JAX layout and, with ``mask``, a key-padding mask of
+    random lengths (with 3 rows or more: row 0 attends one key, row 1
+    none)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(b, h, t, d, generator=g) for t in (t_q, t_k))
+    v = torch.randn(b, h, t_k, d_v, generator=g)
+    m = None
+    if mask:
+        lengths = torch.randint(1, t_k + 1, (b,), generator=g)
+        if b >= 3:
+            lengths[0], lengths[1] = 1, 0
+        m = (torch.arange(t_k)[None, :] < lengths[:, None]).to(device)
+    return [t.to(dtype).to(device) for t in (q, k, v)], m
+
+
+def attention_pairs(b, h, t_q, t_k, mask, causal):
+    """(query, key) pairs the function needs on these inputs: the keys a
+    row attends (every key for a fully masked row, whose answer is the mean
+    of V), or those on and below the diagonal when causal (not both)."""
+    if mask is not None and causal:
+        raise ValueError("attention_pairs counts a mask or the causal triangle, not both")
+    per_row = t_q * (t_q + 1) // 2 if causal else t_q * t_k
+    if mask is None:
+        return b * h * per_row
+    keys = mask.sum(dim=1).tolist()
+    return h * sum(t_q * (n if n else t_k) for n in keys)
 
 
 def max_err(got, want, relative=False):
@@ -237,6 +310,26 @@ class plain_recurrences:
         return False
 
 
+class plain_attention:
+    """Within the block every attention layer runs the flash kernel's plain
+    version (``flash_attention_reference``) in place of the kernel's
+    wrapper: the forward built from the plain versions, for comparison
+    only."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn import attention_layers as al
+        from deeplearning4j_tpu_torch.ops.kernels.flash_attention import \
+            flash_attention_reference
+        self.al, self.saved = al, al.flash_attention
+        al.flash_attention = lambda q, k, v, mask=None, causal=False: \
+            flash_attention_reference(q, k, v, mask, causal)[0]
+        return self
+
+    def __exit__(self, *exc):
+        self.al.flash_attention = self.saved
+        return False
+
+
 class Smoke:
     def __init__(self, device):
         import torch
@@ -245,6 +338,7 @@ class Smoke:
         self.failures = []
         self.kernels = {}  # name -> JSON row
         self.train_step_ms = {}  # graves -> median step ms of the train phase
+        self.bert_p50_ms = None  # one 64-row BERT-base request, p50
 
     def check(self, ok, what):
         log(("ok   " if ok else "FAIL ") + what)
@@ -264,7 +358,8 @@ class Smoke:
         log(f"== {name} took {time.perf_counter() - t0:.1f} s")
 
     def build(self):
-        from deeplearning4j_tpu_torch.ops.kernels import _native, fused_lstm  # noqa: F401
+        from deeplearning4j_tpu_torch.ops.kernels import (_native, flash_attention,  # noqa: F401
+                                                          fused_lstm)
         t0 = time.perf_counter()
         seconds = _native.build_all()
         log(f"kernel build: {time.perf_counter() - t0:.2f} s wall; per source {seconds}")
@@ -273,10 +368,11 @@ class Smoke:
             for line in lib.build_log.splitlines():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
-                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE> from its mangled name
-                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:Lb\dE)+)", kernel)
+                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE> or
+                    # flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
+                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)+)", kernel)
                     if m:
-                        flags = ", ".join(re.findall(r"Lb(\d)E", m[3]))
+                        flags = ", ".join(re.findall(r"L[ib](\d+)E", m[3]))
                         kernel = f"{m[1]}<{m[2]}, {flags}>"
                 elif "Used" in line and "registers" in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
@@ -290,6 +386,39 @@ class Smoke:
         for T, B, H in GRAD_SHAPES:
             for cell, peep, mask in CELLS:
                 self.check_autograd(cell, T, B, H, peep, mask)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in FLASH_SHAPES:
+                self.check_flash(shape, dtype)
+
+    def check_flash(self, shape, dtype):
+        """Both flash instances (inference: o; saving: o and lse) against
+        the plain version on the same inputs."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        b, h, t_q, t_k, d, d_v, masked, causal = shape
+        dname = str(dtype).replace("torch.", "")
+        (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dtype, self.device,
+                                       seed=t_q + 3 * t_k + d_v, mask=masked)
+        bias = fa.key_bias(mask, b, t_k)
+        with torch.no_grad():
+            got = fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter)
+            got_o, got_lse = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
+            torch.cuda.synchronize()
+            want_o, want_lse = fa.flash_attention_reference(q, k, v, mask, causal)
+        torch.cuda.synchronize()
+        tol_o, tol_lse = FLASH_TOL[dname]
+        tag = (f"{dname:8s} b={b:2d} h={h:2d} t_q={t_q:4d} t_k={t_k:4d} d={d:3d} d_v={d_v:3d} "
+               f"mask={'yes' if masked else 'no '} causal={'yes' if causal else 'no '}")
+        err = max_err([got], [want_o])
+        err_o, err_lse = max_err([got_o], [want_o]), max_err([got_lse], [want_lse])
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (got, got_o))
+        self.check(finite and err <= tol_o,
+                   f"{fa.counter.name:22s} {tag} o max_abs_err={err:.3g} tol={tol_o:g}")
+        self.check(finite and err_o <= tol_o and err_lse <= tol_lse,
+                   f"{fa.lse_counter.name:22s} {tag} o max_abs_err={err_o:.3g} tol={tol_o:g}, "
+                   f"lse max_abs_err={err_lse:.3g} tol={tol_lse:g}")
+        if shape == FLASH_SHAPES[0] and dtype == torch.bfloat16:
+            self.kernels.setdefault(fa.counter.name, {})["max_abs_err"] = err
 
     def check_kernels(self, cell, T, B, H, dtype, peep, mask):
         """The inference forward, the saving forward and the backward kernel
@@ -514,6 +643,161 @@ class Smoke:
         reg.shutdown()
         self.check(not served.batcher._worker.is_alive(), f"{tag} registry shut down")
 
+    def bert_phase(self, workdir):
+        """BERT-base serving at full width: ``Bert.base()`` from its zoo
+        seed, bf16 compute over fp32 weights, written to an archive, loaded
+        by ``ModelRegistry.load`` and served to 8 client threads sending
+        1-64 rows of T=128 token ids. Every answer against the forward built
+        from the plain versions; 12 flash launches per batch; masked rows
+        against the same rows cut to their tokens; p50 of one 64-row request
+        and samples/s."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.zoo import Bert
+
+        get_environment().allow_bfloat16()
+        t0 = time.perf_counter()
+        net = Bert.base().init(device=self.device)
+        path = os.path.join(workdir, "bert-base.zip")
+        ModelSerializer.write_model(net, path)
+        del net
+        t1 = time.perf_counter()
+        reg = ModelRegistry()
+        served = reg.load("bert", path, device=self.device, max_batch_size=BERT_B,
+                          batch_timeout_ms=5.0)
+        log(f"bert: init + write_model {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.0f} MB "
+            f"archive), ModelRegistry.load {time.perf_counter() - t1:.1f} s")
+        rng = np.random.default_rng(4321)
+        rows = rng.integers(1, BERT_B + 1, (CLIENTS, REQUESTS_PER_CLIENT))
+        rows[0, 0], rows[1, 0] = 1, BERT_B
+        reqs = [[rng.integers(0, BERT_VOCAB, (int(n), BERT_T)) for n in r] for r in rows]
+        answers = [[None] * REQUESTS_PER_CLIENT for _ in range(CLIENTS)]
+        lat, errors = [], []
+        lat_lock = threading.Lock()
+
+        def client(c):
+            try:
+                for k, x in enumerate(reqs[c]):
+                    t_req = time.perf_counter()
+                    answers[c][k] = reg.predict("bert", x)
+                    with lat_lock:
+                        lat.append(time.perf_counter() - t_req)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,), name=f"smoke-bert-{c}")
+                   for c in range(CLIENTS)]
+        counters = [fa.counter, fa.lse_counter] + [c for m in (fl, fg) for c in
+                                                   (m.counter, m.save_counter, m.bwd_counter)]
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        batches = served.batcher.batches
+        self.check(not errors, f"bert serving: {len(lat)} requests answered, errors={errors}")
+        want = {c.name: 0 for c in counters}
+        want[fa.counter.name] = BERT_LAYERS * batches
+        self.check(counts == want, f"bert launch counts over the serving run: {counts} "
+                                   f"(expected {BERT_LAYERS} layers x {batches} batches of "
+                                   f"{fa.counter.name}, nothing else)")
+        self.kernels.setdefault(fa.counter.name, {})["launches"] = counts[fa.counter.name]
+        model = served.model
+        worst = 0.0
+        with plain_attention():
+            for c in range(CLIENTS):
+                for k, x in enumerate(reqs[c]):
+                    got, n = answers[c][k], x.shape[0]
+                    bucket = next(b for b in served.batcher.buckets if b >= n)
+                    padded = np.zeros((bucket, BERT_T), x.dtype)
+                    padded[:n] = x
+                    want_p = model.output(padded).float().cpu().numpy()[:n]
+                    ok = got is not None and got.shape == (n, 2) and bool(np.isfinite(got).all())
+                    worst = max(worst, float(np.abs(got - want_p).max()) if ok else float("inf"))
+        self.check(worst <= BERT_TOL,
+                   f"bert {CLIENTS * REQUESTS_PER_CLIENT} served answers vs plain forward: "
+                   f"max_abs_err={worst:.3g} tol={BERT_TOL:g}")
+        total_rows = int(rows.sum())
+        lat_ms = sorted(1e3 * v for v in lat)
+        log(f"bert serving: {len(lat)} requests, {total_rows} rows x {BERT_T} tokens in "
+            f"{wall:.3f} s over {batches} batches (buckets {served.batcher.bucket_counts}); "
+            f"latency p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, max {lat_ms[-1]:.2f} ms; "
+            f"{total_rows / wall:.0f} samples/s")
+
+        # masked rows == the same rows cut to their tokens
+        lengths = [1, 2, 7, 31, 64, 100, 127, BERT_T]
+        x = reqs[1][0][:len(lengths)]
+        m = (np.arange(BERT_T)[None, :] < np.array(lengths)[:, None]).astype(np.float32)
+        before = fa.counter.value
+        full = model.output(x, mask=m).float().cpu().numpy()
+        err = max(float(np.abs(full[i] - model.output(x[i:i + 1, :n]).float().cpu().numpy()[0])
+                        .max()) for i, n in enumerate(lengths))
+        launched = fa.counter.value - before
+        self.check(err <= BERT_TOL and launched == BERT_LAYERS * (1 + len(lengths)),
+                   f"bert masked output vs rows cut to lengths {lengths}: max_abs_err={err:.3g} "
+                   f"tol={BERT_TOL:g}; {launched} launches (expected "
+                   f"{BERT_LAYERS * (1 + len(lengths))})")
+
+        # one full-bucket request at a time: latency and samples/s
+        x = reqs[1][0]  # BERT_B rows
+        reg.predict("bert", x)  # warm-up
+        ms = []
+        for _ in range(20):
+            t_req = time.perf_counter()
+            reg.predict("bert", x)
+            ms.append(1e3 * (time.perf_counter() - t_req))
+        ms.sort()
+        self.bert_p50_ms = ms[len(ms) // 2]
+        log(f"bert one {BERT_B}-row T={BERT_T} request at a time, {len(ms)} requests: p50 "
+            f"{self.bert_p50_ms:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
+            f"{BERT_B / self.bert_p50_ms * 1e3:.0f} samples/s at p50")
+        self.device_breakdown(lambda: model.output(x), f"bert {BERT_B}-row output")
+        reg.shutdown()
+        self.check(not served.batcher._worker.is_alive(), "bert registry shut down")
+
+    def device_breakdown(self, fn, what, reps=5):
+        """Device busy time per call of ``fn`` from ``torch.profiler``
+        (the sum of its kernels' device time, so idle gaps between kernels
+        are not in it), the kernels that take most of it, and the busy
+        share of the host wall time of the same calls (the profiler's own
+        host cost is in that wall time)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        dev_ms = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                   getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps
+        busy = sum(dev_ms(e) for e in kernels)
+        if busy <= 0:
+            log(f"{what}: the profiler saw no device time (not measured)")
+            return
+        top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+        log(f"{what}: device busy {busy:.3f} ms per call over {reps} calls, "
+            f"{sum(e.count for e in kernels) // reps} kernels per call; host wall under the "
+            f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%); top kernels: "
+            + "; ".join(f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count // reps}" for e in top))
+
     def train_phase(self, graves):
         """``fit`` of the full-width char-RNN in bf16 through the kernels
         (the main path, counted), then the first steps again in float32 and
@@ -647,6 +931,57 @@ class Smoke:
                 log(f"graves={peep} training step: the recurrent kernels take {LAYERS} x "
                     f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
                     f"({100 * kms / step:.0f}%)")
+        self.flash_times()
+
+    def flash_times(self):
+        """The flash kernel's time in bf16 at BERT-base serving's shape
+        without a mask (the main path's arguments: served requests carry
+        none) and with one, and at the long-context causal shape: beside
+        its bound, the saving instance, the plain version and
+        ``scaled_dot_product_attention`` with the same mask or
+        ``is_causal`` (a yardstick the port never calls); then attention's
+        share of one 64-row request."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        dt = torch.bfloat16
+        main = None
+        for shape in (FLASH_SHAPES[0], FLASH_SHAPES[1], FLASH_SHAPES[2]):
+            b, h, t_q, t_k, d, d_v, masked, causal = shape
+            (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dt, self.device, seed=9,
+                                           mask=masked)
+            bias = fa.key_bias(mask, b, t_k)
+            with torch.no_grad():
+                o = fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter)
+                ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter),
+                             reps=20)
+                lse_ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, bias, causal,
+                                                             fa.lse_counter, save=True), reps=20)
+                plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask, causal),
+                                   reps=3, warmup=1)
+                sdpa_mask = None if mask is None else mask[:, None, None, :]
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=sdpa_mask, is_causal=causal), reps=20)
+            flops = 2.0 * attention_pairs(b, h, t_q, t_k, mask, causal) * (d + d_v)
+            bound_ms, bound_by = bound([q, k, v, o, bias], flops, dt)
+            log(f"{fa.counter.name}: {ms:.4f} ms per launch at b={b} h={h} t_q={t_q} t_k={t_k} "
+                f"d={d} bf16 mask={'yes' if masked else 'no'} causal={'yes' if causal else 'no'}; "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP); saving instance "
+                f"{lse_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
+                f"scaled_dot_product_attention {sdpa_ms:.4f} ms")
+            if main is None:
+                main = ms
+                self.kernels.setdefault(fa.counter.name, {}).update({
+                    "name": fa.counter.name, "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_fwd.cu",
+                    "replaces": "deeplearning4j_tpu/ops/pallas/flash_attention.py:226",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": sdpa_ms})
+        if self.bert_p50_ms is not None:
+            share = BERT_LAYERS * main
+            log(f"bert one {BERT_B}-row request: the {BERT_LAYERS} flash launches take "
+                f"{share:.3f} ms of the {self.bert_p50_ms:.2f} ms p50 "
+                f"({100 * share / self.bert_p50_ms:.1f}%)")
 
     def cudnn_ms(self, T, B, H, dtype):
         """``torch.nn.LSTM`` (cuDNN) on layer 0's work: the input projection
@@ -710,6 +1045,7 @@ def main() -> int:
     try:
         smoke.phase("slice graves=True", lambda: smoke.slice_phase(True, workdir))
         smoke.phase("slice graves=False", lambda: smoke.slice_phase(False, workdir))
+        smoke.phase("slice bert", lambda: smoke.bert_phase(workdir))
         smoke.phase("train graves=True", lambda: smoke.train_phase(True))
         smoke.phase("train graves=False", lambda: smoke.train_phase(False))
     finally:

@@ -1,5 +1,10 @@
 """Layers and configuration (counterpart of ``deeplearning4j_tpu.nn``)."""
 
+from deeplearning4j_tpu_torch.nn.attention_layers import (BertEmbeddingLayer, ClsPoolingLayer,
+                                                          LearnedPositionalEmbeddingLayer,
+                                                          SelfAttentionLayer,
+                                                          TransformerEncoderBlock,
+                                                          TransformerEncoderStack)
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, register_layer
 from deeplearning4j_tpu_torch.nn.config import (MultiLayerConfiguration,
                                                 NeuralNetConfiguration)
@@ -13,8 +18,10 @@ from deeplearning4j_tpu_torch.nn.recurrent_layers import (LSTM, BaseRecurrentLay
                                                           RnnOutputLayer)
 
 __all__ = [
-    "ActivationLayer", "BaseRecurrentLayer", "DenseLayer", "DropoutLayer",
-    "EmbeddingLayer", "EmbeddingSequenceLayer", "GlobalConfig", "GravesLSTM",
-    "InputType", "LSTM", "Layer", "LossLayer", "MultiLayerConfiguration",
-    "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer", "register_layer",
+    "ActivationLayer", "BaseRecurrentLayer", "BertEmbeddingLayer", "ClsPoolingLayer",
+    "DenseLayer", "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
+    "GlobalConfig", "GravesLSTM", "InputType", "LSTM", "Layer",
+    "LearnedPositionalEmbeddingLayer", "LossLayer", "MultiLayerConfiguration",
+    "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer", "SelfAttentionLayer",
+    "TransformerEncoderBlock", "TransformerEncoderStack", "register_layer",
 ]

@@ -83,3 +83,17 @@ def get_activation(name: Union[str, Activation, Callable]) -> Callable:
     if key not in _FNS:
         raise ValueError(f"Unknown activation {name!r}; known: {sorted(_FNS)}")
     return _FNS[key]
+
+
+def single_pass_norm_stats(x: torch.Tensor, axis: int = -1):
+    """Shifted single-pass ``(mean, var)`` in float32 over ``axis``, with
+    ``keepdim``: a per-row pivot (the first element along the axis, cut from
+    the gradient) is subtracted before the sums, which avoids the
+    ``E[x^2] - E[x]^2`` cancellation of the raw single-pass form on
+    large-mean, small-variance rows. Used by ``layer_norm``."""
+    xf = x.float()
+    shift = xf.narrow(axis, 0, 1).detach()
+    d = xf - shift
+    dmean = d.mean(dim=axis, keepdim=True)
+    var = torch.clamp_min((d * d).mean(dim=axis, keepdim=True) - dmean * dmean, 0.0)
+    return shift + dmean, var

@@ -1,0 +1,236 @@
+"""Flash attention forward as a CUDA kernel for Hopper.
+
+Counterpart of ``deeplearning4j_tpu/ops/pallas/flash_attention.py``:
+``_flash_fwd`` (the ``pallas_call`` at :226) becomes ``csrc/flash_fwd.cu``.
+Per (batch, head) it computes ``O = softmax(Q K^T / sqrt(d) + bias
+[+ causal]) V`` tile by tile with the online softmax, never storing the
+score matrix, and its saving instance also writes the per-row logsumexp
+``lse = m + log(l)`` that a backward reads. The backward kernels
+(``_flash_bwd``, ``_flash_bwd_chunked``) are not ported yet: a call that
+autograd would record on a CUDA tensor raises ``NotImplementedError``.
+
+Layout is the JAX package's: ``(batch, heads, time, d)``. A key-padding
+mask (``(b, t_k)`` or ``(b, 1, 1, t_k)``, true = attend) becomes the
+additive fp32 bias ``0 / -1e30`` shared by the heads; ``causal`` is the
+top-left triangle and needs ``t_q == t_k``. A fully masked row gives the
+mean of V. ``d`` and ``d_v`` may differ, each at most 256; q, k and v share
+one dtype, float32 or bfloat16; ``t_q`` and ``t_k`` are any lengths >= 1.
+
+:func:`flash_attention` (inference) and :func:`flash_attention_lse`
+(saving) launch the kernel for CUDA tensors and raise on what it does not
+take; only CPU tensors take the plain PyTorch version,
+:func:`flash_attention_reference` (dense fp32 scores, the same bias,
+causal and rounding rules). On the card the kernel reads q, k and v through
+their strides (the last dimension must be contiguous), so a head split
+``x.reshape(b, t, h, d).transpose(1, 2)`` costs no copy, and it writes O
+into a ``(b, t_q, h, d_v)`` buffer whose ``(b, h, t_q, d_v)`` view it
+returns, so the merge of the heads that follows costs none either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.ops.kernels._native import (LaunchCounter,
+                                                          NativeLibrary,
+                                                          register_library)
+
+# Additive bias of a masked key: large but finite, so a fully masked row
+# keeps a finite running max (the mean of V) instead of NaN.
+MASK_VALUE = -1e30
+MAX_HEAD_DIM = 256
+MAX_GRID_ROWS = 65535  # batch * heads: the grid's second dimension
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+counter = LaunchCounter("flash_attention")  # inference instance
+lse_counter = LaunchCounter("flash_attention_lse")  # saving instance (writes lse)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dl4j_flash_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+                                   *([ll] * 12), ctypes.c_float, i, p]
+    lib.dl4j_flash_fwd.restype = i
+    lib.dl4j_cuda_error_string.argtypes = [i]
+    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = register_library(NativeLibrary("flash_fwd.cu", _declare))
+
+
+def padding_mask_2d(mask, b: int, t_k: int) -> Optional[torch.Tensor]:
+    """A broadcastable attention mask reduced to a ``(b, t_k)`` key-padding
+    mask, or ``None`` when it is not of that family."""
+    if mask is None:
+        return None
+    if mask.dim() == 2 and tuple(mask.shape) == (b, t_k):
+        return mask
+    if mask.dim() == 4 and tuple(mask.shape) == (b, 1, 1, t_k):
+        return mask[:, 0, 0, :]
+    return None
+
+
+def flash_attention_compatible(q, k, v, mask=None, causal: bool = False) -> bool:
+    """Whether the kernel takes the call (JAX ``flash_attention.py:100-125``
+    without the TPU-only conditions: no tile multiple, no minimum length,
+    no platform check): a key-padding mask or none, causal only when
+    ``t_q == t_k``, ``d`` and ``d_v`` at most 256, one dtype, float32 or
+    bfloat16."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        return False
+    b, _, t_q, d = q.shape
+    t_k = k.shape[2]
+    if mask is not None and padding_mask_2d(mask, b, t_k) is None:
+        return False
+    if causal and t_q != t_k:
+        return False
+    if d > MAX_HEAD_DIM or v.shape[-1] > MAX_HEAD_DIM:
+        return False
+    if q.dtype not in _DTYPE_CODES:
+        return False
+    return k.dtype == q.dtype and v.dtype == q.dtype
+
+
+def _check(q, k, v, mask, causal) -> None:
+    """Raise on anything the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (batch, heads, time, d), got {tuple(t.shape)}")
+    b, h, t_q, d = q.shape
+    t_k, d_v = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, h, t_k, d) or tuple(v.shape) != (b, h, t_k, d_v):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         "do not share batch, heads, key length and d")
+    if min(t_q, t_k, d, d_v) < 1:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, v {tuple(v.shape)}")
+    if d > MAX_HEAD_DIM or d_v > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes d and d_v up to {MAX_HEAD_DIM}, got {d} and {d_v}")
+    if mask is not None and padding_mask_2d(mask, b, t_k) is None:
+        raise ValueError(f"flash attention takes key-padding masks (b, t_k) or (b, 1, 1, t_k) "
+                         f"only, got {tuple(mask.shape)}")
+    if causal and t_q != t_k:
+        raise ValueError(f"causal flash attention needs t_q == t_k, got {t_q} and {t_k}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v), ("mask", mask)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    if q.device.type == "cpu":
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if b * h > MAX_GRID_ROWS:
+        raise ValueError(f"the kernel takes batch * heads up to {MAX_GRID_ROWS}, got {b * h}")
+
+
+def key_bias(mask, b: int, t_k: int) -> Optional[torch.Tensor]:
+    """The kernel's additive fp32 bias ``(b, t_k)``: 0 where the mask
+    attends, :data:`MASK_VALUE` where not; ``None`` without a mask."""
+    kmask = padding_mask_2d(mask, b, t_k)
+    if kmask is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=kmask.device)
+    return torch.where(kmask.bool(), zero, torch.full_like(zero, MASK_VALUE)).contiguous()
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              mask=None, causal: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: dense fp32 scores from the
+    input-dtype operands, the same bias and causal rules (causally excluded
+    keys weigh exactly 0), P rounded to the input dtype before ``P @ V``
+    and the row sum of the unrounded P. Returns ``(o, lse)``: o
+    ``(b, h, t_q, d_v)`` in the input dtype, lse ``(b, h, t_q)`` fp32.
+    Differentiable by autograd."""
+    b, _, t_q, d = q.shape
+    t_k = k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    bias = key_bias(mask, b, t_k)
+    if bias is not None:
+        s = s + bias.to(ct)[:, None, None, :]
+    if causal:
+        keep = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-20)
+    o = torch.matmul(p.to(q.dtype).to(ct), v.to(ct)) / l_safe
+    return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+def _strides(t: torch.Tensor):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def launch_flash_fwd(q, k, v, bias, causal: bool, launches: LaunchCounter,
+                     save: bool = False):
+    """Launch the kernel on CUDA tensors already checked by :func:`_check`;
+    ``bias`` is :func:`key_bias`'s. Returns o, a ``(b, h, t_q, d_v)`` view
+    of a ``(b, t_q, h, d_v)`` buffer, and with ``save`` also lse
+    ``(b, h, t_q)`` fp32."""
+    lib = LIBRARY.load()
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    b, h, t_q, d = q.shape
+    t_k, d_v = k.shape[2], v.shape[3]
+    o = torch.empty((b, t_q, h, d_v), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device) if save else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dl4j_flash_fwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, t_q, t_k, d, d_v,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            1.0 / math.sqrt(d), int(bool(causal)), stream)
+    if err != 0:
+        msg = lib.dl4j_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash attention kernel launch failed: {msg} (cudaError {err}) "
+                           f"at q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+                           f"{q.dtype} causal={bool(causal)}")
+    launches.add()
+    return (o, lse) if save else o
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _run(q, k, v, mask, causal: bool, save: bool):
+    _check(q, k, v, mask, causal)
+    if q.device.type == "cpu":
+        o, lse = flash_attention_reference(q, k, v, mask, causal)
+        return (o, lse) if save else o
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "the flash attention backward (TPU kernels _flash_bwd and _flash_bwd_chunked, "
+            "rows 8-9 of the kernel table) is not ported to deeplearning4j_tpu_torch yet: "
+            "run attention on CUDA tensors under torch.no_grad()/inference_mode")
+    bias = key_bias(mask, q.shape[0], k.shape[2])
+    return launch_flash_fwd(q, k, v, bias, causal, lse_counter if save else counter, save)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask=None,
+                    causal: bool = False) -> torch.Tensor:
+    """``(batch, heads, time, d)`` flash attention (JAX ``:700-717``).
+    ``mask`` is a key-padding mask ``(b, t_k)`` or ``(b, 1, 1, t_k)``
+    (true = attend); ``causal`` applies the top-left triangle. CUDA tensors
+    launch the kernel (or the call raises); CPU tensors take the plain
+    version."""
+    return _run(q, k, v, mask, causal, save=False)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask=None,
+                        causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` that also returns the per-row logsumexp
+    ``(b, h, t_q)`` fp32 (JAX ``_flash_fwd(save_residuals=True)``, whose
+    lane-broadcast ``(b*h, t_q, 8)`` residual this keeps as one value per
+    row): the saving instance of the kernel."""
+    return _run(q, k, v, mask, causal, save=True)

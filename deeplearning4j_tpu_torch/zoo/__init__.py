@@ -1,6 +1,7 @@
 """Model zoo (counterpart of ``deeplearning4j_tpu.zoo``)."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.bert import Bert
 from deeplearning4j_tpu_torch.zoo.textgen_lstm import TextGenerationLSTM
 
-__all__ = ["TextGenerationLSTM", "ZooModel"]
+__all__ = ["Bert", "TextGenerationLSTM", "ZooModel"]

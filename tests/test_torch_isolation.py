@@ -74,10 +74,11 @@ def _archive(tmp_path):
 def _entry_points(path):
     from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelRegistry
-    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo import Bert, TextGenerationLSTM
     x = np.zeros((1, 3, 10), np.float32)
     return {
         "zoo.init": lambda: TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).init(),
+        "zoo.Bert.init": lambda: Bert.small(vocab_size=10).init(),
         "MultiLayerNetwork.init": lambda: MultiLayerNetwork(
             TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).conf()).init(),
         "MultiLayerNetwork.output": lambda: MultiLayerNetwork(
@@ -92,7 +93,7 @@ def _entry_points(path):
     }
 
 
-ENTRY_POINTS = ["zoo.init", "MultiLayerNetwork.init", "MultiLayerNetwork.output",
+ENTRY_POINTS = ["zoo.init", "zoo.Bert.init", "MultiLayerNetwork.init", "MultiLayerNetwork.output",
                 "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.fit",
                 "MultiLayerNetwork.load",
                 "ModelSerializer.restore_model", "ModelRegistry.load"]
@@ -126,19 +127,47 @@ def test_device_argument_asks_for_the_cpu(no_gpu, tmp_path):
 def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     """A tensor on any device but the CPU goes to the kernel launcher (or
     the call raises); the wrappers hold no fallback."""
-    from deeplearning4j_tpu_torch.ops.kernels import fused_lstm, fused_lstm_graves
+    from deeplearning4j_tpu_torch.ops.kernels import (flash_attention, fused_lstm,
+                                                      fused_lstm_graves)
     launched = []
-    monkeypatch.setattr(fused_lstm, "_check", lambda *a: None)
-    monkeypatch.setattr(fused_lstm_graves, "_check", lambda *a: None)
+    for mod in (fused_lstm, fused_lstm_graves, flash_attention):
+        monkeypatch.setattr(mod, "_check", lambda *a: None)
     monkeypatch.setattr(fused_lstm, "launch_lstm_fwd",
                         lambda *a: launched.append("plain") or "kernel")
     monkeypatch.setattr(fused_lstm_graves, "launch_lstm_fwd",
                         lambda *a: launched.append("graves") or "kernel")
+    monkeypatch.setattr(flash_attention, "launch_flash_fwd",
+                        lambda *a: launched.append("flash") or "kernel")
     meta = [torch.empty(s, device="meta") for s in ((2, 1, 8), (2, 8), (1, 2), (1, 2))]
     assert fused_lstm.fused_lstm(*meta) == "kernel"
     assert fused_lstm_graves.fused_graves_lstm(meta[0], meta[1], None, *meta[2:]) == "kernel"
-    assert launched == ["plain", "graves"]
-    for mod in (fused_lstm, fused_lstm_graves):
+    qkv = [torch.empty(2, 3, 5, 8, device="meta") for _ in range(3)]
+    assert flash_attention.flash_attention(*qkv) == "kernel"
+    assert flash_attention.flash_attention_lse(*qkv, causal=True) == "kernel"
+    assert launched == ["plain", "graves", "flash", "flash"]
+    for mod in (fused_lstm, fused_lstm_graves, flash_attention):
         src = pathlib.Path(mod.__file__).read_text()
         assert not [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Try)], \
             f"{mod.__name__} must not catch a kernel failure"
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_lse"])
+def test_flash_attention_needing_a_gradient_off_the_cpu_raises(monkeypatch, entry):
+    """The backward kernels are not ported: a call autograd would record on
+    a tensor off the CPU raises by name instead of running the plain
+    version; the same call without a gradient goes to the launcher."""
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention
+    launched = []
+    monkeypatch.setattr(flash_attention, "_check", lambda *a: None)
+    monkeypatch.setattr(flash_attention, "launch_flash_fwd", lambda *a: launched.append(a))
+    monkeypatch.setattr(flash_attention, "flash_attention_reference",
+                        lambda *a: pytest.fail("plain version ran for a meta tensor"))
+    fn = getattr(flash_attention, entry)
+    q = torch.empty(2, 3, 5, 8, device="meta", requires_grad=True)
+    k, v = (torch.empty(2, 3, 5, 8, device="meta") for _ in range(2))
+    with pytest.raises(NotImplementedError, match="_flash_bwd"):
+        fn(q, k, v)
+    assert not launched
+    with torch.no_grad():
+        fn(q, k, v)
+    assert len(launched) == 1
