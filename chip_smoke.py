@@ -22,7 +22,12 @@ the card and exits nonzero if any phase fails:
             float32 and bfloat16 at BERT-base serving's shape (with and
             without a key-padding mask holding a length-1 row and a fully
             masked row), at T=4096 causal, and at ragged, cross-attention,
-            d_v != d and d=256 shapes;
+            d_v != d and d=256 shapes. The flash backward kernels (dq;
+            dk/dv) against the plain backward on the same o and lse, in
+            float32 and bfloat16, at the same shapes and at T=16384 causal
+            (the TPU's chunked-backward regime), max error relative to the
+            largest plain gradient; the autograd Function's float32
+            gradients against ``torch.autograd`` of the plain forward;
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -48,7 +53,21 @@ the card and exits nonzero if any phase fails:
             fall. It prints step ms and tokens/s. The first 3 steps' losses
             are held, in float32 and bfloat16, against the same training
             with the recurrences computed by the plain forward under
-            autograd. Once per cell, as the slice phase;
+            autograd. Once per cell, as the slice phase. Then ``train
+            bert``: ``Bert.base()`` fine-tuned by ``fit`` at B=64, T=128
+            (an all-ones features mask, Adam(2e-5), dropout 0.1, bf16
+            compute over fp32 weights) for 20 seeded steps of random ids:
+            12 saving-forward, 12 dq and 12 dk/dv flash launches per step
+            and no inference launch, the first 3 losses in float32 and
+            bfloat16 against a
+            trainer whose attention runs the plain forward and backward,
+            step ms, samples/s, a device-busy breakdown of one step; then
+            20 steps on balanced labels with each row made of its label's
+            token, where the loss must fall below the first step's and
+            chance and the trained net must label a fresh batch; and the
+            statistics of the dropout masks drawn on the card.
+            ``--label-rules`` runs the build and 20 steps under each of
+            several label rules instead;
 5. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
             after warm-up) beside its bound, its plain version's time and,
             for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
@@ -57,11 +76,18 @@ the card and exits nonzero if any phase fails:
             BERT-base serving's shape (unmasked as served, and masked) and
             at T=4096 causal, beside its bound, its saving instance, its
             plain version and ``scaled_dot_product_attention`` (a yardstick
-            the port never calls); attention's share of a BERT request.
+            the port never calls); attention's share of a BERT request. The
+            backward pair at BERT-base's shape (masked, as trained, and
+            unmasked), at T=4096 causal and at T=16384 causal, beside its
+            bound, the plain backward, ``scaled_dot_product_attention``'s
+            backward and each kernel's own device time (``torch.profiler``);
+            attention's share of a BERT training step.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
-and the backward of each LSTM cell, and the inference flash attention)
+and the backward of each LSTM cell, the inference and saving flash
+forwards, and the flash backward's dq and dk/dv kernels, whose plain and
+library times are those of the whole backward)
 and the card's name and power limit as ``nvidia-smi`` gives them; the last
 line is ``{"ok": true, "device": {...}}``. With no CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -71,6 +97,7 @@ result and exits nonzero.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -147,6 +174,25 @@ FLASH_SHAPES = [(64, 12, 128, 128, 64, 64, False, False), (64, 12, 128, 128, 64,
 # |o| in [1, 2)); 4 ulps of headroom. lse is fp32 on both sides from the same
 # scores: summation order of up to 4096 terms of l.
 FLASH_TOL = {"float32": (2e-5, 1e-3), "bfloat16": (3.2e-2, 1e-3)}
+# The flash backward's long-context check: one head of T=16384 causal, the
+# regime of the TPU's chunked backward (rows 9; T > 8192), which the same
+# kernels take. Its plain version holds dense (T, T) fp32 matrices (~1 GB each).
+FLASH_LONG_SHAPE = (1, 1, 16384, 16384, 64, 64, False, True)
+# Backward kernels vs the plain backward on the same o, lse and dO, max abs
+# error of dq, dk and dv divided by max |plain| of that gradient (no floor at
+# 1: BERT's gradients are below 1). float32: summation order (up to 16384
+# terms). bfloat16: the plain backward rounds dS and P at the kernel's points,
+# so only fp32 sums formed in another order, then rounded to bf16, can land
+# one bf16 ulp apart; on an H100 (700 W) that read <= 1.4e-7 at every
+# FLASH_SHAPES entry and 1.2e-3 at T=16384 (then still divided by max(1,
+# max |plain|)). The limit is 2^-8: one bf16 ulp of a value at the bottom of
+# the largest gradient's binade, which a kernel that skipped the rounding of
+# dS or P reaches wherever that moves a near-largest value by one ulp.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+# The autograd Function's float32 gradients vs torch.autograd of the plain
+# forward, max abs error / max(1, max |plain|): summation order only (the
+# shapes hold no fully masked row, whose flash gradient differs by design).
+FLASH_GRAD_TOL = 1e-4
 # BERT-base serving: Bert.base() (L=12, H=768, A=12), bf16 compute over fp32
 # weights, requests of 1-64 rows of T=128 token ids, as bench_zoo_bert.
 BERT_T, BERT_B, BERT_LAYERS, BERT_VOCAB = 128, 64, 12, 30522
@@ -156,6 +202,38 @@ BERT_T, BERT_B, BERT_LAYERS, BERT_VOCAB = 128, 64, 12, 30522
 # of another shape passes through 12 residual + LayerNorm layers into the
 # pooler and the softmax.
 BERT_TOL = 2e-2
+# BERT-base fine-tuning: bench_zoo_bert's step (B=64, T=128, Adam(2e-5), bf16
+# compute over fp32 weights, dropout 0.1 as the zoo sets it) through fit,
+# BERT_TRAIN_STEPS seeded batches; the first BERT_CMP_STEPS against a trainer
+# whose attention runs the plain forward and plain backward.
+BERT_TRAIN_STEPS, BERT_CMP_STEPS = 20, 3
+# The main path trains on bench_zoo_bert's data, random ids (whose labels it
+# cannot learn), so that its step time is that workload's. A second fit from
+# the same weights shows learning, on balanced labels with every token of a
+# row its label's marker id (every_token). From random weights at lr 2e-5, 20
+# steps learn no subtler rule of LABEL_RULES (``python3 chip_smoke.py
+# --label-rules`` trains each): on an H100 (700 W) the others left the last 3
+# losses at 0.65-0.74; every_token reached 0.604 and accuracy 1.0.
+BERT_MARKERS = (1000, 2000)
+# The loss falls in that fit: the mean of the last 3 steps must be below
+# BERT_LOSS_FALL x the lower of the first step's loss and ln 2 = 0.693 (chance
+# on balanced labels, and what learning the prior alone scores), and the
+# trained net must label a fresh seeded batch with accuracy >= BERT_MIN_ACC
+# (chance 0.5). Adam's first steps move each of the 110 M weights by about lr
+# along its gradient's sign, which shifts every output by several logits, so
+# steps 2-5 overshoot (to 3.2 on that run) before the loss settles; the first
+# step alone is the baseline, not the mean of the first 3. That run: first
+# 0.815, last 3 0.604.
+BERT_LOSS_FALL, BERT_MIN_ACC = 0.95, 0.9
+# Per-step loss, kernels vs the plain trainer (the same weights, batches and
+# dropout masks: the masks are drawn on the card from the same RngManager
+# stream), max |difference| over the first BERT_CMP_STEPS. float32: summation
+# order only; Adam's first steps move a weight by about +-lr whatever its
+# gradient's size, so gradients that are rounding noise (the key bias's) step
+# apart by up to 2 lr, which moves the loss by far less than 1e-4. bfloat16:
+# the two sides round differently placed values to bf16 (attention outputs
+# one ulp apart, see FLASH_TOL), and those pass through 12 layers.
+BERT_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -270,7 +348,59 @@ def char_batches(n, seed):
 
 
 def clone_tree(tree):
-    return {k: {n: t.detach().clone() for n, t in v.items()} for k, v in tree.items()}
+    from deeplearning4j_tpu_torch.runtime.trees import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def label_batches(n, seed, rule, prior=0.5, repeat=False):
+    """``n`` (token ids, one-hot labels) batches of BERT_B rows of BERT_T
+    ids: a row's label is 1 with probability ``prior``; ``rule(rng, m)``
+    makes the ids from the rows' markers ``m`` (BERT_MARKERS[label]).
+    ``repeat``: ``n`` copies of one batch."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(1 if repeat else n):
+        label = (rng.random(BERT_B) < prior).astype(np.int64)
+        ids = rule(rng, np.asarray(BERT_MARKERS)[label][:, None])
+        out.append((ids, np.eye(2, dtype=np.float32)[label]))
+    return out * n if repeat else out
+
+
+def marked(positions):
+    """Random ids with the row's marker in its first ``positions`` tokens."""
+    def rule(rng, m):
+        import numpy as np
+        ids = rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T))
+        ids[:, :positions] = m
+        return ids
+    return rule
+
+
+def bag(k):
+    """Every token one of ``k`` ids that belong to the row's label."""
+    return lambda rng, m: m + rng.integers(0, k, (BERT_B, BERT_T))
+
+
+def every_token(rng, m):
+    """Every token the row's marker: the rule bert_train_phase trains on."""
+    return m.repeat(BERT_T, axis=1)
+
+
+# --label-rules: (name, rule, prior, one batch repeated)
+LABEL_RULES = [("marker in token 0, 3:1", marked(1), 0.75, False),
+               ("marker in token 0", marked(1), 0.5, False),
+               ("marker in token 0, one batch repeated", marked(1), 0.5, True),
+               ("marker in tokens 0-15", marked(16), 0.5, False),
+               ("marker in tokens 0-63", marked(64), 0.5, False),
+               ("every token from 64 label ids", bag(64), 0.5, False),
+               ("every token from 8 label ids", bag(8), 0.5, False),
+               ("every token the marker", every_token, 0.5, False)]
+
+
+def random_ids(rng, m):
+    """bench_zoo_bert's data: random ids; the label is not in them."""
+    return rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T))
 
 
 class StepStamps:
@@ -310,19 +440,52 @@ class plain_recurrences:
         return False
 
 
+def plain_flash_function():
+    """An autograd Function over the flash kernel's plain versions:
+    ``flash_attention_reference`` forward, ``flash_attention_backward_reference``
+    backward (what the kernels compute, with the same lse and rounding
+    points)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, causal):
+            o, lse = fa.flash_attention_reference(q, k, v, mask, causal)
+            ctx.save_for_backward(q, k, v, o, lse, mask)
+            ctx.causal = causal
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse, mask = ctx.saved_tensors
+            grads = fa.flash_attention_backward_reference(q, k, v, o, lse, do, mask, ctx.causal)
+            return (*grads, None, None)
+
+    return PlainFlash
+
+
 class plain_attention:
     """Within the block every attention layer runs the flash kernel's plain
-    version (``flash_attention_reference``) in place of the kernel's
-    wrapper: the forward built from the plain versions, for comparison
+    versions in place of the kernels' wrapper: ``flash_attention_reference``
+    for the forward and, where autograd records, its plain backward. The
+    forward and the trainer built from the plain versions, for comparison
     only."""
 
     def __enter__(self):
+        import torch
         from deeplearning4j_tpu_torch.nn import attention_layers as al
         from deeplearning4j_tpu_torch.ops.kernels.flash_attention import \
             flash_attention_reference
+        plain = plain_flash_function()
+
+        def attention(q, k, v, mask=None, causal=False):
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+                return plain.apply(q, k, v, mask, causal)
+            return flash_attention_reference(q, k, v, mask, causal)[0]
+
         self.al, self.saved = al, al.flash_attention
-        al.flash_attention = lambda q, k, v, mask=None, causal=False: \
-            flash_attention_reference(q, k, v, mask, causal)[0]
+        al.flash_attention = attention
         return self
 
     def __exit__(self, *exc):
@@ -338,6 +501,8 @@ class Smoke:
         self.failures = []
         self.kernels = {}  # name -> JSON row
         self.train_step_ms = {}  # graves -> median step ms of the train phase
+        self.bert_train_step_ms = None  # median step ms of the bert train phase
+        self.flash_lse_ms = None  # the saving forward at BERT-base's shape, masked
         self.bert_p50_ms = None  # one 64-row BERT-base request, p50
 
     def check(self, ok, what):
@@ -389,6 +554,77 @@ class Smoke:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in FLASH_SHAPES:
                 self.check_flash(shape, dtype)
+        self.flash_backward_checks()
+
+    def flash_backward_checks(self):
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in FLASH_SHAPES + [FLASH_LONG_SHAPE]:
+                self.check_flash_bwd(shape, dtype)
+        for shape in FLASH_SHAPES:
+            if not (shape[6] and shape[0] >= 3):  # no fully masked row
+                self.check_flash_autograd(shape)
+
+    def check_flash_bwd(self, shape, dtype):
+        """The two backward kernels against the plain backward on the same
+        inputs: o and lse from the saving forward kernel, a random dO."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        b, h, t_q, t_k, d, d_v, masked, causal = shape
+        dname = str(dtype).replace("torch.", "")
+        (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dtype, self.device,
+                                       seed=t_q + 5 * t_k + d, mask=masked)
+        bias = fa.key_bias(mask, b, t_k)
+        g = torch.Generator().manual_seed(t_q + d_v)
+        with torch.no_grad():
+            o, lse = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
+            do = torch.randn(b, h, t_q, d_v, generator=g).to(dtype).to(self.device)
+            got = fa.launch_flash_bwd(q, k, v, o, lse, do, bias, causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, mask, causal)
+            torch.cuda.synchronize()
+        tol = FLASH_BWD_TOL[dname]
+        peaks = [float(y.float().abs().max()) for y in want]
+        errs = [max_err([x], [y]) / (p or 1.0) for x, y, p in zip(got, want, peaks)]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+        self.check(finite and max(errs) <= tol,
+                   f"flash_attention_bwd   {dname:8s} b={b:2d} h={h:2d} t_q={t_q:5d} "
+                   f"t_k={t_k:5d} d={d:3d} d_v={d_v:3d} mask={'yes' if masked else 'no '} "
+                   f"causal={'yes' if causal else 'no '} max_rel_err dq={errs[0]:.3g} "
+                   f"dk={errs[1]:.3g} dv={errs[2]:.3g} tol={tol:g} (max |plain| "
+                   + " ".join(f"{p:.3g}" for p in peaks) + ")")
+        if shape == FLASH_SHAPES[1] and dtype == torch.bfloat16:  # masked, as trained
+            self.kernels.setdefault(fa.bwd_dq_counter.name, {})["max_abs_err"] = errs[0]
+            self.kernels.setdefault(fa.bwd_dkv_counter.name, {})["max_abs_err"] = max(errs[1:])
+        del q, k, v, o, lse, do, got, want
+        torch.cuda.empty_cache()
+
+    def check_flash_autograd(self, shape):
+        """``flash_attention`` under autograd (saving forward + backward
+        kernels) against ``torch.autograd`` of the plain forward, float32."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        b, h, t_q, t_k, d, d_v, masked, causal = shape
+        (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, torch.float32, self.device,
+                                       seed=7 * t_q + d, mask=masked)
+        g = torch.Generator().manual_seed(t_k + d)
+        do = torch.randn(b, h, t_q, d_v, generator=g).to(self.device)
+        before = (fa.bwd_dq_counter.value, fa.bwd_dkv_counter.value)
+        grads = []
+        for run in (fa.flash_attention,
+                    lambda *a, causal: fa.flash_attention_reference(*a, causal=causal)[0]):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = run(*leaves, mask, causal=causal)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        torch.cuda.synchronize()
+        launched = (fa.bwd_dq_counter.value - before[0], fa.bwd_dkv_counter.value - before[1])
+        errs = [max_err([x], [y], relative=True) for x, y in zip(*grads)]
+        self.check(max(errs) <= FLASH_GRAD_TOL and launched == (1, 1),
+                   f"flash_attention autograd vs plain float32 b={b:2d} h={h:2d} t_q={t_q:4d} "
+                   f"t_k={t_k:4d} d={d:3d} d_v={d_v:3d} mask={'yes' if masked else 'no '} "
+                   f"causal={'yes' if causal else 'no '} max_rel_err dq={errs[0]:.3g} "
+                   f"dk={errs[1]:.3g} dv={errs[2]:.3g} tol={FLASH_GRAD_TOL:g}; backward "
+                   f"launches {launched} (expected (1, 1))")
 
     def check_flash(self, shape, dtype):
         """Both flash instances (inference: o; saving: o and lse) against
@@ -419,6 +655,8 @@ class Smoke:
                    f"lse max_abs_err={err_lse:.3g} tol={tol_lse:g}")
         if shape == FLASH_SHAPES[0] and dtype == torch.bfloat16:
             self.kernels.setdefault(fa.counter.name, {})["max_abs_err"] = err
+        if shape == FLASH_SHAPES[1] and dtype == torch.bfloat16:  # masked, as trained
+            self.kernels.setdefault(fa.lse_counter.name, {})["max_abs_err"] = max(err_o, err_lse)
 
     def check_kernels(self, cell, T, B, H, dtype, peep, mask):
         """The inference forward, the saving forward and the backward kernel
@@ -769,12 +1007,10 @@ class Smoke:
         reg.shutdown()
         self.check(not served.batcher._worker.is_alive(), "bert registry shut down")
 
-    def device_breakdown(self, fn, what, reps=5):
-        """Device busy time per call of ``fn`` from ``torch.profiler``
-        (the sum of its kernels' device time, so idle gaps between kernels
-        are not in it), the kernels that take most of it, and the busy
-        share of the host wall time of the same calls (the profiler's own
-        host cost is in that wall time)."""
+    def profile_kernels(self, fn, reps):
+        """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
+        warm-up call): ``{kernel name: (device ms per call, launches per
+        call)}`` and the host wall ms per call under the profiler."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -785,18 +1021,32 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        dev_ms = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                   getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps
-        busy = sum(dev_ms(e) for e in kernels)
+        per = {}
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                per[e.key] = (dev / 1e3 / reps, e.count // reps)
+        return per, wall
+
+    def device_breakdown(self, fn, what, reps=5, step_ms=None):
+        """Device busy time per call of ``fn`` (the sum of its kernels'
+        device time, so idle gaps between kernels are not in it), the
+        kernels that take most of it, and the busy share of the host wall
+        time of the same calls under the profiler (whose own host cost is
+        in that wall time) and, given ``step_ms``, of that wall time
+        measured without the profiler."""
+        per, wall = self.profile_kernels(fn, reps)
+        busy = sum(ms for ms, _ in per.values())
         if busy <= 0:
             log(f"{what}: the profiler saw no device time (not measured)")
             return
-        top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+        top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+        share = "" if step_ms is None else \
+            f"; busy {100 * busy / step_ms:.0f}% of the {step_ms:.2f} ms step measured without it"
         log(f"{what}: device busy {busy:.3f} ms per call over {reps} calls, "
-            f"{sum(e.count for e in kernels) // reps} kernels per call; host wall under the "
-            f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%); top kernels: "
-            + "; ".join(f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count // reps}" for e in top))
+            f"{sum(n for _, n in per.values())} kernels per call; host wall under the "
+            f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%){share}; top kernels: "
+            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, (ms, n) in top))
 
     def train_phase(self, graves):
         """``fit`` of the full-width char-RNN in bf16 through the kernels
@@ -872,6 +1122,152 @@ class Smoke:
                        f"{' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
                        f"tol={TRAIN_TOL[dname]:g}")
         env.allow_bfloat16()
+
+    def bert_train_phase(self):
+        """``fit`` of ``Bert.base()`` at bench_zoo_bert's step (B=64, T=128,
+        an all-ones features mask, Adam(2e-5), dropout 0.1, bf16 compute
+        over fp32 weights, random ids) through the kernels: the main path,
+        counted. Then a device-busy breakdown of one step, the first steps
+        again in float32 and bfloat16 against a trainer whose attention runs
+        the plain versions, a fit on labels the net can learn in 20 steps,
+        and the statistics of the dropout masks the card draws."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.nn.base import keep_mask
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.zoo import Bert
+        env = get_environment()
+        t0 = time.perf_counter()
+        init = Bert.base().init(device=self.device).params()
+        torch.cuda.synchronize()
+        log(f"bert train: Bert.base() init {time.perf_counter() - t0:.1f} s")
+        batches = label_batches(BERT_TRAIN_STEPS, 99, random_ids)
+        fmask = np.ones((BERT_B, BERT_T), np.float32)
+        counters = [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter] + \
+            [c for m in (fl, fg) for c in (m.counter, m.save_counter, m.bwd_counter)]
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        losses, stamps, net = self.bert_fit(init, batches, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
+            want[c.name] = BERT_LAYERS * BERT_TRAIN_STEPS
+            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+        self.check(counts == want, f"bert train launch counts over {BERT_TRAIN_STEPS} steps: "
+                                   f"{counts} (expected {want})")
+        finite = all(np.isfinite(v) for v in losses) and len(losses) == BERT_TRAIN_STEPS
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        self.bert_train_step_ms = med
+        log(f"bert train: {BERT_TRAIN_STEPS} steps of B={BERT_B} T={BERT_T} in {wall:.3f} s; "
+            f"losses " + " ".join(f"{v:.4f}" for v in losses) + "; "
+            f"step ms after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
+            f"{step_ms[-1]:.2f}); {BERT_B / med * 1e3:.0f} samples/s at the median; first step "
+            f"{1e3 * (stamps[0] - t0):.1f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        x, y = batches[0]
+        self.device_breakdown(lambda: net.fit(x, y, mask=fmask), "bert train step", reps=3,
+                              step_ms=med)
+        del net
+        torch.cuda.empty_cache()
+
+        # ---- kernels vs the plain trainer, the first BERT_CMP_STEPS steps
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            got = losses[:BERT_CMP_STEPS] if dtype == torch.bfloat16 else \
+                self.bert_fit(init, batches[:BERT_CMP_STEPS], dtype)[0]
+            with plain_attention():
+                want_l = self.bert_fit(init, batches[:BERT_CMP_STEPS], dtype)[0]
+            torch.cuda.empty_cache()
+            err = max(abs(a - b) for a, b in zip(got, want_l))
+            self.check(err <= BERT_TRAIN_TOL[dname],
+                       f"bert train {dname} first {BERT_CMP_STEPS} losses, kernels "
+                       f"{' '.join(f'{v:.5f}' for v in got)} vs plain "
+                       f"{' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
+                       f"tol={BERT_TRAIN_TOL[dname]:g}")
+
+        # ---- learning: a second fit, on every_token's labels
+        losses_l, _, net = self.bert_fit(init, label_batches(BERT_TRAIN_STEPS, 99, every_token),
+                                         torch.bfloat16)
+        tail = sum(losses_l[-3:]) / 3
+        limit = BERT_LOSS_FALL * min(losses_l[0], math.log(2))
+        acc = self.accuracy(net, label_batches(1, 7, every_token)[0])
+        self.check(finite and all(np.isfinite(v) for v in losses_l) and tail < limit
+                   and acc >= BERT_MIN_ACC,
+                   f"bert train bf16 loss (main path finite over {len(losses)} steps): "
+                   f"every_token's first {losses_l[0]:.4f} -> mean of the last 3 {tail:.4f} "
+                   f"(must fall below {BERT_LOSS_FALL} x min(first, ln 2) = {limit:.4f}); "
+                   f"accuracy on a fresh batch {acc:.3f} (must be >= {BERT_MIN_ACC}): "
+                   + " ".join(f"{v:.4f}" for v in losses_l))
+        del net
+        torch.cuda.empty_cache()
+        env.allow_bfloat16()
+
+        # ---- dropout masks drawn on the card: keep share and determinism
+        act = torch.ones(BERT_B, BERT_T, 768, device=self.device)
+        masks = [keep_mask(act, 0.9, torch.Generator().manual_seed(s)) for s in (5, 5, 6)]
+        share = float(masks[0].float().mean())
+        self.check(masks[0].device.type == "cuda" and abs(share - 0.9) < 1e-3
+                   and bool(torch.equal(masks[0], masks[1]))
+                   and not bool(torch.equal(masks[0], masks[2])),
+                   f"dropout keep mask on the card: keep share {share:.5f} (expected 0.9 +- "
+                   f"1e-3 over {act.numel()} draws), same seed same mask, other seed another")
+
+    def bert_fit(self, init, batches, dtype):
+        """``fit`` of ``Bert.base()`` from the parameters ``init`` over
+        ``batches`` (all-ones features mask) with ``dtype`` compute: the
+        per-step losses, the host clock at each step's end, the network."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import Bert
+        get_environment().set_compute_dtype(dtype)
+        net = MultiLayerNetwork(Bert.base().conf(), device=self.device).init(
+            params=clone_tree(init))
+        scores, stamps = CollectScoresListener(), []
+        net.set_listeners(scores, StepStamps(stamps))
+        fmask = np.ones((BERT_B, BERT_T), np.float32)
+        net.fit(ListDataSetIterator([DataSet(x, y, features_mask=fmask) for x, y in batches]))
+        return [v for _, v in scores.scores], stamps, net
+
+    def accuracy(self, net, batch):
+        """Share of ``batch``'s rows whose label ``net`` predicts."""
+        import numpy as np
+        x, y = batch
+        with self.torch.inference_mode():
+            out = net.output(x, mask=np.ones(x.shape, np.float32))
+        return float((out.float().argmax(1).cpu().numpy() == y.argmax(1)).mean())
+
+    def label_rules_phase(self):
+        """BERT_TRAIN_STEPS bf16 steps of ``Bert.base()`` from one init under
+        each of LABEL_RULES: the first loss, the mean of the last 3, and the
+        trained net's accuracy on a fresh batch of the same rule."""
+        from deeplearning4j_tpu_torch.zoo import Bert
+        init = Bert.base().init(device=self.device).params()
+        for name, rule, prior, repeat in LABEL_RULES:
+            batches = label_batches(BERT_TRAIN_STEPS, 99, rule, prior, repeat)
+            losses, _, net = self.bert_fit(init, batches, self.torch.bfloat16)
+            acc = self.accuracy(net, label_batches(1, 7, rule, prior)[0])
+            log(f"label rule '{name}' (prior {prior}): first {losses[0]:.4f}, mean of the "
+                f"last 3 {sum(losses[-3:]) / 3:.4f}, accuracy on a fresh batch {acc:.3f}: "
+                + " ".join(f"{v:.4f}" for v in losses))
+            del net
+            self.torch.cuda.empty_cache()
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        get_environment().allow_bfloat16()
 
     def times_phase(self):
         """Each kernel's time at the serving/training shape, bf16, with the
@@ -977,11 +1373,101 @@ class Smoke:
                     "replaces": "deeplearning4j_tpu/ops/pallas/flash_attention.py:226",
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": sdpa_ms})
+            if shape == FLASH_SHAPES[1]:  # masked: the saving instance as trained
+                with torch.no_grad():
+                    saved = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
+                lse_bound, lse_by = bound([q, k, v, bias, *saved], flops, dt)
+                self.flash_lse_ms = lse_ms
+                self.kernels.setdefault(fa.lse_counter.name, {}).update({
+                    "name": fa.lse_counter.name, "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_fwd.cu",
+                    "replaces": "deeplearning4j_tpu/ops/pallas/flash_attention.py:226",
+                    "ms": lse_ms, "plain_ms": plain_ms, "bound_ms": lse_bound,
+                    "bound_by": lse_by, "library_ms": sdpa_ms})
         if self.bert_p50_ms is not None:
             share = BERT_LAYERS * main
             log(f"bert one {BERT_B}-row request: the {BERT_LAYERS} flash launches take "
                 f"{share:.3f} ms of the {self.bert_p50_ms:.2f} ms p50 "
                 f"({100 * share / self.bert_p50_ms:.1f}%)")
+        self.flash_bwd_times()
+
+    def flash_bwd_times(self):
+        """The backward pair's time in bf16 (CUDA events) at BERT-base's
+        shape with a mask (as trained: the features mask makes a bias) and
+        without, at the long-context causal shape, and at T=16384 causal
+        (row 9's regime), beside its bound,
+        the plain backward and ``scaled_dot_product_attention``'s backward
+        (``autograd.grad`` through it minus its forward; a yardstick the
+        port never calls); each kernel's own device time from
+        ``torch.profiler``; then attention's share of a BERT training
+        step. The JSON rows of the two kernels carry their own time and
+        bound, and the pair's plain and library times."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        dt = torch.bfloat16
+        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_bwd.cu"
+        pallas = "deeplearning4j_tpu/ops/pallas/flash_attention.py"
+        pair_main = None
+        for shape in (FLASH_SHAPES[1], FLASH_SHAPES[0], FLASH_SHAPES[2], FLASH_LONG_SHAPE):
+            b, h, t_q, t_k, d, d_v, masked, causal = shape
+            (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dt, self.device, seed=9,
+                                           mask=masked)
+            bias = fa.key_bias(mask, b, t_k)
+            with torch.no_grad():
+                o, lse = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
+                do = torch.randn_like(o)
+                run = lambda: fa.launch_flash_bwd(q, k, v, o, lse, do, bias, causal)  # noqa: E731
+                grads = run()
+                pair_ms = cuda_ms(run, reps=20)
+                plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
+                    q, k, v, o, lse, do, mask, causal), reps=3, warmup=1)
+                per, _ = self.profile_kernels(run, reps=5)
+            sdpa_mask = None if mask is None else mask[:, None, None, :]
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *leaves, attn_mask=sdpa_mask, is_causal=causal)
+            sdpa_fwd = cuda_ms(sdpa, reps=20)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), leaves, do), reps=20) - sdpa_fwd
+            pairs = attention_pairs(b, h, t_q, t_k, mask, causal)
+            delta = torch.empty(b, h, t_q, dtype=torch.float32, device=self.device)
+            ins = [q, k, v, o, do, lse, bias]
+            rows = {fa.bwd_dq_counter.name: (ins + [grads[0], delta], 2.0 * pairs * (2 * d + d_v),
+                                             "flash_bwd_dq_kernel", f"{pallas}:633"),
+                    fa.bwd_dkv_counter.name: ([q, k, v, do, lse, delta, bias, *grads[1:]],
+                                              2.0 * pairs * (2 * d + 2 * d_v),
+                                              "flash_bwd_dkv_kernel", f"{pallas}:655")}
+            pair_bound, pair_by = bound(ins + list(grads), 2.0 * pairs * (3 * d + 2 * d_v), dt)
+            tag = (f"b={b} h={h} t_q={t_q} t_k={t_k} d={d} bf16 mask={'yes' if masked else 'no'} "
+                   f"causal={'yes' if causal else 'no'}")
+            kernel_ms = {}
+            for name, (tensors, flops, key, replaces) in rows.items():
+                kms = sum(ms for k_, (ms, _) in per.items() if key in k_)
+                kernel_ms[name] = kms
+                kb, kby = bound(tensors, flops, dt)
+                log(f"{name}: {kms:.4f} ms per launch (profiler) at {tag}; bound {kb:.4f} ms "
+                    f"({kby}, {flops / 1e9:.2f} GFLOP)")
+                if pair_main is None:
+                    self.kernels.setdefault(name, {}).update({
+                        "name": name, "route": "cuda", "source": csrc,
+                        "replaces": f"{replaces} (row 8); {pallas}:542, :575 (row 9, T > 8192)",
+                        "ms": kms, "plain_ms": plain_ms, "bound_ms": kb, "bound_by": kby,
+                        "library_ms": sdpa_bwd})
+            log(f"flash backward pair: {pair_ms:.4f} ms (CUDA events; dq "
+                f"{kernel_ms[fa.bwd_dq_counter.name]:.4f} + dk/dv "
+                f"{kernel_ms[fa.bwd_dkv_counter.name]:.4f} ms by the profiler) at {tag}; bound "
+                f"{pair_bound:.4f} ms ({pair_by}); plain backward {plain_ms:.3f} ms; "
+                f"scaled_dot_product_attention backward {sdpa_bwd:.4f} ms (forward {sdpa_fwd:.4f})")
+            if pair_main is None:
+                pair_main = pair_ms
+            del q, k, v, o, lse, do, grads, leaves
+            torch.cuda.empty_cache()
+        step = self.bert_train_step_ms
+        if step is not None and self.flash_lse_ms is not None:
+            share = BERT_LAYERS * (self.flash_lse_ms + pair_main)
+            log(f"bert train step: attention (the {BERT_LAYERS} saving forwards + backward pairs, "
+                f"masked) takes {share:.3f} ms of the {step:.2f} ms median step "
+                f"({100 * share / step:.1f}%)")
 
     def cudnn_ms(self, T, B, H, dtype):
         """``torch.nn.LSTM`` (cuDNN) on layer 0's work: the input projection
@@ -1040,6 +1526,9 @@ def main() -> int:
     if smoke.failures:
         log("FAILED:", smoke.failures)
         return 1
+    if sys.argv[1:] == ["--label-rules"]:
+        smoke.phase("label rules", smoke.label_rules_phase)
+        return 1 if smoke.failures else 0
     smoke.phase("kernels", smoke.kernel_phase)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
@@ -1048,6 +1537,7 @@ def main() -> int:
         smoke.phase("slice bert", lambda: smoke.bert_phase(workdir))
         smoke.phase("train graves=True", lambda: smoke.train_phase(True))
         smoke.phase("train graves=False", lambda: smoke.train_phase(False))
+        smoke.phase("train bert", smoke.bert_train_phase)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("times", smoke.times_phase)

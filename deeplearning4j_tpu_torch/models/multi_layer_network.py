@@ -41,20 +41,13 @@ from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
 from deeplearning4j_tpu_torch.train.listeners import TrainingListener
 from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer
 
 
 def _layer_key(i: int, layer: Layer) -> str:
     return layer.name or f"layer_{i}"
-
-
-def _map_tensors(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn) for v in tree)
-    return fn(tree)
 
 
 class MultiLayerNetwork:
@@ -99,8 +92,8 @@ class MultiLayerNetwork:
                     model_state[_layer_key(i, layer)] = s
         else:
             new_params = params
-        self._params = _map_tensors(new_params, lambda t: t.to(self.device))
-        self._model_state = _map_tensors(model_state, lambda t: t.to(self.device))
+        self._params = tree_map(lambda t: t.to(self.device), new_params)
+        self._model_state = tree_map(lambda t: t.to(self.device), model_state)
         self._optimizer = None  # built at the first fit, on these parameters
         self._restored_updater_leaves = None
         self._rnn_carries = None
@@ -207,14 +200,14 @@ class MultiLayerNetwork:
         trips exactly through :meth:`rnn_set_state`."""
         if self._rnn_carries is None:
             return None
-        return _map_tensors(self._rnn_carries, lambda t: t.detach().to("cpu", copy=True))
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), self._rnn_carries)
 
     def rnn_set_state(self, state) -> None:
         """Install a state from :meth:`rnn_get_state` (tensors or numpy
         arrays); ``None`` clears. Dtypes are kept as given."""
         self._ensure_init()
         self._rnn_carries = (None if state is None else
-                             _map_tensors(state, lambda t: torch.as_tensor(t).to(self.device)))
+                             tree_map(lambda t: torch.as_tensor(t).to(self.device), state))
 
     def rnn_zero_state(self, batch: int, like=None):
         """Fresh zero state for a ``batch``-row stream; ``like`` (an example
@@ -234,7 +227,7 @@ class MultiLayerNetwork:
             state = self._zero_carries(
                 x.shape[0], carry_dtype(x, get_environment().compute_dtype))
         else:
-            state = _map_tensors(state, lambda t: torch.as_tensor(t).to(self.device))
+            state = tree_map(lambda t: torch.as_tensor(t).to(self.device), state)
         return self._rnn_step(state, x)
 
     # ------------------------------------------------------------------- fit
@@ -293,29 +286,32 @@ class MultiLayerNetwork:
                 slice_time(x, t0, L), y[:, t0:t0 + L] if y.dim() >= 3 else y,
                 None if fmask is None else fmask[:, t0:t0 + L],
                 None if lmask is None else lmask[:, t0:t0 + L], carries)
-            carries = _map_tensors(carries, lambda t: t.detach())
+            carries = tree_map(lambda t: t.detach(), carries)
             self._iteration_done(loss)
 
     def _train_step(self, x, y, fmask, lmask, carries=None):
         """One step: loss, gradients of the float parameters through the
-        compute-dtype cast, and the optimizer's update in place. Returns the
-        detached loss and the new carries."""
+        compute-dtype cast, and the optimizer's update in place. The
+        parameters may nest (``"attn"``, ``"stack"``): every leaf is walked
+        in :func:`tree_leaves` order. Returns the detached loss and the new
+        carries."""
         optimizer = self._ensure_optimizer()
-        leaves = [(k, n, t) for k, layer in self._params.items()
-                  for n, t in layer.items() if t.is_floating_point()]
-        for _, _, t in leaves:
+        leaves = tree_leaves(self._params)
+        trained = [t for t in leaves if t.is_floating_point()]
+        for t in trained:
             t.requires_grad_(True)
         try:
             loss, new_carries = self._loss(self._params, self._model_state, x, y,
                                            self.rng.next_generator(), fmask, lmask, carries)
-            grads = torch.autograd.grad(loss, [t for _, _, t in leaves], allow_unused=True)
+            grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
         finally:
-            for _, _, t in leaves:
+            for t in trained:
                 t.requires_grad_(False)
-        tree: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (k, n, t), g in zip(leaves, grads):
-            tree.setdefault(k, {})[n] = torch.zeros_like(t) if g is None else g
-        optimizer.step(self._params, tree)
+        per_leaf = []
+        for t in leaves:
+            g = next(grads) if t.is_floating_point() else None
+            per_leaf.append(torch.zeros_like(t) if g is None else g)
+        optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
         return loss.detach(), new_carries
 
     def _iteration_done(self, loss) -> None:
@@ -362,7 +358,8 @@ class MultiLayerNetwork:
         return self._optimizer
 
     def updater_state(self):
-        """The optimizer's moments, ``{layer_key: {param: tensor}}``, in the
+        """The optimizer's state per layer key (RmsProp: ``{param: nu}``;
+        Adam: ``{"count", "mu", "nu"}``, nested as the parameters), in the
         leaf order of the JAX package's ``opt_state`` (empty for ``Sgd``)."""
         self._ensure_init()
         return self._ensure_optimizer().state

@@ -11,11 +11,14 @@ keys sorted as strings, recursively. So ``"model_state"`` < ``"params"``,
 ``"layer_10"`` < ``"layer_2"`` and ``"W"`` < ``"W_rec"`` < ``"b"`` <
 ``"peephole"``. :func:`tree_leaves` reproduces that order without JAX.
 
-``updaterState.npz`` holds the optimizer's moments in the leaf order of the
+``updaterState.npz`` holds the optimizer's state in the leaf order of the
 JAX package's ``jax.tree.leaves(opt_state)`` (JAX ``serializer.py:33-48``,
-``:75``, ``:132``): for ``RmsProp``, each layer's ``nu`` in sorted layer-key
-and parameter-name order; nothing for ``Sgd``. So an archive written by
-either package resumes training in the other with its optimizer state. The
+``:75``, ``:132``): per layer label in sorted order, that layer's leaves in
+sorted, nested parameter order (``"attn"/...``, ``"stack"/...``). For
+``RmsProp`` each layer's ``nu``; for ``Adam`` each layer's 0-d int32
+``count``, then its ``mu`` leaves, then its ``nu`` leaves; nothing for
+``Sgd``. So an archive written by either package resumes training in the
+other with its optimizer state. The
 port writes the file once its network has an optimizer (after ``fit``, or
 after restoring one), and reads it into the optimizer when that is built.
 """
@@ -25,41 +28,17 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Any, List
+from typing import List
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_unflatten_like
 
 _CONF = "configuration.json"
 _COEFF = "coefficients.npz"
 _UPDATER = "updaterState.npz"
 _META = "metadata.json"
-
-
-def tree_leaves(tree) -> List[Any]:
-    """Leaves of nested dicts/lists/tuples in ``jax.tree.leaves`` order:
-    dict keys sorted, sequences in order, ``None`` dropped."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def tree_unflatten_like(like, leaves: List[Any]):
-    """Rebuild ``like``'s structure from ``leaves`` (in :func:`tree_leaves`
-    order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            rebuilt = {k: build(node[k]) for k in sorted(node)}
-            return {k: rebuilt[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return None if node is None else next(it)
-
-    return build(like)
 
 
 def params_from_numpy(tree, device=None, dtype=None):

@@ -6,7 +6,11 @@ kernel (``ops/kernels/flash_attention.py``), the post-LN transformer encoder
 block and its layer-stacked form, and BERT's embedding and [CLS] pooling.
 Parameter names and nesting are the JAX package's (``"attn"/{W_q, b_q,
 ...}``, ``ln1_gamma``, ``W_ff1``; ``"stack"/...`` with a leading layer
-axis), so archives cross between the packages both ways.
+axis), so archives cross between the packages both ways. In training the
+attention runs under autograd through the flash kernels' Function (the
+saving forward, then the backward kernels), the features mask still a
+key-padding bias, and the dropout masks are drawn on the activations'
+device.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, register_layer
+from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, keep_mask, register_layer
 from deeplearning4j_tpu_torch.nn.core_layers import _param_dtype
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.ops.activations import get_activation, single_pass_norm_stats
@@ -62,12 +66,12 @@ def dot_product_attention(q, k, v, mask=None, use_flash: bool = True, causal: bo
 
 def _dropout(x, rate: float, training: bool, generator):
     """Inverted dropout with drop probability ``rate`` (transformer
-    convention), in training only."""
+    convention), in training only; the mask is drawn on ``x``'s device
+    (:func:`keep_mask`)."""
     if not training or generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator).to(x.device) < keep
-    return torch.where(kept, x / keep, torch.zeros_like(x)).to(x.dtype)
+    return torch.where(keep_mask(x, keep, generator), x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 @register_layer

@@ -59,6 +59,19 @@ def cast_floating(tree, dtype: torch.dtype):
     return tree
 
 
+def keep_mask(x: torch.Tensor, keep: float, generator: torch.Generator) -> torch.Tensor:
+    """Boolean dropout mask of ``x``'s shape, true with probability
+    ``keep``, drawn on ``x``'s device from a generator there, seeded by one
+    draw from ``generator``, the step's CPU generator
+    (``RngManager.next_generator``): a step does no per-element host work
+    and copies no mask to the device. The masks differ from the JAX
+    package's stream (and between CPU and device), as every draw of the two
+    packages does."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    device_gen = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.rand(x.shape, generator=device_gen, device=x.device) < keep
+
+
 @dataclasses.dataclass
 class GlobalConfig:
     """Network-wide defaults that layers inherit when their own field is
@@ -135,8 +148,7 @@ class Layer:
         p = self._dropout(g)
         if not training or p is None or p >= 1.0 or generator is None:
             return x
-        keep = torch.rand(x.shape, generator=generator).to(x.device) < p
-        return torch.where(keep, x / p, torch.zeros_like(x))
+        return torch.where(keep_mask(x, p, generator), x / p, torch.zeros_like(x))
 
     def to_dict(self) -> dict:
         d = {"@type": type(self).__name__}

@@ -12,7 +12,7 @@ from typing import Any, Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, register_layer
+from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, keep_mask, register_layer
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.initializers import init_weights
@@ -115,8 +115,7 @@ class DropoutLayer(Layer):
         p = self._dropout(self._g) or 0.5
         if not training or generator is None or p >= 1.0:
             return x, state
-        keep = torch.rand(x.shape, generator=generator).to(x.device) < p
-        return torch.where(keep, x / p, torch.zeros_like(x)), state
+        return torch.where(keep_mask(x, p, generator), x / p, torch.zeros_like(x)), state
 
 
 @register_layer

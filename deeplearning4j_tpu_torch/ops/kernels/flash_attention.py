@@ -1,30 +1,35 @@
-"""Flash attention forward as a CUDA kernel for Hopper.
+"""Flash attention, forward and backward, as CUDA kernels for Hopper.
 
 Counterpart of ``deeplearning4j_tpu/ops/pallas/flash_attention.py``:
-``_flash_fwd`` (the ``pallas_call`` at :226) becomes ``csrc/flash_fwd.cu``.
-Per (batch, head) it computes ``O = softmax(Q K^T / sqrt(d) + bias
+``_flash_fwd`` (the ``pallas_call`` at :226) becomes ``csrc/flash_fwd.cu``,
+and ``_flash_bwd`` (:633 dq, :655 dk/dv) and ``_flash_bwd_chunked`` (:542,
+:575; T > 8192) become the two kernels of ``csrc/flash_bwd.cu``, which
+stream their tiles from global memory at any length and so compute both.
+Per (batch, head) the forward computes ``O = softmax(Q K^T / sqrt(d) + bias
 [+ causal]) V`` tile by tile with the online softmax, never storing the
-score matrix, and its saving instance also writes the per-row logsumexp
-``lse = m + log(l)`` that a backward reads. The backward kernels
-(``_flash_bwd``, ``_flash_bwd_chunked``) are not ported yet: a call that
-autograd would record on a CUDA tensor raises ``NotImplementedError``.
+score matrix; its saving instance also writes the per-row logsumexp ``lse``
+that the backward reads to recompute ``P = exp(S - lse)`` tile by tile.
 
 Layout is the JAX package's: ``(batch, heads, time, d)``. A key-padding
 mask (``(b, t_k)`` or ``(b, 1, 1, t_k)``, true = attend) becomes the
 additive fp32 bias ``0 / -1e30`` shared by the heads; ``causal`` is the
 top-left triangle and needs ``t_q == t_k``. A fully masked row gives the
-mean of V. ``d`` and ``d_v`` may differ, each at most 256; q, k and v share
-one dtype, float32 or bfloat16; ``t_q`` and ``t_k`` are any lengths >= 1.
+mean of V; its backward takes ``P = 1`` for every key, as the Pallas
+backward does (see ``flash_bwd.cu``). ``d`` and ``d_v`` may differ, each at
+most 256; q, k and v share one dtype, float32 or bfloat16; ``t_q`` and
+``t_k`` are any lengths >= 1.
 
-:func:`flash_attention` (inference) and :func:`flash_attention_lse`
-(saving) launch the kernel for CUDA tensors and raise on what it does not
-take; only CPU tensors take the plain PyTorch version,
-:func:`flash_attention_reference` (dense fp32 scores, the same bias,
-causal and rounding rules). On the card the kernel reads q, k and v through
-their strides (the last dimension must be contiguous), so a head split
-``x.reshape(b, t, h, d).transpose(1, 2)`` costs no copy, and it writes O
-into a ``(b, t_q, h, d_v)`` buffer whose ``(b, h, t_q, d_v)`` view it
-returns, so the merge of the heads that follows costs none either.
+:func:`flash_attention` and :func:`flash_attention_lse` launch the kernels
+for CUDA tensors and raise on what they do not take; only CPU tensors take
+the plain PyTorch versions, :func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference`. A call that autograd records
+goes through :class:`FlashAttentionFunction` (the saving forward, then the
+two backward kernels); under ``no_grad``/``inference_mode`` the inference
+instance runs. On the card the kernels read their operands through their
+strides (the last dimension must be contiguous), so a head split
+``x.reshape(b, t, h, d).transpose(1, 2)`` costs no copy, and they write O,
+dq, dk and dv into ``(b, t, h, d)`` buffers whose ``(b, h, t, d)`` views
+they return, so the merge of the heads that follows costs none either.
 """
 
 from __future__ import annotations
@@ -49,6 +54,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = LaunchCounter("flash_attention")  # inference instance
 lse_counter = LaunchCounter("flash_attention_lse")  # saving instance (writes lse)
+bwd_dq_counter = LaunchCounter("flash_attention_bwd_dq")
+bwd_dkv_counter = LaunchCounter("flash_attention_bwd_dkv")
+
+
+def _declare_error_string(lib: ctypes.CDLL) -> None:
+    lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -56,11 +68,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dl4j_flash_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
                                    *([ll] * 12), ctypes.c_float, i, p]
     lib.dl4j_flash_fwd.restype = i
-    lib.dl4j_cuda_error_string.argtypes = [i]
-    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+    _declare_error_string(lib)
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (dtype, q, k, v, o, dout, lse, bias, delta, dq, B, H, Tq, Tk, D, Dv,
+    #  strides, scale, causal, stream)
+    lib.dl4j_flash_bwd_dq.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, p]
+    lib.dl4j_flash_bwd_dq.restype = i
+    # (dtype, q, k, v, dout, lse, bias, delta, dk, dv, B, H, Tq, Tk, D, Dv,
+    #  strides, scale, causal, stream)
+    lib.dl4j_flash_bwd_dkv.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, p]
+    lib.dl4j_flash_bwd_dkv.restype = i
+    _declare_error_string(lib)
 
 
 LIBRARY = register_library(NativeLibrary("flash_fwd.cu", _declare))
+BWD_LIBRARY = register_library(NativeLibrary("flash_bwd.cu", _declare_bwd))
 
 
 def padding_mask_2d(mask, b: int, t_k: int) -> Optional[torch.Tensor]:
@@ -166,8 +191,48 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
+def flash_attention_backward_reference(q, k, v, o, lse, do, mask=None, causal: bool = False
+                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels (JAX ``_flash_bwd``):
+    ``P = exp(S - lse)`` recomputed from the forward's lse with dense fp32
+    scores (the same bias and causal rules as the forward), ``delta =
+    rowsum(dO * O)`` in fp32 from dO and O as stored, ``dS = P * (dP -
+    delta) * scale`` rounded to the input dtype before both of its
+    products, P rounded before ``P^T dO``, every product summed in fp32.
+    Returns ``(dq, dk, dv)`` in the input dtype. A fully masked row gets
+    ``P = 1`` for every key, as in the Pallas kernel (its scores and its
+    lse are both -1e30)."""
+    b, _, t_q, d = q.shape
+    t_k = k.shape[2]
+    dt = q.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    qc, kc, vc, doc = (t.to(ct) for t in (q, k, v, do))
+    s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+    bias = key_bias(mask, b, t_k)
+    if bias is not None:
+        s = s + bias.to(ct)[:, None, None, :]
+    if causal:
+        keep = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse.to(ct)[..., None])
+    delta = (doc * o.to(ct)).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(doc, vc.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(dt).to(ct)
+    dq = torch.matmul(ds, kc)
+    dk = torch.matmul(ds.transpose(-1, -2), qc)
+    dv = torch.matmul(p.to(dt).to(ct).transpose(-1, -2), doc)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _raise_launch(lib, err: int, what: str, q, k, v, causal) -> None:
+    msg = lib.dl4j_cuda_error_string(err).decode()
+    raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err}) at q {tuple(q.shape)} "
+                       f"k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} causal={bool(causal)}")
 
 
 def launch_flash_fwd(q, k, v, bias, causal: bool, launches: LaunchCounter,
@@ -191,12 +256,87 @@ def launch_flash_fwd(q, k, v, bias, causal: bool, launches: LaunchCounter,
             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             1.0 / math.sqrt(d), int(bool(causal)), stream)
     if err != 0:
-        msg = lib.dl4j_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash attention kernel launch failed: {msg} (cudaError {err}) "
-                           f"at q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
-                           f"{q.dtype} causal={bool(causal)}")
+        _raise_launch(lib, err, "flash attention kernel", q, k, v, causal)
     launches.add()
     return (o, lse) if save else o
+
+
+def launch_flash_bwd(q, k, v, o, lse, do, bias, causal: bool):
+    """Launch the two backward kernels on CUDA tensors (shapes as
+    :func:`_check` takes them; o, lse from the saving forward, dO shaped as
+    o; ``bias`` is :func:`key_bias`'s): first the dq kernel, which also
+    writes ``delta = rowsum(dO * O)``, then the dk/dv kernel, which reads
+    it. Returns dq, dk, dv as ``(b, h, t, d)`` views of ``(b, t, h, d)``
+    buffers in the input dtype."""
+    lib = BWD_LIBRARY.load()
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    b, h, t_q, d = q.shape
+    t_k, d_v = k.shape[2], v.shape[3]
+    if tuple(o.shape) != (b, h, t_q, d_v) or tuple(do.shape) != tuple(o.shape) or \
+            tuple(lse.shape) != (b, h, t_q) or do.dtype != q.dtype or o.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"flash backward: o {tuple(o.shape)} {o.dtype}, dO {tuple(do.shape)} "
+                         f"{do.dtype} and lse {tuple(lse.shape)} {lse.dtype} do not fit q "
+                         f"{tuple(q.shape)} {q.dtype} and v {tuple(v.shape)}")
+
+    def buffer(t, width):
+        return torch.empty((b, t, h, width), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+    dq, dk, dv = buffer(t_q, d), buffer(t_k, d), buffer(t_k, d_v)
+    delta = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(x for t in (q, k, v, o, do, dq, dk, dv)
+                                         for x in _strides(t)))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    common = (b, h, t_q, t_k, d, d_v, strides, 1.0 / math.sqrt(d), int(bool(causal)))
+    code = _DTYPE_CODES[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dl4j_flash_bwd_dq(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                    do.data_ptr(), lse.data_ptr(), bias_ptr, delta.data_ptr(),
+                                    dq.data_ptr(), *common, stream)
+        if err != 0:
+            _raise_launch(lib, err, "flash attention backward dq kernel", q, k, v, causal)
+        bwd_dq_counter.add()
+        err = lib.dl4j_flash_bwd_dkv(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     do.data_ptr(), lse.data_ptr(), bias_ptr, delta.data_ptr(),
+                                     dk.data_ptr(), dv.data_ptr(), *common, stream)
+        if err != 0:
+            _raise_launch(lib, err, "flash attention backward dk/dv kernel", q, k, v, causal)
+        bwd_dkv_counter.add()
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention under autograd (JAX ``_flash`` with its custom VJP,
+    ``:678-697``). Forward: the saving instance of the forward kernel on
+    CUDA tensors, :func:`flash_attention_reference` on CPU tensors; returns
+    ``(o, lse)`` with lse not differentiable. Backward: the two backward
+    kernels on CUDA tensors, :func:`flash_attention_backward_reference` on
+    CPU tensors. The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        bias = None
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, mask, causal)
+        else:
+            bias = key_bias(mask, q.shape[0], k.shape[2])
+            o, lse = launch_flash_fwd(q, k, v, bias, causal, lse_counter, save=True)
+        ctx.save_for_backward(q, k, v, o, lse, mask, bias)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, mask, bias = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do, mask,
+                                                            ctx.causal)
+        else:
+            dq, dk, dv = launch_flash_bwd(q, k, v, o, lse, do, bias, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def _needs_grad(*tensors) -> bool:
@@ -205,16 +345,14 @@ def _needs_grad(*tensors) -> bool:
 
 def _run(q, k, v, mask, causal: bool, save: bool):
     _check(q, k, v, mask, causal)
-    if q.device.type == "cpu":
-        o, lse = flash_attention_reference(q, k, v, mask, causal)
-        return (o, lse) if save else o
     if _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "the flash attention backward (TPU kernels _flash_bwd and _flash_bwd_chunked, "
-            "rows 8-9 of the kernel table) is not ported to deeplearning4j_tpu_torch yet: "
-            "run attention on CUDA tensors under torch.no_grad()/inference_mode")
-    bias = key_bias(mask, q.shape[0], k.shape[2])
-    return launch_flash_fwd(q, k, v, bias, causal, lse_counter if save else counter, save)
+        o, lse = FlashAttentionFunction.apply(q, k, v, mask, causal)
+    elif q.device.type == "cpu":
+        o, lse = flash_attention_reference(q, k, v, mask, causal)
+    else:
+        bias = key_bias(mask, q.shape[0], k.shape[2])
+        return launch_flash_fwd(q, k, v, bias, causal, lse_counter if save else counter, save)
+    return (o, lse) if save else o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask=None,
@@ -222,8 +360,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask=None
     """``(batch, heads, time, d)`` flash attention (JAX ``:700-717``).
     ``mask`` is a key-padding mask ``(b, t_k)`` or ``(b, 1, 1, t_k)``
     (true = attend); ``causal`` applies the top-left triangle. CUDA tensors
-    launch the kernel (or the call raises); CPU tensors take the plain
-    version."""
+    launch the kernels (or the call raises); CPU tensors take the plain
+    versions. Differentiable in q, k and v."""
     return _run(q, k, v, mask, causal, save=False)
 
 

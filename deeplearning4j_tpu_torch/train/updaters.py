@@ -6,26 +6,33 @@ Counterpart of ``deeplearning4j_tpu/train/updaters.py``: the reference's
 dataclasses with the same defaults and the same ``to_dict``/``from_dict``
 schema, so a ``configuration.json`` written by either package parses here.
 
-The math of ``Sgd``, ``RmsProp`` and ``NoOp`` is ported: each is the optax
-0.2.6 transform the JAX package builds (``optax.sgd``, ``optax.rmsprop``,
-``optax.set_to_zero``), with the same state, the same float operations in
-the same order, and the same state leaf order in ``updaterState.npz``. The
-other updaters, learning-rate schedules (kept as their JSON dict), gradient
-normalization, weight decay and l1/l2 raise ``NotImplementedError`` by name
-when a network trains with them.
+The math of ``Sgd``, ``Adam``, ``RmsProp`` and ``NoOp`` is ported: each is
+the optax 0.2.6 transform the JAX package builds (``optax.sgd``,
+``optax.adam``, ``optax.rmsprop``, ``optax.set_to_zero``), with the same
+state, the same float operations in the same order, and the same state leaf
+order in ``updaterState.npz``. A layer's update runs as ``torch._foreach_*``
+ops over all its leaves, a few launches per layer instead of a few per leaf.
+The other updaters, learning-rate
+schedules (kept as their JSON dict), gradient normalization, weight decay
+and l1/l2 raise ``NotImplementedError`` by name when a network trains with
+them.
 
 :class:`NetworkOptimizer` is the counterpart of the JAX network's
 ``_build_tx``/``_layer_transform`` (``multi_layer_network.py:118-153``): one
 transform per layer key, the layer's own updater or the global one
-(``Sgd(0.1)`` when none is configured), ``NoOp`` for a frozen layer.
+(``Sgd(0.1)`` when none is configured), ``NoOp`` for a frozen layer. A
+layer's parameters may nest (``"attn"``, ``"stack"``): they, their
+gradients and their moments are walked in :func:`tree_leaves` order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Type
+from typing import Any, Dict, List, Type
 
 import torch
+
+from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map
 
 _UPDATER_REGISTRY: Dict[str, Type["Updater"]] = {}
 
@@ -46,14 +53,18 @@ class Updater:
                 "not ported to deeplearning4j_tpu_torch yet")
         return float(self.learning_rate)
 
-    def init_state(self, param: torch.Tensor) -> Optional[torch.Tensor]:
-        """The parameter's moment (its leaf of the optax state), or None."""
+    def init_state(self, params) -> Any:
+        """One layer's part of the optax state for its parameter tree
+        ``params``, as a tree whose :func:`tree_leaves` are in the JAX
+        package's ``jax.tree.leaves(opt_state)`` order; None when there is
+        none."""
         raise NotImplementedError(f"the {type(self).__name__} updater is not ported "
                                   "to deeplearning4j_tpu_torch yet")
 
-    def apply(self, param: torch.Tensor, grad: torch.Tensor,
-              state: Optional[torch.Tensor]) -> None:
-        """One step on ``param`` and its moment ``state``, in place."""
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: Any) -> None:
+        """One step, in place, on one layer's parameter leaves ``params``
+        (``grads`` line up with them leaf by leaf) and its ``state``."""
         raise NotImplementedError(f"the {type(self).__name__} updater is not ported "
                                   "to deeplearning4j_tpu_torch yet")
 
@@ -77,37 +88,82 @@ class Updater:
 class Sgd(Updater):
     """``optax.sgd(lr)``: ``p += -lr * g``; no state."""
 
-    def init_state(self, param):
+    def init_state(self, params):
         return None
 
-    def apply(self, param, grad, state):
-        param.add_((-self._lr()) * grad)
+    def apply(self, params, grads, state):
+        torch._foreach_add_(params, torch._foreach_mul(grads, -self._lr()))
+
+
+_INT32_MAX = 2 ** 31 - 1
 
 
 @register_updater
 @dataclasses.dataclass
 class Adam(Updater):
+    """``optax.adam(lr, b1, b2, eps)`` (``scale_by_adam`` with ``eps_root``
+    0, then the learning rate), written out because its float order is not
+    ``torch.optim.Adam``'s: ``mu = (1 - b1) * g + b1 * mu`` and ``nu = (1 -
+    b2) * g^2 + b2 * nu`` in the parameter's dtype; ``count`` (int32) steps
+    by one; ``p += -lr * (mu / bc1) / (sqrt(nu / bc2) + eps)`` with the
+    bias corrections ``bc = 1 - b^count`` formed in float32, as jnp forms
+    them. eps sits OUTSIDE the square root. The state of a layer is
+    ``{"count", "mu", "nu"}``, whose sorted leaves are optax's (count, the mu
+    leaves, the nu leaves). ``count`` stays on the host, a 0-d int32 CPU
+    tensor, so the bias corrections are host scalars and a step reads
+    nothing back from the device."""
+
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
+
+    def init_state(self, params):
+        return {"count": torch.zeros((), dtype=torch.int32),
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    def apply(self, params, grads, state):
+        count = min(int(state["count"]) + 1, _INT32_MAX)  # optax safe_increment
+        state["count"].fill_(count)
+        one = torch.ones((), dtype=torch.float32)
+        bc1 = float(one - torch.tensor(self.beta1, dtype=torch.float32) ** count)
+        bc2 = float(one - torch.tensor(self.beta2, dtype=torch.float32) ** count)
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        term = torch._foreach_mul(grads, 1.0 - self.beta1)
+        torch._foreach_mul_(mu, self.beta1)
+        torch._foreach_add_(mu, term)
+        term = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(term, 1.0 - self.beta2)
+        torch._foreach_mul_(nu, self.beta2)
+        torch._foreach_add_(nu, term)
+        update = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.epsilon)
+        torch._foreach_div_(update, denom)
+        torch._foreach_mul_(update, -self._lr())
+        torch._foreach_add_(params, update)
 
 
 @register_updater
 @dataclasses.dataclass
 class AdaMax(Adam):
-    pass
+    init_state = Updater.init_state  # the math is not ported: raises by name
+    apply = Updater.apply
 
 
 @register_updater
 @dataclasses.dataclass
 class AMSGrad(Adam):
-    pass
+    init_state = Updater.init_state  # the math is not ported: raises by name
+    apply = Updater.apply
 
 
 @register_updater
 @dataclasses.dataclass
 class Nadam(Adam):
-    pass
+    init_state = Updater.init_state  # the math is not ported: raises by name
+    apply = Updater.apply
 
 
 @register_updater
@@ -128,12 +184,20 @@ class RmsProp(Updater):
     rms_decay: float = 0.95
     epsilon: float = 1e-8
 
-    def init_state(self, param):
-        return torch.zeros_like(param)
+    def init_state(self, params):
+        return tree_map(torch.zeros_like, params)
 
-    def apply(self, param, grad, nu):
-        nu.copy_((1.0 - self.rms_decay) * (grad ** 2) + self.rms_decay * nu)
-        param.add_((-self._lr()) * (torch.rsqrt(nu + self.epsilon) * grad))
+    def apply(self, params, grads, state):
+        nu = tree_leaves(state)
+        term = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(term, 1.0 - self.rms_decay)
+        torch._foreach_mul_(nu, self.rms_decay)
+        torch._foreach_add_(nu, term)
+        update = torch._foreach_add(nu, self.epsilon)
+        torch._foreach_rsqrt_(update)
+        torch._foreach_mul_(update, grads)
+        torch._foreach_mul_(update, -self._lr())
+        torch._foreach_add_(params, update)
 
 
 @register_updater
@@ -154,10 +218,10 @@ class AdaDelta(Updater):
 class NoOp(Updater):
     """``optax.set_to_zero()``: no update, no state."""
 
-    def init_state(self, param):
+    def init_state(self, params):
         return None
 
-    def apply(self, param, grad, state):
+    def apply(self, params, grads, state):
         pass
 
 
@@ -169,20 +233,21 @@ def _unported(name: str, value) -> None:
 
 class NetworkOptimizer:
     """The per-layer optimizer of a network: ``transforms`` maps each layer
-    key that has parameters to its :class:`Updater`. ``state`` is
-    ``{layer_key: {param_name: nu}}`` for the stateful layers, so
-    :func:`~..models.serializer.tree_leaves` of it is the JAX package's
+    key that has parameters to its :class:`Updater`. ``state`` maps the
+    stateful layers' keys to their state (``{param: nu}`` for RmsProp,
+    ``{"count", "mu", "nu"}`` for Adam, each nested as the layer's
+    parameters), so :func:`tree_leaves` of it is the JAX package's
     ``jax.tree.leaves(opt_state)`` order (``optax.multi_transform`` keeps
     one inner state per layer label, sorted, each holding that layer's
-    moments in sorted parameter order)."""
+    leaves in sorted, nested parameter order)."""
 
-    def __init__(self, transforms: Dict[str, Updater], params: Dict[str, Dict]):
+    def __init__(self, transforms: Dict[str, Updater], params: Dict[str, Any]):
         self.transforms = transforms
-        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.state: Dict[str, Any] = {}
         for k, upd in transforms.items():
-            moments = {n: upd.init_state(t) for n, t in params[k].items()}
-            if any(m is not None for m in moments.values()):
-                self.state[k] = moments
+            st = upd.init_state(params[k])
+            if st is not None:
+                self.state[k] = st
 
     @staticmethod
     def for_network(layers, layer_keys: List[str], global_conf, params) -> "NetworkOptimizer":
@@ -205,12 +270,12 @@ class NetworkOptimizer:
             transforms[k] = upd
         return NetworkOptimizer(transforms, params)
 
-    def step(self, params: Dict[str, Dict[str, torch.Tensor]],
-             grads: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    def step(self, params: Dict[str, Any], grads: Dict[str, Any]) -> None:
         """Apply one update to ``params`` in place (``optax.apply_updates``:
-        the update is added in the parameter's dtype)."""
+        the update is added in the parameter's dtype). ``grads`` is nested
+        as ``params``."""
         with torch.no_grad():
             for k, upd in self.transforms.items():
-                moments = self.state.get(k, {})
-                for n, p in params[k].items():
-                    upd.apply(p, grads[k][n].to(p.dtype), moments.get(n))
+                ps = tree_leaves(params[k])
+                gs = [g.to(p.dtype) for p, g in zip(ps, tree_leaves(grads[k]), strict=True)]
+                upd.apply(ps, gs, self.state.get(k))

@@ -4,9 +4,10 @@
 ``Bert.base()`` is BERT-base (L=12, H=768, A=12), ``Bert.small()`` a small
 preset for tests (L=2, H=128, A=2). The classification variant appends
 [CLS] pooling, a tanh pooler and a softmax head (the SST-2 fine-tune shape).
-Masks: pass the padding mask as the features mask (``output(x, mask=m)``);
-attention reads it as a key-side mask. The ``Adam(2e-5)`` updater is
-configuration only so far: ``fit`` raises by name until its math is ported.
+Masks: pass the padding mask as the features mask (``output(x, mask=m)``,
+``fit(ids, onehot_labels, mask=m)``); attention reads it as a key-side mask.
+``fit`` trains under the zoo's ``Adam(2e-5)``, with attention's backward in
+the flash backward kernels on the card and dropout masks drawn there.
 """
 
 from deeplearning4j_tpu_torch.nn import (BertEmbeddingLayer, ClsPoolingLayer, DenseLayer,

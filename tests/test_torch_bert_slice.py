@@ -6,6 +6,7 @@ archive restored by the JAX package, with and without a features mask,
 with the encoder as blocks and as one stacked layer. Then the port's
 ``ModelRegistry`` serves the restored model from several threads, and a
 masked row must give what the same row cut to its unmasked tokens gives.
+Training parity lives in ``tests/test_torch_bert_train_slice.py``.
 
 Float32 throughout. JAX runs off interpret mode, so its attention takes the
 einsum form on the CPU while the port's takes the flash kernel's plain
@@ -209,10 +210,14 @@ def test_embedding_refuses_what_it_cannot_look_up(jax_archive, bad):
 
 
 def test_fit_raises_by_name_on_the_unported_adam_math(jax_archive):
+    """Adam is ported; its variants are not: a BERT configured with
+    ``AdaMax`` raises by name at its first ``fit``."""
+    from deeplearning4j_tpu_torch.train.updaters import AdaMax
     _, path, _ = jax_archive
     net = MultiLayerNetwork.load(path, device="cpu")
+    net.conf.global_conf.updater = AdaMax(2e-5)
     y = np.eye(2, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="Adam"):
+    with pytest.raises(NotImplementedError, match="AdaMax"):
         net.fit(_ids(2, 5), y)
 
 

@@ -153,21 +153,40 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch
 
 @pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_lse"])
 def test_flash_attention_needing_a_gradient_off_the_cpu_raises(monkeypatch, entry):
-    """The backward kernels are not ported: a call autograd would record on
-    a tensor off the CPU raises by name instead of running the plain
-    version; the same call without a gradient goes to the launcher."""
+    """A call autograd records on a tensor off the CPU never runs the plain
+    versions: on a device that is not CUDA it raises; past the check it
+    launches the saving forward, and its backward launches the backward
+    kernels. The same call without a gradient launches the inference
+    instance."""
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention
-    launched = []
-    monkeypatch.setattr(flash_attention, "_check", lambda *a: None)
-    monkeypatch.setattr(flash_attention, "launch_flash_fwd", lambda *a: launched.append(a))
-    monkeypatch.setattr(flash_attention, "flash_attention_reference",
-                        lambda *a: pytest.fail("plain version ran for a meta tensor"))
     fn = getattr(flash_attention, entry)
     q = torch.empty(2, 3, 5, 8, device="meta", requires_grad=True)
     k, v = (torch.empty(2, 3, 5, 8, device="meta") for _ in range(2))
-    with pytest.raises(NotImplementedError, match="_flash_bwd"):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         fn(q, k, v)
-    assert not launched
+    launched = []
+
+    def fwd(q_, k_, v_, bias, causal, launches, save=False):
+        launched.append(("fwd", launches.name))
+        o = torch.empty(q_.shape[:3] + v_.shape[3:], device="meta")
+        return (o, torch.empty(q_.shape[:3], device="meta")) if save else o
+
+    def bwd(q_, k_, v_, o, lse, do, bias, causal):
+        launched.append(("bwd", tuple(do.shape)))
+        return torch.empty_like(q_), torch.empty_like(k_), torch.empty_like(v_)
+
+    monkeypatch.setattr(flash_attention, "_check", lambda *a: None)
+    monkeypatch.setattr(flash_attention, "launch_flash_fwd", fwd)
+    monkeypatch.setattr(flash_attention, "launch_flash_bwd", bwd)
+    for name in ("flash_attention_reference", "flash_attention_backward_reference"):
+        monkeypatch.setattr(flash_attention, name,
+                            lambda *a: pytest.fail("plain version ran for a meta tensor"))
+    out = fn(q, k, v)
+    o = out[0] if entry == "flash_attention_lse" else out
+    (grad,) = torch.autograd.grad(o.sum(), [q])
+    assert grad.device.type == "meta"
+    assert launched == [("fwd", "flash_attention_lse"), ("bwd", (2, 3, 5, 8))]
     with torch.no_grad():
         fn(q, k, v)
-    assert len(launched) == 1
+    assert launched[-1] == ("fwd", "flash_attention_lse" if entry == "flash_attention_lse"
+                            else "flash_attention")

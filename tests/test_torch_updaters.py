@@ -1,10 +1,13 @@
 """The port's updater math against optax, as the JAX package builds it.
 
 Five steps of random gradients (numpy, from a seed) go through
-``Updater.make()`` of the JAX package and through the port's
-``NetworkOptimizer``; parameters and moments must agree after every step.
-Float32: ``rtol=1e-6, atol=1e-9`` — the same float operations in the same
-order on both sides, up to the last bit of ``rsqrt``.
+``Updater.make()`` of the JAX package, one transform per layer under
+``optax.multi_transform`` as the JAX network builds it, and through the
+port's ``NetworkOptimizer`` (for Adam over a parameter tree that nests as a
+transformer block's does); parameters and optimizer state must agree
+after every step. Float32: ``rtol=1e-6, atol=1e-9`` — the same float
+operations in the same order on both sides, up to the last bit of
+``rsqrt``, ``sqrt`` and ``pow``.
 """
 
 import numpy as np
@@ -18,6 +21,9 @@ from deeplearning4j_tpu_torch.train import updaters as tupd
 
 SHAPES = {"layer_0": {"W": (6, 8), "W_rec": (2, 8), "b": (8,), "peephole": (6,)},
           "layer_1": {"W": (2, 3), "b": (3,)}}
+# a layer whose parameters nest, as a transformer block's "attn" does
+NESTED = {"layer_0": {**SHAPES["layer_0"], "attn": {"W_q": (8, 4), "b_q": (4,)}},
+          "layer_1": SHAPES["layer_1"]}
 
 
 @pytest.fixture(autouse=True)
@@ -29,48 +35,68 @@ def _port_on_cpu():
     env.device, env.default_dtype, env.compute_dtype = saved
 
 
-def _tree(rng, scale=1.0):
-    return {k: {n: (rng.normal(0, scale, s)).astype(np.float32) for n, s in v.items()}
-            for k, v in SHAPES.items()}
+def _tree(rng, scale=1.0, shapes=SHAPES):
+    if isinstance(shapes, dict):
+        return {k: _tree(rng, scale, v) for k, v in shapes.items()}
+    return rng.normal(0, scale, shapes).astype(np.float32)
 
 
 def _torch_tree(tree):
-    return {k: {n: torch.from_numpy(a.copy()) for n, a in v.items()} for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(tree.copy())
+
+
+def _jax_multi_transform(make, shapes):
+    """One optax transform per layer label, as the JAX network's
+    ``_build_tx`` builds them."""
+    import jax
+    import optax
+    labels = {k: jax.tree.map(lambda _, k=k: k, _tree(np.random.default_rng(0), shapes=v))
+              for k, v in shapes.items()}
+    return optax.multi_transform({k: make() for k in shapes}, labels)
 
 
 @pytest.mark.parametrize("name,kw", [("RmsProp", {"learning_rate": 1e-2}),
                                      ("RmsProp", {"learning_rate": 1e-3, "rms_decay": 0.9,
                                                   "epsilon": 1e-6}),
                                      ("Sgd", {"learning_rate": 0.1}),
-                                     ("NoOp", {})],
-                         ids=["rmsprop", "rmsprop_decay_eps", "sgd", "noop"])
+                                     ("NoOp", {}),
+                                     ("Adam", {"learning_rate": 2e-5}),
+                                     ("Adam", {"learning_rate": 1e-3, "beta1": 0.8,
+                                               "beta2": 0.99, "epsilon": 1e-6})],
+                         ids=["rmsprop", "rmsprop_decay_eps", "sgd", "noop", "adam",
+                              "adam_betas_eps"])
 def test_updater_matches_optax_over_five_steps(name, kw):
     import jax
     import jax.numpy as jnp
     import optax
 
     from deeplearning4j_tpu.train import updaters as jupd
+    shapes = NESTED if name == "Adam" else SHAPES
     rng = np.random.default_rng(0)
-    params = _tree(rng)
-    tx = getattr(jupd, name)(**kw).make()
+    params = _tree(rng, shapes=shapes)
+    tx = _jax_multi_transform(lambda: getattr(jupd, name)(**kw).make(), shapes)
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = tx.init(jparams)
     tparams = _torch_tree(params)
-    opt = tupd.NetworkOptimizer({k: getattr(tupd, name)(**kw) for k in SHAPES}, tparams)
+    opt = tupd.NetworkOptimizer({k: getattr(tupd, name)(**kw) for k in shapes}, tparams)
     for step in range(5):
         # mixed magnitudes: some |g| << sqrt(eps), where the update is most sensitive
-        grads = _tree(rng, scale=10.0 ** -(step % 3 * 2))
+        grads = _tree(rng, scale=10.0 ** -(step % 3 * 2), shapes=shapes)
         updates, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
         opt.step(tparams, _torch_tree(grads))
-        for k in SHAPES:
-            for n in SHAPES[k]:
-                np.testing.assert_allclose(tparams[k][n].numpy(), np.asarray(jparams[k][n]),
-                                           rtol=1e-6, atol=1e-9, err_msg=f"{k}/{n} step {step}")
+        for i, (t, j) in enumerate(zip(tree_leaves(tparams), jax.tree.leaves(jparams),
+                                       strict=True)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-9,
+                                       err_msg=f"parameter leaf {i} step {step}")
         jleaves = jax.tree.leaves(jstate)
         tleaves = tree_leaves(opt.state)
         assert len(jleaves) == len(tleaves)
         for j, t in zip(jleaves, tleaves):
+            assert t.dtype == {np.dtype(np.int32): torch.int32,
+                               np.dtype(np.float32): torch.float32}[np.asarray(j).dtype]
             np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-12)
 
 
@@ -102,11 +128,11 @@ def test_network_optimizer_follows_layer_transform():
     assert all(isinstance(u, tupd.Sgd) and u.learning_rate == 0.1 for u in t.values())
 
 
-@pytest.mark.parametrize("what", ["Adam", "AdaGrad", "schedule", "gradient_normalization",
+@pytest.mark.parametrize("what", ["Nadam", "AdaGrad", "schedule", "gradient_normalization",
                                   "l2", "l1", "weight_decay", "layer_l2"])
 def test_unported_training_options_raise_by_name(what):
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
-    if what in ("Adam", "AdaGrad"):
+    if what in ("Nadam", "AdaGrad"):
         conf = _net_conf(getattr(tupd, what)(1e-3))
     elif what == "schedule":
         conf = _net_conf(tupd.RmsProp({"@type": "StepSchedule", "initial_value": 0.1}))
@@ -147,3 +173,39 @@ def test_rmsprop_state_leaf_order_matches_jax_opt_state():
 def test_global_config_defaults_round_trip_the_updater():
     g = tbase.GlobalConfig(updater=tupd.RmsProp(2e-3, rms_decay=0.9))
     assert tupd.Updater.from_dict(g.updater.to_dict()) == g.updater
+
+
+def test_adam_state_leaf_order_matches_jax_opt_state_over_nested_params():
+    """Adam's ``updaterState.npz`` order over a tree that nests twice
+    (``Bert.small(stacked=True)``: ``layer_1/stack/attn/W_q`` ...): per layer
+    label in sorted order, the 0-d int32 count, then the mu leaves, then the
+    nu leaves, each in sorted nested order — the JAX net's
+    ``jax.tree.leaves(opt_state)``."""
+    import jax
+
+    from deeplearning4j_tpu.zoo import Bert as JBert
+    from deeplearning4j_tpu_torch.zoo import Bert
+    for stacked in (False, True):
+        jnet = JBert.small(vocab_size=50, stacked=stacked).init()
+        net = Bert.small(vocab_size=50, stacked=stacked).init(device="cpu")
+        jleaves = jax.tree.leaves(jnet.train_state.opt_state)
+        tleaves = tree_leaves(net.updater_state())
+        assert [(tuple(a.shape), np.asarray(a).dtype.name) for a in jleaves] == \
+            [(tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in tleaves]
+        state = net.updater_state()
+        assert sorted(state) == sorted(net.params())
+        for k, layer in state.items():
+            assert list(sorted(layer)) == ["count", "mu", "nu"]
+            assert [tuple(t.shape) for t in tree_leaves(layer["mu"])] == \
+                [tuple(t.shape) for t in tree_leaves(net.params()[k])]
+        if stacked:
+            assert tuple(state["layer_1"]["mu"]["stack"]["attn"]["W_q"].shape) == (2, 128, 128)
+
+
+def test_adam_subclasses_raise_by_name():
+    for name in ("AdaMax", "AMSGrad", "Nadam"):
+        upd = getattr(tupd, name)(1e-3)
+        with pytest.raises(NotImplementedError, match=name):
+            upd.init_state({"W": torch.zeros(2)})
+        with pytest.raises(NotImplementedError, match=name):
+            upd.apply([torch.zeros(2)], [torch.zeros(2)], None)
