@@ -27,7 +27,14 @@ the card and exits nonzero if any phase fails:
             float32 and bfloat16, at the same shapes and at T=16384 causal
             (the TPU's chunked-backward regime), max error relative to the
             largest plain gradient; the autograd Function's float32
-            gradients against ``torch.autograd`` of the plain forward;
+            gradients against ``torch.autograd`` of the plain forward. The
+            GRU kernels (inference forward; saving forward: ys, hT, gates,
+            zh_n; backward: dzx, dh0 on the same residuals) against
+            ``gru_reference``/``gru_bwd_reference`` in float32 and bfloat16
+            at the same shapes, ``FusedGRUFunction``'s float32 gradients
+            (dzx, dW_rec, dh0) against ``torch.autograd`` of
+            ``gru_reference``, and one ``Bidirectional(GRU)`` forward against
+            the plain loop (2 launches);
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -44,7 +51,10 @@ the card and exits nonzero if any phase fails:
             8 client threads requests of 1-64 rows of T=128 token ids: every
             answer against the forward with the plain attention, 12 flash
             launches per batch, masked rows against the same rows cut to
-            their tokens, p50 of a 64-row request and samples/s;
+            their tokens, p50 of a 64-row request and samples/s. Then
+            ``slice gru``: the same char-RNN with GRU cells, built with the
+            builder DSL, served the same way (2 ``fused_gru`` launches per
+            batch and nothing else launched);
 4. train  : the training path at full width. The same network with
             ``tbptt_length=256`` is trained by ``fit`` in bf16 compute on 20
             seeded batches of B=64, T=256 (``bench_char_rnn``'s shape); the
@@ -65,14 +75,19 @@ the card and exits nonzero if any phase fails:
             20 steps on balanced labels with each row made of its label's
             token, where the loss must fall below the first step's and
             chance and the trained net must label a fresh batch; and the
-            statistics of the dropout masks drawn on the card.
+            statistics of the dropout masks drawn on the card. Then ``train
+            gru``: the GRU char-RNN as the LSTM cells are trained (1 saving
+            forward and 1 backward GRU launch per layer per step, nothing
+            else launched).
             ``--label-rules`` runs the build and 20 steps under each of
             several label rules instead;
 5. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
             after warm-up) beside its bound, its plain version's time and,
             for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
             forward and backward as a yardstick the port never calls; the
-            kernels' share of a training step. The flash kernel in bf16 at
+            kernels' share of a training step. The GRU kernels the same way,
+            beside ``torch.nn.GRU`` (cuDNN), with their share of a serving
+            request and of a training step. The flash kernel in bf16 at
             BERT-base serving's shape (unmasked as served, and masked) and
             at T=4096 causal, beside its bound, its saving instance, its
             plain version and ``scaled_dot_product_attention`` (a yardstick
@@ -85,7 +100,7 @@ the card and exits nonzero if any phase fails:
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
-and the backward of each LSTM cell, the inference and saving flash
+and the backward of each LSTM cell and of the GRU, the inference and saving flash
 forwards, and the flash backward's dq and dk/dv kernels, whose plain and
 library times are those of the whole backward)
 and the card's name and power limit as ``nvidia-smi`` gives them; the last
@@ -134,6 +149,15 @@ CELLS = (("fused_lstm", False, False), ("fused_graves_lstm", True, True),
          ("fused_graves_lstm", True, False))
 # Shapes of the autograd check: the training shape, and two launches of rows
 GRAD_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (3, 130, 64)]
+# The char-RNNs the slice and train phases drive: cell -> log tag, the kernel
+# wrapper its recurrent layers route to, and the offset of its seeds. "gru" is
+# the same network as the zoo's with GRU cells, built with the builder DSL
+# (the JAX package has no GRU zoo model).
+CHAR_RNN_TAGS = {"graves": "graves=True", "lstm": "graves=False", "gru": "gru"}
+CHAR_RNN_KERNELS = {"graves": "fused_graves_lstm", "lstm": "fused_lstm", "gru": "fused_gru"}
+CHAR_RNN_SEEDS = {"graves": 1, "lstm": 0, "gru": 2}
+# One Bidirectional(GRU) forward against the plain loop: (T, B, n_in), H = HIDDEN
+BIDI_SHAPE = (64, 16, VOCAB)
 # Served softmax probabilities vs the plain forward (bf16 compute).
 SERVE_TOL = 1e-2
 # rnn_time_step in 4 chunks vs the whole sequence: the chunks hand h/c over
@@ -257,6 +281,44 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def char_rnn_conf(cell, tbptt_length):
+    """The 2x512 char-RNN of ``cell``: ``TextGenerationLSTM(vocab 96,
+    hidden 512, 2 layers)`` for the LSTM cells, and for "gru" the same
+    network built with the builder DSL as ``zoo/textgen_lstm.py`` builds it,
+    GRU cells in place of the LSTMs (RmsProp(1e-3), seed 123)."""
+    from deeplearning4j_tpu_torch.nn import (GRU, InputType, NeuralNetConfiguration,
+                                             RnnOutputLayer)
+    from deeplearning4j_tpu_torch.train.updaters import RmsProp
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    if cell != "gru":
+        return TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                  tbptt_length=tbptt_length, graves=cell == "graves").conf()
+    b = NeuralNetConfiguration.builder().seed(123).updater(RmsProp(1e-3)).list()
+    for _ in range(LAYERS):
+        b.layer(GRU(n_out=HIDDEN, activation="tanh"))
+    return (b.layer(RnnOutputLayer(n_out=VOCAB, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(VOCAB))
+            .tbptt_fwd_length(tbptt_length).tbptt_back_length(tbptt_length).build())
+
+
+def all_counters():
+    """Every kernel wrapper's launch counter."""
+    from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.kernels import fused_gru, fused_lstm, fused_lstm_graves
+    return [c for m in (fused_lstm, fused_lstm_graves, fused_gru)
+            for c in (m.counter, m.save_counter, m.bwd_counter)] + \
+        [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter]
+
+
+def gru_inputs(T, B, H, dtype, device, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    a = {"zx": torch.randn(T, B, 3 * H, generator=g),
+         "w_rec": torch.randn(H, 3 * H, generator=g) * (1.0 / H) ** 0.5,
+         "h0": torch.randn(B, H, generator=g) * 0.5}
+    return {k: v.to(dtype).to(device).contiguous() for k, v in a.items()}
 
 
 def lstm_inputs(T, B, H, dtype, device, seed, peep, mask):
@@ -423,20 +485,23 @@ class StepStamps:
 
 class plain_recurrences:
     """Within the block the recurrent layers run the plain forward under
-    autograd (``lstm_reference``) in place of the kernels' wrappers: a
-    trainer built from the plain versions, for comparison only."""
+    autograd (``lstm_reference``, ``gru_reference``) in place of the
+    kernels' wrappers: the forward and the trainer built from the plain
+    versions, for comparison only."""
 
     def __enter__(self):
         from deeplearning4j_tpu_torch.nn import recurrent_layers as rl
+        from deeplearning4j_tpu_torch.ops.kernels.fused_gru import gru_reference
         from deeplearning4j_tpu_torch.ops.kernels.fused_lstm import lstm_reference
-        self.rl, self.saved = rl, (rl.fused_lstm, rl.fused_graves_lstm)
+        self.rl, self.saved = rl, (rl.fused_lstm, rl.fused_graves_lstm, rl.fused_gru)
         rl.fused_lstm = lambda zx, w, h0, c0: lstm_reference(zx, w, None, h0, c0, None)
         rl.fused_graves_lstm = lambda zx, w, p, h0, c0, m=None: lstm_reference(
             zx, w, p, h0, c0, m)
+        rl.fused_gru = gru_reference
         return self
 
     def __exit__(self, *exc):
-        self.rl.fused_lstm, self.rl.fused_graves_lstm = self.saved
+        self.rl.fused_lstm, self.rl.fused_graves_lstm, self.rl.fused_gru = self.saved
         return False
 
 
@@ -500,7 +565,8 @@ class Smoke:
         self.device = device
         self.failures = []
         self.kernels = {}  # name -> JSON row
-        self.train_step_ms = {}  # graves -> median step ms of the train phase
+        self.train_step_ms = {}  # cell -> median step ms of the train phase
+        self.serve_p50_ms = {}  # cell -> p50 of one 64-row request
         self.bert_train_step_ms = None  # median step ms of the bert train phase
         self.flash_lse_ms = None  # the saving forward at BERT-base's shape, masked
         self.bert_p50_ms = None  # one 64-row BERT-base request, p50
@@ -524,7 +590,7 @@ class Smoke:
 
     def build(self):
         from deeplearning4j_tpu_torch.ops.kernels import (_native, flash_attention,  # noqa: F401
-                                                          fused_lstm)
+                                                          fused_gru, fused_lstm)
         t0 = time.perf_counter()
         seconds = _native.build_all()
         log(f"kernel build: {time.perf_counter() - t0:.2f} s wall; per source {seconds}")
@@ -533,8 +599,8 @@ class Smoke:
             for line in lib.build_log.splitlines():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
-                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE> or
-                    # flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
+                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>
+                    # or flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
                     m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)+)", kernel)
                     if m:
                         flags = ", ".join(re.findall(r"L[ib](\d+)E", m[3]))
@@ -551,6 +617,12 @@ class Smoke:
         for T, B, H in GRAD_SHAPES:
             for cell, peep, mask in CELLS:
                 self.check_autograd(cell, T, B, H, peep, mask)
+        for dtype in (torch.float32, torch.bfloat16):
+            for T, B, H in KERNEL_SHAPES:
+                self.check_gru(T, B, H, dtype)
+        for T, B, H in GRAD_SHAPES:
+            self.check_gru_autograd(T, B, H)
+        self.check_bidirectional_gru()
         for dtype in (torch.float32, torch.bfloat16):
             for shape in FLASH_SHAPES:
                 self.check_flash(shape, dtype)
@@ -727,9 +799,101 @@ class Smoke:
 
     @staticmethod
     def cell_module(cell):
+        from deeplearning4j_tpu_torch.ops.kernels import fused_gru
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
-        return fl if cell == "fused_lstm" else fg
+        return {"fused_lstm": fl, "fused_graves_lstm": fg, "fused_gru": fused_gru}[cell]
+
+    def check_gru(self, T, B, H, dtype):
+        """The GRU's inference forward, saving forward (ys, hT, gates, zh_n)
+        and backward (dzx, dh0) kernels against their plain versions on the
+        same inputs; the backward of both sides reads the plain forward's
+        residuals and ys."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
+        dname = str(dtype).replace("torch.", "")
+        a = gru_inputs(T, B, H, dtype, self.device, seed=T * 5 + B)
+        fwd = (a["zx"], a["w_rec"], a["h0"])
+        with torch.no_grad():
+            got = fgru.launch_gru_fwd(*fwd, fgru.counter)
+            got_save = fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True)
+            want_save = fgru.gru_reference(*fwd, save=True)
+            g = torch.Generator().manual_seed(T * 17 + B)
+            cot = [torch.randn(s, generator=g).to(dtype).to(self.device)
+                   for s in ((T, B, H), (B, H))]
+            ys, _, gates, zhn = want_save
+            bwd = (*cot, gates, zhn, ys, a["h0"], a["w_rec"])
+            got_bwd = fgru.launch_gru_bwd(*bwd, fgru.bwd_counter)
+            torch.cuda.synchronize()
+            want_bwd = fgru.gru_bwd_reference(*bwd)
+        torch.cuda.synchronize()
+        tag = f"{dname:8s} T={T:3d} B={B:3d} H={H:3d}"
+        for name, got_, want_, tol, rel in (
+                (fgru.counter.name, got, want_save[:2], KERNEL_TOL[dname], False),
+                (fgru.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
+                (fgru.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)):
+            err = max_err(got_, want_, relative=rel)
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in got_)
+            self.check(finite and err <= tol,
+                       f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
+                       f"tol={tol:g}")
+            if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16:
+                self.kernels.setdefault(name, {})["max_abs_err"] = err
+
+    def check_gru_autograd(self, T, B, H):
+        """``fused_gru`` under autograd in float32 (``FusedGRUFunction``:
+        saving forward + backward kernel + the dW_rec product): dzx, dW_rec
+        and dh0 against ``torch.autograd`` of the plain forward."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
+        a = gru_inputs(T, B, H, torch.float32, self.device, seed=T + 3 * B)
+        names = ["zx", "w_rec", "h0"]
+        g = torch.Generator().manual_seed(T * 19 + B)
+        cot = [torch.randn(s, generator=g).to(self.device) for s in ((T, B, H), (B, H))]
+        before = (fgru.save_counter.value, fgru.bwd_counter.value)
+        grads = []
+        for run in (fgru.fused_gru, fgru.gru_reference):
+            leaves = [a[k].detach().clone().requires_grad_() for k in names]
+            ys, h_t = run(*leaves)
+            loss = (ys * cot[0]).sum() + (h_t * cot[1]).sum()
+            grads.append(torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        launched = (fgru.save_counter.value - before[0], fgru.bwd_counter.value - before[1])
+        n_launch = -(-B // 64)  # one launch per group of at most 64 rows
+        errs = {k: max_err([x], [y], relative=True) for k, x, y in zip(names, *grads)}
+        self.check(max(errs.values()) <= GRAD_TOL and launched == (n_launch, n_launch),
+                   f"fused_gru          autograd vs plain float32 T={T:3d} B={B:3d} H={H:3d} "
+                   "max_rel_err " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+                   + f" tol={GRAD_TOL:g}; launches (save, bwd) {launched} (expected "
+                   f"{(n_launch, n_launch)})")
+
+    def check_bidirectional_gru(self):
+        """One ``Bidirectional(GRU)`` forward (float32, inference) against
+        the same layer with the plain loop in place of the kernel: two
+        launches, one per direction."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.nn import GRU, Bidirectional, GlobalConfig, InputType
+        from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
+        T, B, n_in = BIDI_SHAPE
+        layer = Bidirectional(layer=GRU(n_out=HIDDEN))
+        layer._g = GlobalConfig()
+        params, _ = layer.init(torch.Generator().manual_seed(11),
+                               InputType.recurrent(n_in, T), layer._g)
+        params = {d: {k: v.to(self.device) for k, v in p.items()} for d, p in params.items()}
+        x = torch.randn(B, T, n_in, generator=torch.Generator().manual_seed(12)).to(self.device)
+        with torch.inference_mode():
+            before = fgru.counter.value
+            got, _ = layer.forward(params, {}, x)
+            torch.cuda.synchronize()
+            launched = fgru.counter.value - before
+            with plain_recurrences():
+                want, _ = layer.forward(params, {}, x)
+        err = max_err([got], [want])
+        self.check(got.shape == (B, T, 2 * HIDDEN) and err <= KERNEL_TOL["float32"]
+                   and launched == 2,
+                   f"Bidirectional(GRU) float32 T={T} B={B} H={HIDDEN} vs plain loop: "
+                   f"max_abs_err={err:.3g} tol={KERNEL_TOL['float32']:g}; {launched} "
+                   "launches (expected 2)")
 
     @staticmethod
     def run_wrapper(cell, mod):
@@ -744,7 +908,8 @@ class Smoke:
         version: the reference the served answers are held against."""
         torch = self.torch
         from deeplearning4j_tpu_torch.nn.base import cast_floating
-        from deeplearning4j_tpu_torch.nn.recurrent_layers import LSTM
+        from deeplearning4j_tpu_torch.nn.recurrent_layers import GRU, LSTM
+        from deeplearning4j_tpu_torch.ops.kernels.fused_gru import gru_reference
         from deeplearning4j_tpu_torch.ops.kernels.fused_lstm import lstm_reference
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         cdt = get_environment().compute_dtype
@@ -759,32 +924,36 @@ class Smoke:
                     ys, _, _ = lstm_reference(zx, p["W_rec"], p.get("peephole"), zero,
                                               zero, None)
                     h = ys.transpose(0, 1)
+                elif isinstance(layer, GRU):
+                    zx = torch.matmul(h.transpose(0, 1), p["W"]) + p["b"]
+                    zero = torch.zeros(h.shape[0], layer.n_out, dtype=cdt, device=h.device)
+                    h = gru_reference(zx, p["W_rec"], zero)[0].transpose(0, 1)
                 else:
                     h = layer.activate(p, h)
         return h.float().cpu().numpy()
 
-    def slice_phase(self, graves, workdir):
+    def slice_phase(self, cell, workdir):
+        """The char-RNN of ``cell`` (``CHAR_RNN_TAGS``) served at full width:
+        random weights from the seed, bf16 compute, written to an archive,
+        loaded by ``ModelRegistry.load`` and served to 8 client threads;
+        every answer against the plain forward, the launch counts, chunked
+        ``rnn_time_step``, and the p50 of one 64-row request."""
         import numpy as np
         torch = self.torch
-        from deeplearning4j_tpu_torch.models import ModelSerializer
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.serving import ModelRegistry
-        from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
 
         get_environment().allow_bfloat16()
-        kernel = fg if graves else fl
-        other = fl if graves else fg
-        tag = f"graves={graves}"
-        net = TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
-                                 graves=graves).init(device=self.device)
-        path = os.path.join(workdir, f"char-rnn-{'graves' if graves else 'lstm'}.zip")
+        kernel = self.cell_module(CHAR_RNN_KERNELS[cell])
+        tag = CHAR_RNN_TAGS[cell]
+        net = MultiLayerNetwork(char_rnn_conf(cell, SERVE_T), device=self.device).init()
+        path = os.path.join(workdir, f"char-rnn-{cell}.zip")
         ModelSerializer.write_model(net, path)
         reg = ModelRegistry()
         served = reg.load("char-rnn", path, device=self.device, max_batch_size=SERVE_B,
                           batch_timeout_ms=5.0)
-        rng = np.random.default_rng(1234 + graves)
+        rng = np.random.default_rng(CHAR_RNN_SEEDS[cell] + 1234)
         rows = rng.integers(1, SERVE_B + 1, (CLIENTS, REQUESTS_PER_CLIENT))
         rows[0, 0], rows[1, 0] = 1, SERVE_B
         eye = np.eye(VOCAB, dtype=np.float32)
@@ -806,10 +975,11 @@ class Smoke:
 
         threads = [threading.Thread(target=client, args=(c,), name=f"smoke-client-{c}")
                    for c in range(CLIENTS)]
+        counters = all_counters()
         # ---- the main path: counts from 0 just before, read just after
         torch.cuda.synchronize()
-        fl.counter.reset()
-        fg.counter.reset()
+        for c in counters:
+            c.reset()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -817,14 +987,17 @@ class Smoke:
             t.join()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched, stray = kernel.counter.value, other.counter.value
+        counts = {c.name: c.value for c in counters}
         # ----
         batches = served.batcher.batches
+        launched = counts[kernel.counter.name]
         self.check(not errors, f"{tag} serving: {len(lat)} requests answered, errors={errors}")
-        self.check(launched == LAYERS * batches and stray == 0,
+        want = {c.name: 0 for c in counters}
+        want[kernel.counter.name] = LAYERS * batches
+        self.check(counts == want,
                    f"{tag} launch counts over the serving run: {kernel.counter.name}="
-                   f"{launched} (expected {LAYERS} layers x {batches} batches), "
-                   f"{other.counter.name}={stray} (expected 0)")
+                   f"{launched} (expected {LAYERS} layers x {batches} batches), every other "
+                   f"kernel 0: {counts}")
         self.kernels.setdefault(kernel.counter.name, {})["launches"] = launched
         log(f"{tag} {kernel.counter.name}: {launched / max(1, len(lat)):.2f} launches per "
             f"request, {launched / max(1, batches):.2f} per batch")
@@ -875,6 +1048,7 @@ class Smoke:
             ms.append(1e3 * (time.perf_counter() - t0))
         ms.sort()
         p50 = ms[len(ms) // 2]
+        self.serve_p50_ms[cell] = p50
         log(f"{tag} one {SERVE_B}-row request at a time, {len(ms)} requests: p50 "
             f"{p50:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
             f"{SERVE_B * SERVE_T / p50 * 1e3:.0f} tokens/s at p50")
@@ -893,8 +1067,6 @@ class Smoke:
         torch = self.torch
         from deeplearning4j_tpu_torch.models import ModelSerializer
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.serving import ModelRegistry
         from deeplearning4j_tpu_torch.zoo import Bert
@@ -931,8 +1103,7 @@ class Smoke:
 
         threads = [threading.Thread(target=client, args=(c,), name=f"smoke-bert-{c}")
                    for c in range(CLIENTS)]
-        counters = [fa.counter, fa.lse_counter] + [c for m in (fl, fg) for c in
-                                                   (m.counter, m.save_counter, m.bwd_counter)]
+        counters = all_counters()
         # ---- the main path: counts from 0 just before, read just after
         torch.cuda.synchronize()
         for c in counters:
@@ -1048,28 +1219,24 @@ class Smoke:
             f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%){share}; top kernels: "
             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, (ms, n) in top))
 
-    def train_phase(self, graves):
-        """``fit`` of the full-width char-RNN in bf16 through the kernels
-        (the main path, counted), then the first steps again in float32 and
-        bfloat16 against a trainer built from the plain versions."""
+    def train_phase(self, cell):
+        """``fit`` of the full-width char-RNN of ``cell`` in bf16 through the
+        kernels (the main path, counted), then the first steps again in
+        float32 and bfloat16 against a trainer built from the plain
+        versions."""
         import numpy as np
         torch = self.torch
         from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
         from deeplearning4j_tpu_torch.models import MultiLayerNetwork
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
-        from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
         env = get_environment()
-        kernel = self.cell_module("fused_graves_lstm" if graves else "fused_lstm")
-        other = self.cell_module("fused_lstm" if graves else "fused_graves_lstm")
-        tag = f"graves={graves}"
-        conf = lambda: TextGenerationLSTM(vocab_size=VOCAB, hidden=HIDDEN,  # noqa: E731
-                                          layers=LAYERS, tbptt_length=TRAIN_T,
-                                          graves=graves).conf()
+        kernel = self.cell_module(CHAR_RNN_KERNELS[cell])
+        tag = CHAR_RNN_TAGS[cell]
+        conf = lambda: char_rnn_conf(cell, TRAIN_T)  # noqa: E731
         init = MultiLayerNetwork(conf(), device=self.device).init().params()
-        batches = char_batches(TRAIN_STEPS, seed=77 + graves)
-        counters = [m.counter for m in (kernel, other)] + \
-            [m.save_counter for m in (kernel, other)] + [m.bwd_counter for m in (kernel, other)]
+        batches = char_batches(TRAIN_STEPS, seed=77 + CHAR_RNN_SEEDS[cell])
+        counters = all_counters()
 
         def fit(steps, dtype):
             env.set_compute_dtype(dtype)
@@ -1103,7 +1270,7 @@ class Smoke:
                    + " ".join(f"{v:.4f}" for v in losses))
         step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
         med = step_ms[len(step_ms) // 2]
-        self.train_step_ms[graves] = med
+        self.train_step_ms[cell] = med
         log(f"{tag} train: {TRAIN_STEPS} steps of B={TRAIN_B} T={TRAIN_T} in {wall:.3f} s; "
             f"step ms after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
             f"{step_ms[-1]:.2f}); {TRAIN_B * TRAIN_T / med * 1e3:.0f} tokens/s at the median; "
@@ -1135,8 +1302,6 @@ class Smoke:
         torch = self.torch
         from deeplearning4j_tpu_torch.nn.base import keep_mask
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
-        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.zoo import Bert
         env = get_environment()
@@ -1146,8 +1311,7 @@ class Smoke:
         log(f"bert train: Bert.base() init {time.perf_counter() - t0:.1f} s")
         batches = label_batches(BERT_TRAIN_STEPS, 99, random_ids)
         fmask = np.ones((BERT_B, BERT_T), np.float32)
-        counters = [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter] + \
-            [c for m in (fl, fg) for c in (m.counter, m.save_counter, m.bwd_counter)]
+        counters = all_counters()
 
         # ---- the main path: counts from 0 just before, read just after
         torch.cuda.synchronize()
@@ -1277,7 +1441,7 @@ class Smoke:
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
         T, B, H = KERNEL_SHAPES[0]
         dt = torch.bfloat16
-        cudnn = self.cudnn_ms(T, B, H, dt)
+        cudnn = self.cudnn_ms(torch.nn.LSTM, T, B, H, dt)
         log(f"torch.nn.LSTM (cuDNN), layer 0's work incl. its input projection, T={T} B={B} "
             f"H={H} bf16: inference {cudnn['infer']:.3f} ms, training forward "
             f"{cudnn['fwd']:.3f} ms + backward {cudnn['bwd']:.3f} ms = "
@@ -1320,14 +1484,71 @@ class Smoke:
                 log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
                     f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
                     f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
-            step = self.train_step_ms.get(peep)
+            step = self.train_step_ms.get("graves" if peep else "lstm")
             if step is not None:
                 kms = LAYERS * (self.kernels[mod.save_counter.name]["ms"]
                                 + self.kernels[mod.bwd_counter.name]["ms"])
                 log(f"graves={peep} training step: the recurrent kernels take {LAYERS} x "
                     f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
                     f"({100 * kms / step:.0f}%)")
+        self.gru_times()
         self.flash_times()
+
+    def gru_times(self):
+        """The GRU kernels' time at B=64, T=256, H=512 bf16 (CUDA events,
+        after warm-up) beside the bound, the plain versions and
+        ``torch.nn.GRU`` (cuDNN, the same reset-after cell; a yardstick the
+        port never calls); their share of a serving request and of a
+        training step."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
+        T, B, H = KERNEL_SHAPES[0]
+        dt = torch.bfloat16
+        cudnn = self.cudnn_ms(torch.nn.GRU, T, B, H, dt)
+        log(f"torch.nn.GRU (cuDNN), layer 0's work incl. its input projection, T={T} B={B} "
+            f"H={H} bf16: inference {cudnn['infer']:.3f} ms, training forward "
+            f"{cudnn['fwd']:.3f} ms + backward {cudnn['bwd']:.3f} ms = "
+            f"{cudnn['fwd'] + cudnn['bwd']:.3f} ms")
+        a = gru_inputs(T, B, H, dt, self.device, seed=5)
+        fwd = (a["zx"], a["w_rec"], a["h0"])
+        outs = fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True)
+        g = torch.Generator().manual_seed(6)
+        cot = [torch.randn(s_, generator=g).to(dt).to(self.device) for s_ in ((T, B, H), (B, H))]
+        bwd = (*cot, outs[2], outs[3], outs[0], a["h0"], a["w_rec"])
+        grads = fgru.launch_gru_bwd(*bwd, fgru.bwd_counter)
+        pallas = "deeplearning4j_tpu/ops/pallas/fused_gru.py"
+        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
+        rows = [(fgru.counter.name, "gru_fwd.cu", f"{pallas}:147", fwd, outs[:2],
+                 lambda: fgru.launch_gru_fwd(*fwd, fgru.counter),
+                 lambda: fgru.gru_reference(*fwd), cudnn["infer"]),
+                (fgru.save_counter.name, "gru_fwd.cu", f"{pallas}:147", fwd, outs,
+                 lambda: fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True),
+                 lambda: fgru.gru_reference(*fwd, save=True), cudnn["fwd"]),
+                (fgru.bwd_counter.name, "gru_bwd.cu", f"{pallas}:224", bwd, grads,
+                 lambda: fgru.launch_gru_bwd(*bwd, fgru.bwd_counter),
+                 lambda: fgru.gru_bwd_reference(*bwd), cudnn["bwd"])]
+        for name, src, replaces, ins, outs_, kern, plain, lib in rows:
+            ms = cuda_ms(kern, reps=10)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            bound_ms, bound_by = bound(list(ins) + list(outs_), 2.0 * T * B * H * 3 * H, dt)
+            self.kernels.setdefault(name, {}).update({
+                "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib})
+            log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
+                f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
+                f"torch.nn.GRU {lib:.3f} ms")
+        infer = LAYERS * self.kernels[fgru.counter.name]["ms"]
+        if "gru" in self.serve_p50_ms:
+            p50 = self.serve_p50_ms["gru"]
+            log(f"gru one {SERVE_B}-row request: the {LAYERS} GRU launches take {infer:.2f} ms "
+                f"of the {p50:.2f} ms p50 ({100 * infer / p50:.0f}%)")
+        if "gru" in self.train_step_ms:
+            step = self.train_step_ms["gru"]
+            kms = LAYERS * (self.kernels[fgru.save_counter.name]["ms"]
+                            + self.kernels[fgru.bwd_counter.name]["ms"])
+            log(f"gru training step: the GRU kernels take {LAYERS} x (forward + backward) = "
+                f"{kms:.2f} ms of the {step:.2f} ms median step ({100 * kms / step:.0f}%)")
 
     def flash_times(self):
         """The flash kernel's time in bf16 at BERT-base serving's shape
@@ -1469,22 +1690,22 @@ class Smoke:
                 f"masked) takes {share:.3f} ms of the {step:.2f} ms median step "
                 f"({100 * share / step:.1f}%)")
 
-    def cudnn_ms(self, T, B, H, dtype):
-        """``torch.nn.LSTM`` (cuDNN) on layer 0's work: the input projection
-        from the 96-wide one-hot plus the recurrence. Inference, training
-        forward, and the backward alone (on a retained graph). A yardstick
-        only: the port never calls it."""
+    def cudnn_ms(self, module, T, B, H, dtype):
+        """``torch.nn.LSTM`` or ``torch.nn.GRU`` (cuDNN) on layer 0's work:
+        the input projection from the 96-wide one-hot plus the recurrence.
+        Inference, training forward, and the backward alone (on a retained
+        graph). A yardstick only: the port never calls it."""
         torch = self.torch
-        lstm = torch.nn.LSTM(VOCAB, H).to(self.device, dtype)
-        lstm.flatten_parameters()
+        rnn = module(VOCAB, H).to(self.device, dtype)
+        rnn.flatten_parameters()
         x = torch.randn(T, B, VOCAB, device=self.device, dtype=dtype)
         with torch.inference_mode():
-            infer = cuda_ms(lambda: lstm(x), reps=10)
+            infer = cuda_ms(lambda: rnn(x), reps=10)
         xg = x.clone().requires_grad_()
-        fwd = cuda_ms(lambda: lstm(xg), reps=10)
-        out, _ = lstm(xg)
+        fwd = cuda_ms(lambda: rnn(xg), reps=10)
+        out, _ = rnn(xg)
         dy = torch.randn_like(out)
-        wrt = list(lstm.parameters()) + [xg]
+        wrt = list(rnn.parameters()) + [xg]
         bwd = cuda_ms(lambda: torch.autograd.grad(out, wrt, dy, retain_graph=True), reps=10)
         return {"infer": infer, "fwd": fwd, "bwd": bwd}
 
@@ -1532,12 +1753,14 @@ def main() -> int:
     smoke.phase("kernels", smoke.kernel_phase)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
-        smoke.phase("slice graves=True", lambda: smoke.slice_phase(True, workdir))
-        smoke.phase("slice graves=False", lambda: smoke.slice_phase(False, workdir))
+        smoke.phase("slice graves=True", lambda: smoke.slice_phase("graves", workdir))
+        smoke.phase("slice graves=False", lambda: smoke.slice_phase("lstm", workdir))
         smoke.phase("slice bert", lambda: smoke.bert_phase(workdir))
-        smoke.phase("train graves=True", lambda: smoke.train_phase(True))
-        smoke.phase("train graves=False", lambda: smoke.train_phase(False))
+        smoke.phase("slice gru", lambda: smoke.slice_phase("gru", workdir))
+        smoke.phase("train graves=True", lambda: smoke.train_phase("graves"))
+        smoke.phase("train graves=False", lambda: smoke.train_phase("lstm"))
         smoke.phase("train bert", smoke.bert_train_phase)
+        smoke.phase("train gru", lambda: smoke.train_phase("gru"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("times", smoke.times_phase)

@@ -195,9 +195,10 @@ class MultiLayerNetwork:
         self._rnn_carries = None
 
     def rnn_get_state(self):
-        """Copy of the stored recurrent state: ``{layer_key: (h, c)}`` of CPU
-        tensors whose dtypes match the carries exactly, or ``None``. Round-
-        trips exactly through :meth:`rnn_set_state`."""
+        """Copy of the stored recurrent state: ``{layer_key: carry}`` (``(h,
+        c)`` for an LSTM, ``(h,)`` for a GRU or SimpleRnn) of CPU tensors
+        whose dtypes match the carries exactly, or ``None``. Round-trips
+        exactly through :meth:`rnn_set_state`."""
         if self._rnn_carries is None:
             return None
         return tree_map(lambda t: t.detach().to("cpu", copy=True), self._rnn_carries)

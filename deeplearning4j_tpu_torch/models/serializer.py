@@ -8,8 +8,10 @@ parameters), ``metadata.json`` and, optionally, ``updaterState.npz``.
 ``coefficients.npz`` holds ``leaf_0 .. leaf_N`` in the JAX package's
 ``jax.tree.leaves`` order of ``{"params": ..., "model_state": ...}``: dict
 keys sorted as strings, recursively. So ``"model_state"`` < ``"params"``,
-``"layer_10"`` < ``"layer_2"`` and ``"W"`` < ``"W_rec"`` < ``"b"`` <
-``"peephole"``. :func:`tree_leaves` reproduces that order without JAX.
+``"layer_10"`` < ``"layer_2"``, ``"W"`` < ``"W_rec"`` < ``"b"`` <
+``"b_rec"`` < ``"peephole"``, and a ``Bidirectional`` layer's ``"bwd"``
+tree before its ``"fwd"`` tree. :func:`tree_leaves` reproduces that order
+without JAX.
 
 ``updaterState.npz`` holds the optimizer's state in the leaf order of the
 JAX package's ``jax.tree.leaves(opt_state)`` (JAX ``serializer.py:33-48``,

@@ -13,15 +13,17 @@ from deeplearning4j_tpu_torch.nn.core_layers import (ActivationLayer, DenseLayer
                                                      EmbeddingSequenceLayer,
                                                      LossLayer, OutputLayer)
 from deeplearning4j_tpu_torch.nn.inputs import InputType
-from deeplearning4j_tpu_torch.nn.recurrent_layers import (LSTM, BaseRecurrentLayer,
-                                                          GravesLSTM,
-                                                          RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.recurrent_layers import (GRU, LSTM, BaseRecurrentLayer,
+                                                          Bidirectional, GravesLSTM,
+                                                          LastTimeStep, RnnOutputLayer,
+                                                          SimpleRnn)
 
 __all__ = [
-    "ActivationLayer", "BaseRecurrentLayer", "BertEmbeddingLayer", "ClsPoolingLayer",
-    "DenseLayer", "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
-    "GlobalConfig", "GravesLSTM", "InputType", "LSTM", "Layer",
-    "LearnedPositionalEmbeddingLayer", "LossLayer", "MultiLayerConfiguration",
-    "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer", "SelfAttentionLayer",
-    "TransformerEncoderBlock", "TransformerEncoderStack", "register_layer",
+    "ActivationLayer", "BaseRecurrentLayer", "BertEmbeddingLayer", "Bidirectional",
+    "ClsPoolingLayer", "DenseLayer", "DropoutLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "GRU", "GlobalConfig", "GravesLSTM", "InputType", "LSTM",
+    "LastTimeStep", "Layer", "LearnedPositionalEmbeddingLayer", "LossLayer",
+    "MultiLayerConfiguration", "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer",
+    "SelfAttentionLayer", "SimpleRnn", "TransformerEncoderBlock", "TransformerEncoderStack",
+    "register_layer",
 ]

@@ -78,73 +78,10 @@ struct Args {
   int chunk;          // rows of ds staged in shared memory at once
 };
 
-// Row stride of the staged ds rows and the pinned W_rec rows: 4H values plus
-// one 4-byte word.
-template <typename T> __host__ __device__ __forceinline__ int row_stride(int H) {
-  return 4 * H + (int)(4 / sizeof(T));
-}
-
-// sum_k a[k] * b[k] over n values of T, in k order, fp32 products and sum;
-// a and b are 4-byte aligned shared-memory rows (n is even).
-template <typename T> __device__ __forceinline__ float dot(const T* a, const T* b, int n);
-template <> __device__ __forceinline__ float dot<float>(const float* a, const float* b, int n) {
-  float acc = 0.0f;
-  for (int k = 0; k < n; ++k) acc = fmaf(a[k], b[k], acc);
-  return acc;
-}
-template <> __device__ __forceinline__ float dot<__nv_bfloat16>(const __nv_bfloat16* a,
-                                                               const __nv_bfloat16* b, int n) {
-  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(a);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(b);
-  float acc = 0.0f;
-  for (int k = 0; k < n / 2; ++k) {
-    const float2 x = __bfloat1622float2(a2[k]), y = __bfloat1622float2(b2[k]);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-  }
-  return acc;
-}
-
-// Copy `nr` rows of `n` values of T from global memory (row stride n, through
-// L2) to shared memory (row stride S). 16-byte loads, four in flight per
-// thread, when a row is a whole number of them; else one value at a time.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int S, const T* src, int nr, int n) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kInFlight = 4;
-  if (n % kVec == 0) {
-    const int nv = n / kVec, total = nr * nv;
-    for (int base = threadIdx.x; base < total; base += kInFlight * kThreads) {
-      uint4 v[kInFlight];
-#pragma unroll
-      for (int q = 0; q < kInFlight; ++q) {
-        const int idx = base + q * kThreads;
-        if (idx < total)
-          v[q] = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)(idx / nv) * n) + idx % nv);
-      }
-#pragma unroll
-      for (int q = 0; q < kInFlight; ++q) {
-        const int idx = base + q * kThreads;
-        if (idx < total) {
-          unsigned* d = reinterpret_cast<unsigned*>(dst + (size_t)(idx / nv) * S +
-                                                    (idx % nv) * kVec);
-          d[0] = v[q].x;
-          d[1] = v[q].y;
-          d[2] = v[q].z;
-          d[3] = v[q].w;
-        }
-      }
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < nr * n; idx += kThreads)
-      dst[(size_t)(idx / n) * S + idx % n] = load_l2(src + idx);
-  }
-}
-
 template <typename T>
 size_t smem_bytes(int H, int rows, int units, int chunk) {
   return sizeof(float) * 3 * (size_t)rows * units +
-         sizeof(T) * ((size_t)units + chunk) * row_stride<T>(H);
+         sizeof(T) * ((size_t)units + chunk) * row_stride<T>(4 * H);
 }
 
 template <typename T, bool PEEP, bool MASK>
@@ -152,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const int U = a.units, H = a.H, R = a.rows, RC = a.chunk, B = a.B;
-  const int S = row_stride<T>(H);
+  const int S = row_stride<T>(4 * H);  // 4H values plus one 4-byte word
   float* dhc = reinterpret_cast<float*>(smem);  // (R, U) fp32 dh carry
   float* dcc = dhc + (size_t)R * U;             // (R, U) fp32 dc carry
   float* pass = dcc + (size_t)R * U;            // (R, U) (1 - m) * dh_ (MASK)
@@ -228,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(Args a) {
     // dh for step t-1: this block's units of round_T(ds[t]) @ W_rec^T
     for (int rc0 = 0; rc0 < R; rc0 += RC) {
       const int nr = min(RC, R - rc0);
-      stage_rows(dss, S, ds + ((size_t)t * B + a.r0 + rc0) * 4 * H, nr, 4 * H);
+      stage_rows(dss, S, ds + ((size_t)t * B + a.r0 + rc0) * 4 * H, 4 * H, nr, 4 * H);
       __syncthreads();
       for (int idx = threadIdx.x; idx < nr * U; idx += kThreads) {
         const int r = idx / U, u = idx % U;
@@ -253,7 +190,7 @@ template <typename T, bool PEEP, bool MASK>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto smem = [&](int units, int chunk) { return smem_bytes<T>(a.H, a.rows, units, chunk); };
   return launch_cooperative(lstm_bwd_kernel<T, PEEP, MASK>, a, smem,
-                            sizeof(T) * row_stride<T>(a.H), stream);
+                            sizeof(T) * row_stride<T>(4 * a.H), stream);
 }
 
 template <typename T>

@@ -1,6 +1,8 @@
-// Helpers shared by the persistent LSTM kernels (lstm_fwd.cu, lstm_bwd.cu):
-// storage-type conversions, loads that bypass L1, and the launch plan that
-// makes every block of a cooperative grid co-resident.
+// Helpers shared by the persistent recurrent kernels (lstm_fwd.cu,
+// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): storage-type conversions, loads that
+// bypass L1, row staging with 16-byte loads, the shared-memory dot product,
+// and the launch plan that makes every block of a cooperative grid
+// co-resident.
 
 #pragma once
 
@@ -35,6 +37,75 @@ template <> __device__ __forceinline__ __nv_bfloat16 load_l2<__nv_bfloat16>(
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Row stride, in values of T, of n-value rows staged or pinned in shared
+// memory: n rounded up to a whole 4-byte word plus one word, so that the rows
+// a warp reads at once fall in different banks and every row starts on a
+// 4-byte boundary.
+template <typename T> __host__ __device__ __forceinline__ int row_stride(int n) {
+  constexpr int per_word = (int)(4 / sizeof(T));
+  return (n + per_word - 1) / per_word * per_word + per_word;
+}
+
+// sum_k a[k] * b[k] over n values of T, in k order, fp32 products and sum;
+// a and b are 4-byte aligned shared-memory rows.
+template <typename T> __device__ __forceinline__ float dot(const T* a, const T* b, int n);
+template <> __device__ __forceinline__ float dot<float>(const float* a, const float* b, int n) {
+  float acc = 0.0f;
+  for (int k = 0; k < n; ++k) acc = fmaf(a[k], b[k], acc);
+  return acc;
+}
+template <> __device__ __forceinline__ float dot<__nv_bfloat16>(const __nv_bfloat16* a,
+                                                               const __nv_bfloat16* b, int n) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(b);
+  float acc = 0.0f;
+  for (int k = 0; k < n / 2; ++k) {
+    const float2 x = __bfloat1622float2(a2[k]), y = __bfloat1622float2(b2[k]);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  if (n & 1) acc = fmaf(__bfloat162float(a[n - 1]), __bfloat162float(b[n - 1]), acc);
+  return acc;
+}
+
+// Copy `nr` rows of `n` values of T from global memory (row stride `ld`,
+// through L2) to shared memory (row stride S, 4-byte aligned rows). 16-byte
+// loads, four in flight per thread, when every source row starts on a
+// 16-byte boundary and holds a whole number of them; else one value at a
+// time (what cost a step hundreds of serial L2 round trips).
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int S, const T* src, int ld, int nr, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kInFlight = 4;
+  if (n % kVec == 0 && ld % kVec == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
+    const int nv = n / kVec, total = nr * nv;
+    for (int base = threadIdx.x; base < total; base += kInFlight * kThreads) {
+      uint4 v[kInFlight];
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q) {
+        const int idx = base + q * kThreads;
+        if (idx < total)
+          v[q] = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)(idx / nv) * ld) + idx % nv);
+      }
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q) {
+        const int idx = base + q * kThreads;
+        if (idx < total) {
+          unsigned* d = reinterpret_cast<unsigned*>(dst + (size_t)(idx / nv) * S +
+                                                    (idx % nv) * kVec);
+          d[0] = v[q].x;
+          d[1] = v[q].y;
+          d[2] = v[q].z;
+          d[3] = v[q].w;
+        }
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nr * n; idx += kThreads)
+      dst[(size_t)(idx / n) * S + idx % n] = load_l2(src + (size_t)(idx / n) * ld + idx % n);
+  }
+}
 
 // Pick the hidden units per block and the staged row chunk so that every
 // block of the grid is co-resident (a cooperative launch refuses otherwise):

@@ -206,7 +206,7 @@ def _check_same(tensors, shapes, like) -> None:
     if like.device.type == "cpu":
         return
     if like.device.type != "cuda":
-        raise ValueError(f"fused LSTM runs on CUDA or CPU tensors, got {like.device}")
+        raise ValueError(f"the recurrent kernels run on CUDA or CPU tensors, got {like.device}")
     if like.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {like.dtype}")
     for name, tensor in tensors.items():
@@ -258,7 +258,7 @@ def _launch_by_rows(lib, fn, args, b: int, launches: LaunchCounter, what: str,
             err = fn(*args, r0, rows, stream)
             if err != 0:
                 msg = lib.dl4j_cuda_error_string(err).decode()
-                raise RuntimeError(f"LSTM {what} kernel launch failed: {msg} "
+                raise RuntimeError(f"{what} kernel launch failed: {msg} "
                                    f"(cudaError {err}) at shape {tuple(like.shape)} "
                                    f"{like.dtype}")
             launches.add()
@@ -278,7 +278,7 @@ def launch_lstm_fwd(zx, w_rec, peep, h0, c0, mask, launches: LaunchCounter,
     args = (_DTYPE_CODES[zx.dtype], zx.data_ptr(), w_rec.data_ptr(), _ptr(peep),
             h0.data_ptr(), c0.data_ptr(), _ptr(mask), ys.data_ptr(), h_t.data_ptr(),
             c_t.data_ptr(), _ptr(gates), _ptr(cseq), t_len, b, hid)
-    _launch_by_rows(lib, lib.dl4j_lstm_fwd, args, b, launches, "forward", zx)
+    _launch_by_rows(lib, lib.dl4j_lstm_fwd, args, b, launches, "LSTM forward", zx)
     return (ys, h_t, c_t, gates, cseq) if save else (ys, h_t, c_t)
 
 
@@ -293,7 +293,7 @@ def launch_lstm_bwd(dys, dhT, dcT, gates, cseq, c0, w_rec, peep, mask,
     args = (_DTYPE_CODES[gates.dtype], dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
             gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), w_rec.data_ptr(), _ptr(peep),
             _ptr(mask), ds.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t_len, b, h4 // 4)
-    _launch_by_rows(lib, lib.dl4j_lstm_bwd, args, b, launches, "backward", gates)
+    _launch_by_rows(lib, lib.dl4j_lstm_bwd, args, b, launches, "LSTM backward", gates)
     return ds, dh0, dc0
 
 

@@ -231,11 +231,11 @@ def test_configuration_json_is_the_same_schema(graves):
 def test_unported_layer_and_preprocessor_are_named():
     from deeplearning4j_tpu.nn.config import NeuralNetConfiguration as JNN
     from deeplearning4j_tpu.nn.core_layers import OutputLayer as JOut
-    from deeplearning4j_tpu.nn.recurrent_layers import GRU as JGRU
-    conf = (JNN.builder().list().layer(JGRU(n_out=4))
+    from deeplearning4j_tpu.nn.conv_layers import BatchNormalization as JBatchNorm
+    conf = (JNN.builder().list().layer(JBatchNorm())
             .layer(jrec.RnnOutputLayer(n_out=3)).set_input_type(JInputType.recurrent(5))
             .build())
-    with pytest.raises(KeyError, match="GRU"):
+    with pytest.raises(KeyError, match="BatchNormalization"):
         tconfig.MultiLayerConfiguration.from_json(conf.to_json())
     conf = (JNN.builder().list().layer(JOut(n_out=3))
             .set_input_type(JInputType.convolutional(4, 4, 1)).build())
