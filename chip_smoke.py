@@ -34,7 +34,18 @@ the card and exits nonzero if any phase fails:
             at the same shapes, ``FusedGRUFunction``'s float32 gradients
             (dzx, dW_rec, dh0) against ``torch.autograd`` of
             ``gru_reference``, and one ``Bidirectional(GRU)`` forward against
-            the plain loop (2 launches);
+            the plain loop (2 launches). The dropout kernel against its plain
+            version, bitwise (the same Philox bits), forward, backward and
+            the same seed again, in float32 and bfloat16, with and without
+            the residual x, at rates 0.1, 0.5 and 0, at 8192 x 768, ragged
+            shapes, one element and a 4k+3 tail, and through unaligned views;
+            the backward's mask against the forward's, the keep fraction, and
+            seed + 1 giving another mask. The short-attention forward and
+            backward kernels against their plain versions in float32 and
+            bfloat16, in both layouts, at BERT-base's shape (with a mask
+            holding a length-1 and a fully masked row, and without), t = 512,
+            t = 1, odd t and d of 32, 64 and 128, and the autograd Function's
+            float32 gradients against ``torch.autograd`` of the plain forward;
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -81,7 +92,14 @@ the card and exits nonzero if any phase fails:
             else launched).
             ``--label-rules`` runs the build and 20 steps under each of
             several label rules instead;
-5. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
+5. ops    : the entry points of the last three TPU kernels, which no layer
+            routes to, driven under autograd as ``bench.py:572-626``
+            (``verify_kernels``) drives the JAX package's:
+            ``short_attention`` and ``short_attention_btd`` at (64, 12, 128,
+            64) bf16, forward and gradient against a dense fp32 softmax, and
+            ``fused_dropout`` at 8192 x 768 bf16, rate 0.1 (zero fraction,
+            the gradient's mask); one forward and one backward launch of each;
+6. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
             after warm-up) beside its bound, its plain version's time and,
             for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
             forward and backward as a yardstick the port never calls; the
@@ -96,13 +114,18 @@ the card and exits nonzero if any phase fails:
             unmasked), at T=4096 causal and at T=16384 causal, beside its
             bound, the plain backward, ``scaled_dot_product_attention``'s
             backward and each kernel's own device time (``torch.profiler``);
-            attention's share of a BERT training step.
+            attention's share of a BERT training step. The dropout kernel
+            (forward, backward, and with x) beside ``F.dropout``, and the
+            short-attention kernels in both layouts beside
+            ``scaled_dot_product_attention``, at the ops phase's shapes.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
 and the backward of each LSTM cell and of the GRU, the inference and saving flash
-forwards, and the flash backward's dq and dk/dv kernels, whose plain and
-library times are those of the whole backward)
+forwards, the flash backward's dq and dk/dv kernels, whose plain and
+library times are those of the whole backward, the dropout kernel's forward and
+backward, and the short-attention forward and backward in each layout, whose
+backward is a pair of kernels counted as one launch)
 and the card's name and power limit as ``nvidia-smi`` gives them; the last
 line is ``{"ok": true, "device": {...}}``. With no CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -217,6 +240,41 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 # forward, max abs error / max(1, max |plain|): summation order only (the
 # shapes hold no fully masked row, whose flash gradient differs by design).
 FLASH_GRAD_TOL = 1e-4
+# Fused dropout (row 10): bench.py's verify_kernels shape (8192 x 768 bf16,
+# rate 0.1) first, then ragged shapes, one element, and a 4k+3 tail. The
+# kernel and its plain version draw the same Philox bits, so every check is
+# bitwise, in float32 and bfloat16, with and without x, at every rate.
+DROPOUT_SHAPES = [(8192, 768), (3, 130, 64), (1, 1), (4 * 1001 + 3,)]
+DROPOUT_RATES = (0.1, 0.5, 0.0)
+# The keep fraction of a mask must lie within this many binomial sigmas.
+DROPOUT_SIGMAS = 5.0
+# Short attention (rows 11-12): (b, h, t, d, key mask). BERT-base (with a
+# mask holding a length-1 row and a fully masked row, and without), the
+# longest t, t = 1, odd t, and d of 32, 64 and 128.
+SHORT_SHAPES = [(64, 12, 128, 64, True), (64, 12, 128, 64, False), (2, 4, 512, 64, True),
+                (3, 2, 1, 64, False), (3, 2, 77, 32, True), (2, 3, 77, 128, False),
+                (2, 2, 512, 128, True)]
+# Forward kernel vs its plain version, max abs error of o. float32: summation
+# order only (d-term dots and the t-term row sum). bfloat16: both round P to
+# bf16 before P @ V; the card's expf and the plain softmax's exp differ in the
+# last fp32 bit, so a P near a rounding tie can round the other way and o
+# move by one bf16 ulp (0.0078 at |o| in [1, 2)); 4 ulps of headroom.
+SHORT_TOL = {"float32": 2e-5, "bfloat16": 3.2e-2}
+# Backward kernels vs the plain backward, max abs error of dq, dk, dv over
+# max |plain| of that gradient. float32: summation order. bfloat16: both round
+# P and dS at the same points, so a value near a tie (as above) or an fp32
+# sum in another order can move an output by one bf16 ulp: at most 2^-7 of a
+# value in the largest gradient's binade, the limit.
+SHORT_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# ShortAttentionFunction's float32 gradients vs torch.autograd of the plain
+# forward, max abs error / max(1, max |plain|): summation order only.
+SHORT_GRAD_TOL = 1e-4
+# The ops phase: bench.py:572-626 (verify_kernels) through the entry points
+# under autograd, bf16, against a dense fp32 softmax, with the bench's limits:
+# forward max abs error <= 0.05, gradient <= 0.05 * max(max |g|, 1); dropout's
+# zero fraction in (0.08, 0.12) at rate 0.1.
+OPS_SHORT = (64, 12, 128, 64)
+OPS_FWD_TOL, OPS_GRAD_TOL, OPS_ZERO_FRAC = 0.05, 0.05, (0.08, 0.12)
 # BERT-base serving: Bert.base() (L=12, H=768, A=12), bf16 compute over fp32
 # weights, requests of 1-64 rows of T=128 token ids, as bench_zoo_bert.
 BERT_T, BERT_B, BERT_LAYERS, BERT_VOCAB = 128, 64, 12, 30522
@@ -306,10 +364,14 @@ def char_rnn_conf(cell, tbptt_length):
 def all_counters():
     """Every kernel wrapper's launch counter."""
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
-    from deeplearning4j_tpu_torch.ops.kernels import fused_gru, fused_lstm, fused_lstm_graves
+    from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+    from deeplearning4j_tpu_torch.ops.kernels import (fused_dropout, fused_gru, fused_lstm,
+                                                      fused_lstm_graves)
     return [c for m in (fused_lstm, fused_lstm_graves, fused_gru)
             for c in (m.counter, m.save_counter, m.bwd_counter)] + \
-        [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter]
+        [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter,
+         fused_dropout.counter, fused_dropout.bwd_counter,
+         sa.counter, sa.bwd_counter, sa.btd_counter, sa.btd_bwd_counter]
 
 
 def gru_inputs(T, B, H, dtype, device, seed):
@@ -356,6 +418,23 @@ def flash_inputs(b, h, t_q, t_k, d, d_v, dtype, device, seed, mask):
             lengths[0], lengths[1] = 1, 0
         m = (torch.arange(t_k)[None, :] < lengths[:, None]).to(device)
     return [t.to(dtype).to(device) for t in (q, k, v)], m
+
+
+def btd_views(tensors, heads):
+    """``(b, h, t, d)`` tensors copied into ``(b, t, h*d)`` layout, and the
+    ``(b, h, t, d)`` views of those copies that short_attention_btd hands the
+    kernels."""
+    b, h, t, d = tensors[0].shape
+    flat = [x.transpose(1, 2).reshape(b, t, h * d).contiguous() for x in tensors]
+    return flat, [x.view(b, t, heads, d).transpose(1, 2) for x in flat]
+
+
+def bits_equal(a, b):
+    """Bitwise equality of two float tensors (so -0.0 differs from +0.0)."""
+    import torch
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
 
 
 def attention_pairs(b, h, t_q, t_k, mask, causal):
@@ -589,8 +668,8 @@ class Smoke:
         log(f"== {name} took {time.perf_counter() - t0:.1f} s")
 
     def build(self):
-        from deeplearning4j_tpu_torch.ops.kernels import (_native, flash_attention,  # noqa: F401
-                                                          fused_gru, fused_lstm)
+        from deeplearning4j_tpu_torch.ops.kernels import (  # noqa: F401
+            _native, flash_attention, fused_attention_short, fused_dropout, fused_gru, fused_lstm)
         t0 = time.perf_counter()
         seconds = _native.build_all()
         log(f"kernel build: {time.perf_counter() - t0:.2f} s wall; per source {seconds}")
@@ -601,10 +680,11 @@ class Smoke:
                     kernel = line.split("'")[1] if "'" in line else line
                     # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>
                     # or flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
-                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)+)", kernel)
+                    # (dropout_kernel<T> has no flag)
+                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)*)E", kernel)
                     if m:
-                        flags = ", ".join(re.findall(r"L[ib](\d+)E", m[3]))
-                        kernel = f"{m[1]}<{m[2]}, {flags}>"
+                        flags = "".join(", " + f for f in re.findall(r"L[ib](\d+)E", m[3]))
+                        kernel = f"{m[1]}<{m[2]}{flags}>"
                 elif "Used" in line and "registers" in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
 
@@ -627,6 +707,8 @@ class Smoke:
             for shape in FLASH_SHAPES:
                 self.check_flash(shape, dtype)
         self.flash_backward_checks()
+        self.dropout_checks()
+        self.short_attention_checks()
 
     def flash_backward_checks(self):
         torch = self.torch
@@ -729,6 +811,227 @@ class Smoke:
             self.kernels.setdefault(fa.counter.name, {})["max_abs_err"] = err
         if shape == FLASH_SHAPES[1] and dtype == torch.bfloat16:  # masked, as trained
             self.kernels.setdefault(fa.lse_counter.name, {})["max_abs_err"] = max(err_o, err_lse)
+
+    def dropout_checks(self):
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in DROPOUT_SHAPES:
+                for rate in DROPOUT_RATES:
+                    for with_x in (False, True):
+                        self.check_dropout(shape, dtype, rate, with_x)
+        self.check_dropout((4 * 1001 + 3,), torch.bfloat16, 0.1, True, offset=1)
+
+    def check_dropout(self, shape, dtype, rate, with_x, offset=0):
+        """The dropout kernel against its plain version, bitwise: the
+        forward (with ``x`` when ``with_x``), the backward launch on a
+        random gy (its mask must be the forward's), the same seed again
+        (same bits) and seed + 1 (another mask), and the keep fraction.
+        ``offset`` > 0 reads views that start that many elements into their
+        buffers, which the kernel takes element by element."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_dropout as fd
+        dname = str(dtype).replace("torch.", "")
+        n = math.prod(shape)
+        seed = n + int(rate * 100) - 2 ** 31  # negative: the bit pattern is the key
+        g = torch.Generator().manual_seed(n + with_x)
+
+        def tensor():
+            t = torch.randn(n + offset, generator=g)
+            t = torch.where(t == 0, torch.ones(()), t)  # a kept 0 would read as dropped
+            return t.to(dtype).to(self.device)[offset:].view(shape)
+
+        h, gy = tensor(), tensor()
+        x = tensor() if with_x else None
+        with torch.no_grad():
+            got = fd.launch_dropout(x, h, seed, rate, fd.counter)
+            fwd_mask = fd.launch_dropout(None, h, seed, rate, fd.counter) != 0
+            dh = fd.launch_dropout(None, gy, seed, rate, fd.bwd_counter)
+            again = fd.launch_dropout(x, h, seed, rate, fd.counter)
+            other = fd.launch_dropout(None, h, seed + 1, rate, fd.counter) != 0
+            torch.cuda.synchronize()
+            want = fd.fused_dropout_reference(x, h, seed, rate)
+            want_dh = fd.fused_dropout_reference(None, gy, seed, rate)
+            kept = fd.keep_mask(n, seed, rate, self.device).view(shape)
+        torch.cuda.synchronize()
+        keep = 1.0 - rate
+        n_kept = int(kept.sum())
+        in_bounds = abs(n_kept - n * keep) <= DROPOUT_SIGMAS * math.sqrt(n * keep * rate) + 1
+        differs = bool((other != fwd_mask).any()) if rate > 0 and n >= 64 else True
+        ok = (bits_equal(got, want) and bits_equal(dh, want_dh) and bits_equal(again, got)
+              and torch.equal(fwd_mask, kept) and torch.equal(dh != 0, kept) and in_bounds
+              and differs)
+        err = max_err([got], [want])
+        self.check(ok, f"{fd.counter.name:22s} {dname:8s} shape={str(shape):13s} rate={rate:.1f} "
+                       f"x={'yes' if with_x else 'no '}{f' offset={offset}' if offset else ''}: "
+                       f"fwd, bwd, same seed bitwise = plain; bwd mask = fwd mask; kept "
+                       f"{n_kept / n:.4f} (keep {keep:.1f}, {DROPOUT_SIGMAS:g} sigma: "
+                       f"{in_bounds}); seed+1 differs: {differs}; max abs err {err:g}")
+        if shape == DROPOUT_SHAPES[0] and dtype == torch.bfloat16 and rate == 0.1 and not with_x:
+            self.kernels.setdefault(fd.counter.name, {})["max_abs_err"] = err
+            self.kernels.setdefault(fd.bwd_counter.name, {})["max_abs_err"] = \
+                max_err([dh], [want_dh])
+
+    def short_attention_checks(self):
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in SHORT_SHAPES:
+                for btd in (False, True):
+                    self.check_short(shape, dtype, btd)
+        for shape in (SHORT_SHAPES[1], SHORT_SHAPES[4]):
+            for btd in (False, True):
+                self.check_short_autograd(shape, btd)
+
+    def check_short(self, shape, dtype, btd):
+        """The short-attention forward and backward kernels against their
+        plain versions on the same inputs and dO, in the (b, h, t, d) layout
+        or through the (b, h, t, d) views of (b, t, h*d) tensors."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        b, h, t, d, masked = shape
+        dname = str(dtype).replace("torch.", "")
+        (q, k, v), mask = flash_inputs(b, h, t, t, d, d, dtype, self.device,
+                                       seed=t + 11 * d + btd, mask=masked)
+        g = torch.Generator().manual_seed(t + d)
+        do = torch.randn(b, h, t, d, generator=g).to(dtype).to(self.device)
+        if btd:
+            _, (q, k, v, do) = btd_views([q, k, v, do], h)
+        bias, scale = sa.key_bias(mask, b, t), d ** -0.5
+        fwd_c, bwd_c = (sa.btd_counter, sa.btd_bwd_counter) if btd else (sa.counter,
+                                                                            sa.bwd_counter)
+        with torch.no_grad():
+            o = sa.launch_short_fwd(q, k, v, bias, scale, fwd_c, btd)
+            grads = sa.launch_short_bwd(q, k, v, do, bias, scale, bwd_c, btd)
+            torch.cuda.synchronize()
+            want_o = sa.short_attention_reference(q, k, v, mask, scale)
+            want = sa.short_attention_backward_reference(q, k, v, do, mask, scale)
+        torch.cuda.synchronize()
+        err_o = max_err([o], [want_o])
+        peaks = [float(y.float().abs().max()) for y in want]
+        errs = [max_err([x], [y]) / (p or 1.0) for x, y, p in zip(grads, want, peaks)]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, *grads))
+        tol, tol_b = SHORT_TOL[dname], SHORT_BWD_TOL[dname]
+        tag = (f"{dname:8s} {'btd ' if btd else 'bhtd'} b={b:2d} h={h:2d} t={t:3d} d={d:3d} "
+               f"mask={'yes' if masked else 'no '}")
+        self.check(finite and err_o <= tol,
+                   f"{fwd_c.name:23s} {tag} o max_abs_err={err_o:.3g} tol={tol:g}")
+        self.check(finite and max(errs) <= tol_b,
+                   f"{bwd_c.name:23s} {tag} max_rel_err dq={errs[0]:.3g} dk={errs[1]:.3g} "
+                   f"dv={errs[2]:.3g} tol={tol_b:g} (max |plain| "
+                   + " ".join(f"{p:.3g}" for p in peaks) + ")")
+        if shape == SHORT_SHAPES[1] and dtype == torch.bfloat16:  # unmasked, as the ops phase
+            self.kernels.setdefault(fwd_c.name, {})["max_abs_err"] = err_o
+            self.kernels.setdefault(bwd_c.name, {})["max_abs_err"] = max(errs)
+
+    def check_short_autograd(self, shape, btd):
+        """``short_attention`` (or ``short_attention_btd``) under autograd
+        against ``torch.autograd`` of the plain forward, float32, with the
+        launch counts of the call (one forward, one backward)."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        b, h, t, d, masked = shape
+        (q, k, v), mask = flash_inputs(b, h, t, t, d, d, torch.float32, self.device,
+                                       seed=3 * t + d, mask=masked)
+        g = torch.Generator().manual_seed(5 * t + d)
+        do = torch.randn(b, h, t, d, generator=g).to(self.device)
+        if btd:
+            (q, k, v, do), _ = btd_views([q, k, v, do], h)
+        counters = (sa.btd_counter, sa.btd_bwd_counter) if btd else (sa.counter, sa.bwd_counter)
+        before = [c.value for c in counters]
+        grads = []
+        for plain in (False, True):
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            if btd:
+                args = [x.view(b, t, h, d).transpose(1, 2) for x in leaves]
+                out = sa.short_attention_reference(*args, mask).transpose(1, 2).reshape(
+                    b, t, h * d) if plain else sa.short_attention_btd(*leaves, mask, heads=h)
+            else:
+                out = sa.short_attention_reference(*leaves, mask) if plain else \
+                    sa.short_attention(*leaves, mask)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        torch.cuda.synchronize()
+        launched = tuple(c.value - n for c, n in zip(counters, before))
+        errs = [max_err([x], [y], relative=True) for x, y in zip(*grads)]
+        self.check(max(errs) <= SHORT_GRAD_TOL and launched == (1, 1),
+                   f"{counters[0].name} autograd vs plain float32 b={b:2d} h={h:2d} t={t:3d} "
+                   f"d={d:3d} mask={'yes' if masked else 'no '} max_rel_err dq={errs[0]:.3g} "
+                   f"dk={errs[1]:.3g} dv={errs[2]:.3g} tol={SHORT_GRAD_TOL:g}; launches "
+                   f"{launched} (expected (1, 1))")
+
+    def ops_phase(self):
+        """The entry points of rows 10-12 driven under autograd as
+        ``bench.py:572-626`` (``verify_kernels``) drives the JAX package's:
+        ``short_attention`` and ``short_attention_btd`` at (64, 12, 128, 64)
+        bf16, forward and the gradient of sum(o^2) in q, against a dense
+        fp32 softmax; ``fused_dropout`` at 8192 x 768 bf16, rate 0.1, with
+        its zero fraction and the gradient's mask. The launch counts of the
+        run must be one forward and one backward of each kernel, nothing
+        else."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        from deeplearning4j_tpu_torch.ops.kernels import fused_dropout as fd
+        b, h, t, d = OPS_SHORT
+        dt = torch.bfloat16
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(b, h, t, d, generator=g).to(dt).to(self.device) for _ in range(3))
+        (q3, k3, v3), _ = btd_views([q, k, v], h)
+        hd = torch.randn(*DROPOUT_SHAPES[0], generator=g).to(dt).to(self.device)
+        seed = fd.seed_from_key(torch.Generator().manual_seed(3))
+
+        def dense(q_, k_, v_):  # bench.py's xla_short, on (b, h, t, d)
+            s = torch.matmul(q_.float(), k_.float().transpose(-1, -2)) / math.sqrt(d)
+            return torch.matmul(torch.softmax(s, -1), v_.float()).to(q_.dtype)
+
+        def heads(x):
+            return x.view(b, t, h, d).transpose(1, 2)
+
+        def merge(x):
+            return x.transpose(1, 2).reshape(b, t, h * d)
+
+        def bench(fn, q_):  # the output and the gradient of sum(o^2) in q
+            leaf = q_.detach().clone().requires_grad_()
+            out = fn(leaf)
+            (grad,) = torch.autograd.grad((out.float() ** 2).sum(), [leaf])
+            return out.detach(), grad
+
+        counters = all_counters()
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        o_k, g_k = bench(lambda x: sa.short_attention(x, k, v), q)
+        o_b, g_b = bench(lambda x: sa.short_attention_btd(x, k3, v3, heads=h), q3)
+        hl = hd.detach().clone().requires_grad_()
+        yd = fd.fused_dropout(hl, seed, 0.1)
+        (gd,) = torch.autograd.grad(yd.float().sum(), [hl])
+        torch.cuda.synchronize()
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        for c in (sa.counter, sa.bwd_counter, sa.btd_counter, sa.btd_bwd_counter, fd.counter,
+                  fd.bwd_counter):
+            want[c.name] = 1
+            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+        self.check(counts == want, f"ops launch counts: {counts} (expected one forward and one "
+                                   "backward of each of short_attention, short_attention_btd "
+                                   "and fused_dropout, nothing else)")
+        for name, (o, gq), (o_x, g_x) in (
+                ("short_attention", (o_k, g_k), bench(lambda x: dense(x, k, v), q)),
+                ("short_attention_btd", (o_b, g_b),
+                 bench(lambda x: merge(dense(heads(x), heads(k3), heads(v3))), q3))):
+            err_f = max_err([o], [o_x])
+            gscale = float(g_x.float().abs().max())
+            err_b = max_err([gq], [g_x])
+            self.check(err_f <= OPS_FWD_TOL and err_b <= OPS_GRAD_TOL * max(gscale, 1.0),
+                       f"ops {name} b={b} h={h} t={t} d={d} bf16 vs dense fp32 softmax: "
+                       f"fwd max_abs_err={err_f:.4f} (limit {OPS_FWD_TOL}), grad max_abs_err="
+                       f"{err_b:.4f} (limit {OPS_GRAD_TOL} x max(max |g| = {gscale:.3g}, 1))")
+        frac = float((yd == 0).float().mean())
+        mask_match = bool(torch.equal(gd != 0, yd != 0))
+        lo, hi = OPS_ZERO_FRAC
+        self.check(lo < frac < hi and mask_match,
+                   f"ops fused_dropout {tuple(hd.shape)} bf16 rate 0.1 seed {int(seed)}: zero "
+                   f"fraction {frac:.4f} (limits {lo}, {hi}); backward mask regenerated "
+                   f"identically: {mask_match}")
 
     def check_kernels(self, cell, T, B, H, dtype, peep, mask):
         """The inference forward, the saving forward and the backward kernel
@@ -1493,6 +1796,8 @@ class Smoke:
                     f"({100 * kms / step:.0f}%)")
         self.gru_times()
         self.flash_times()
+        self.dropout_times()
+        self.short_times()
 
     def gru_times(self):
         """The GRU kernels' time at B=64, T=256, H=512 bf16 (CUDA events,
@@ -1690,6 +1995,119 @@ class Smoke:
                 f"masked) takes {share:.3f} ms of the {step:.2f} ms median step "
                 f"({100 * share / step:.1f}%)")
 
+    def dropout_times(self):
+        """The dropout kernel at 8192 x 768 bf16, rate 0.1 (the ops phase's
+        call): forward (``fused_dropout``, no x) and backward (the same
+        kernel on gy), beside the bound, the plain version and
+        ``torch.nn.functional.dropout`` (forward; its backward by
+        ``autograd.grad``), a yardstick the port never calls; then the
+        residual form beside ``x + F.dropout(h)``. A launch takes about as
+        long as the wrapper's host time, so each call is timed after a pass
+        that evicts the L2 cache (as a real caller finds its 12.6 MB input:
+        cold) and the pass's own time is taken off (``cold_ms``)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops.kernels import fused_dropout as fd
+        dt = torch.bfloat16
+        g = torch.Generator().manual_seed(7)
+        h, x, gy = (torch.randn(*DROPOUT_SHAPES[0], generator=g).to(dt).to(self.device)
+                    for _ in range(3))
+        seed, rate = 7, 0.1
+        hl = h.detach().clone().requires_grad_()
+        y_lib = F.dropout(hl, rate, training=True)
+        library = {fd.counter.name: self.cold_ms(lambda: F.dropout(h, rate, training=True)),
+                   fd.bwd_counter.name: self.cold_ms(lambda: torch.autograd.grad(
+                       y_lib, [hl], gy, retain_graph=True))}
+        plain_ms = cuda_ms(lambda: fd.fused_dropout_reference(None, h, seed, rate), reps=5,
+                           warmup=1)
+        for c, ins in ((fd.counter, h), (fd.bwd_counter, gy)):
+            with torch.no_grad():
+                out = fd.launch_dropout(None, ins, seed, rate, c)
+                ms = self.cold_ms(lambda: fd.launch_dropout(None, ins, seed, rate, c))
+                warm = cuda_ms(lambda: fd.launch_dropout(None, ins, seed, rate, c), reps=50)
+            bound_ms, bound_by = bound([ins, out], 0.0, dt)
+            self.kernels.setdefault(c.name, {}).update({
+                "name": c.name, "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/dropout.cu",
+                "replaces": "deeplearning4j_tpu/ops/pallas/fused_dropout.py:124",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library[c.name]})
+            log(f"{c.name}: {ms:.4f} ms per launch, L2 cold ({warm:.4f} ms per call back to "
+                f"back, host-bound) at {tuple(h.shape)} bf16 rate {rate}; bound {bound_ms:.4f} "
+                f"ms ({bound_by}); plain version {plain_ms:.3f} ms; F.dropout"
+                f"{' backward' if c is fd.bwd_counter else ''} {library[c.name]:.4f} ms")
+        with torch.no_grad():
+            add_ms = self.cold_ms(lambda: fd.launch_dropout(x, h, seed, rate, fd.counter))
+            add_lib = self.cold_ms(lambda: x + F.dropout(h, rate, training=True))
+            add_bound, _ = bound([x, h, h], 0.0, dt)
+        log(f"fused_dropout_add (x + dropout(h)): {add_ms:.4f} ms per launch, L2 cold; bound "
+            f"{add_bound:.4f} ms (bytes); x + F.dropout(h) {add_lib:.4f} ms")
+
+    def cold_ms(self, fn, reps=20):
+        """Milliseconds of ``fn`` with the L2 cache evicted before each call:
+        CUDA events over ``reps`` of (zero a 256 MB buffer, ``fn``) less the
+        same over the zeroing alone. The zeroing (~0.08 ms on an H100) also
+        outlasts the wrapper's host time, so the card never waits on it."""
+        torch = self.torch
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=self.device)
+        both = cuda_ms(lambda: (flush.zero_(), fn()), reps=reps)
+        alone = cuda_ms(flush.zero_, reps=reps)
+        del flush
+        return both - alone
+
+    def short_times(self):
+        """The short-attention kernels at BERT-base's shape (64, 12, 128, 64)
+        bf16 without a mask (the ops phase's call), in both layouts: the
+        forward and the backward pair by CUDA events beside the bound, the
+        plain versions and ``scaled_dot_product_attention`` on the same
+        tensors or views (its backward: ``autograd.grad`` minus its
+        forward; a yardstick the port never calls)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        b, h, t, d = OPS_SHORT
+        dt = torch.bfloat16
+        g = torch.Generator().manual_seed(9)
+        bhtd = [torch.randn(b, h, t, d, generator=g).to(dt).to(self.device) for _ in range(4)]
+        _, views = btd_views(bhtd, h)
+        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/short_attention.cu"
+        pallas = "deeplearning4j_tpu/ops/pallas/fused_attention_short.py"
+        scale = d ** -0.5
+        pairs = b * h * t * t
+        for btd, (q, k, v, do) in ((False, bhtd), (True, views)):
+            fwd_c, bwd_c = (sa.btd_counter, sa.btd_bwd_counter) if btd else (sa.counter,
+                                                                                sa.bwd_counter)
+            lines = (":320", ":353") if btd else (":169", ":197")
+            with torch.no_grad():
+                o = sa.launch_short_fwd(q, k, v, None, scale, fwd_c, btd)
+                grads = sa.launch_short_bwd(q, k, v, do, None, scale, bwd_c, btd)
+                ms = cuda_ms(lambda: sa.launch_short_fwd(q, k, v, None, scale, fwd_c, btd),
+                             reps=20)
+                bwd_ms = cuda_ms(lambda: sa.launch_short_bwd(q, k, v, do, None, scale, bwd_c,
+                                                             btd), reps=20)
+                plain_ms = cuda_ms(lambda: sa.short_attention_reference(q, k, v), reps=5,
+                                   warmup=1)
+                plain_bwd = cuda_ms(lambda: sa.short_attention_backward_reference(q, k, v, do),
+                                    reps=5, warmup=1)
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            sdpa = lambda: F.scaled_dot_product_attention(*leaves)  # noqa: E731
+            sdpa_fwd = cuda_ms(sdpa, reps=20)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), leaves, do), reps=20) - sdpa_fwd
+            for c, kms, pms, lib, tensors, flops, line in (
+                    (fwd_c, ms, plain_ms, sdpa_fwd, [q, k, v, o], 2.0 * pairs * 2 * d, lines[0]),
+                    (bwd_c, bwd_ms, plain_bwd, sdpa_bwd, [q, k, v, do, *grads],
+                     2.0 * pairs * 5 * d, lines[1])):
+                kb, kby = bound(tensors, flops, dt)
+                self.kernels.setdefault(c.name, {}).update({
+                    "name": c.name, "route": "cuda", "source": csrc, "replaces": pallas + line,
+                    "ms": kms, "plain_ms": pms, "bound_ms": kb, "bound_by": kby,
+                    "library_ms": lib})
+                log(f"{c.name}: {kms:.4f} ms per launch at b={b} h={h} t={t} d={d} bf16 "
+                    f"{'(b, t, h*d) views' if btd else '(b, h, t, d)'}; bound {kb:.4f} ms "
+                    f"({kby}, {flops / 1e9:.2f} GFLOP); plain version {pms:.3f} ms; "
+                    f"scaled_dot_product_attention{' backward' if c is bwd_c else ''} {lib:.4f} ms")
+            del leaves, o, grads
+
     def cudnn_ms(self, module, T, B, H, dtype):
         """``torch.nn.LSTM`` or ``torch.nn.GRU`` (cuDNN) on layer 0's work:
         the input projection from the 96-wide one-hot plus the recurrence.
@@ -1763,6 +2181,7 @@ def main() -> int:
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    smoke.phase("ops", smoke.ops_phase)
     smoke.phase("times", smoke.times_phase)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:
