@@ -45,7 +45,12 @@ the card and exits nonzero if any phase fails:
             bfloat16, in both layouts, at BERT-base's shape (with a mask
             holding a length-1 and a fully masked row, and without), t = 512,
             t = 1, odd t and d of 32, 64 and 128, and the autograd Function's
-            float32 gradients against ``torch.autograd`` of the plain forward;
+            float32 gradients against ``torch.autograd`` of the plain forward.
+            conv_stats (TPU row 13: a 1x1 convolution as a product, with
+            BatchNormalization's shifted per-channel sums in its epilogue)
+            against its plain version in float32 and bfloat16 with a nonzero
+            shift at row 13's shape, one shape of each other ResNet-50 stage
+            and two ragged shapes, and a second launch bit for bit;
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -91,7 +96,19 @@ the card and exits nonzero if any phase fails:
             forward and 1 backward GRU launch per layer per step, nothing
             else launched).
             ``--label-rules`` runs the build and 20 steps under each of
-            several label rules instead;
+            several label rules instead. Then ``resnet``: ``ResNet50(1000
+            classes)`` trained by ``fit`` as ``bench_resnet`` trains it
+            (batch 256 at 224x224, bf16 compute, Nesterovs(0.1, 0.9), one
+            synthetic batch repeated) for 20 steps: 36 conv_stats launches a
+            step from ``fit`` itself (every 1x1 convolution +
+            BatchNormalization pair) and nothing else, step ms, img/s, peak
+            memory, a device-busy breakdown, the loss falling, every
+            BatchNormalization's running statistics moving; the trained net
+            through an archive and ``ModelRegistry`` (p50 of 20 sequential
+            64-row requests, answers against the net's own output); the
+            first 3 losses against the same net with conv_stats' plain
+            version. ``--resnet`` runs the build, the conv_stats checks,
+            this phase and conv_stats' times only;
 5. ops    : the entry points of the last three TPU kernels, which no layer
             routes to, driven under autograd as ``bench.py:572-626``
             (``verify_kernels``) drives the JAX package's:
@@ -118,14 +135,18 @@ the card and exits nonzero if any phase fails:
             (forward, backward, and with x) beside ``F.dropout``, and the
             short-attention kernels in both layouts beside
             ``scaled_dot_product_attention``, at the ops phase's shapes.
+            conv_stats at row 13's shape and at ResNet-50's stage-0 shape
+            beside its bound, its plain version and ``torch.matmul`` plus
+            the two fp32 column sums.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
 and the backward of each LSTM cell and of the GRU, the inference and saving flash
 forwards, the flash backward's dq and dk/dv kernels, whose plain and
 library times are those of the whole backward, the dropout kernel's forward and
-backward, and the short-attention forward and backward in each layout, whose
-backward is a pair of kernels counted as one launch)
+backward, the short-attention forward and backward in each layout, whose
+backward is a pair of kernels counted as one launch, and conv_stats, whose
+partial-sum and column-sum kernels are one launch)
 and the card's name and power limit as ``nvidia-smi`` gives them; the last
 line is ``{"ok": true, "device": {...}}``. With no CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -316,6 +337,38 @@ BERT_LOSS_FALL, BERT_MIN_ACC = 0.95, 0.9
 # the two sides round differently placed values to bf16 (attention outputs
 # one ulp apart, see FLASH_TOL), and those pass through 12 layers.
 BERT_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# conv_stats (TPU row 13): row 13's own shape (s3b1_c1, s3b2_c1), one shape
+# of each other ResNet-50 stage at batch 256 (s0b1_c3 at K = 64 is the widest
+# M; s1b1_c1; s2b1_c3) and two ragged ones, each (M, K, N) in fp32 and bf16
+# with a nonzero shift. y is held to its plain version relative to max |plain
+# y|: fp32, the same products summed in another order over K <= 2048 (1e-5);
+# bf16, both sides round an fp32 sum to bf16, and two sums that straddle a
+# rounding boundary land one bf16 ulp apart, 2^-8 of the value (2^-7). s1 and
+# s2, fp32 sums over up to 802,816 rows in another order, relative to
+# max(1, max |plain|): 1e-4. A second launch must agree bit for bit.
+CONV_STATS_SHAPES = [(12544, 2048, 512), (802816, 64, 256), (200704, 512, 128),
+                     (50176, 256, 1024), (1000, 200, 72), (37, 13, 5)]
+CONV_STATS_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+CONV_STATS_SUM_TOL = 1e-4
+# ResNet-50, BASELINE config #2 as bench.py:6736-6790 (bench_resnet) trains
+# it: batch 256 of 224x224x3 bf16 images, 1000 classes, Nesterovs(0.1, 0.9),
+# one synthetic batch repeated, RESNET_STEPS steps. Every plain 1x1
+# convolution + BatchNormalization pair (36) runs through conv_stats in each
+# training step. The losses of the first RESNET_CMP_STEPS steps against the
+# same net whose pairs run conv_stats' plain version, each step from the
+# kernel run's weights and statistics of that step (same batch): bf16 outputs
+# one ulp apart pass through 53 normalizations, as BERT's through 12 layers
+# (BERT_TRAIN_TOL), so the same 2e-2. Each step starts from the kernel run's
+# weights because at lr 0.1 two trainers apart by rounding alone part fast: in
+# a development run on the card, the same fp32 trainer run twice (cuDNN's
+# algorithms are not deterministic in fp32) read 8.41969 and 8.38635 at step 3
+# (batch 128), and the bf16 kernel and plain trainers, each deterministic,
+# 6.37874 and 6.40024 after a first step 0.0039 apart. Served answers against the trained
+# net's own output on the same 64 rows: the same program on the same card,
+# probabilities within 1e-3.
+RESNET_B, RESNET_HW, RESNET_CLASSES, RESNET_PAIRS = 256, 224, 1000, 36
+RESNET_STEPS, RESNET_CMP_STEPS, RESNET_TOL = 20, 3, 2e-2
+RESNET_SERVE_B, RESNET_SERVE_TOL = 64, 1e-3
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -365,13 +418,13 @@ def all_counters():
     """Every kernel wrapper's launch counter."""
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
-    from deeplearning4j_tpu_torch.ops.kernels import (fused_dropout, fused_gru, fused_lstm,
-                                                      fused_lstm_graves)
+    from deeplearning4j_tpu_torch.ops.kernels import (conv_stats, fused_dropout, fused_gru,
+                                                      fused_lstm, fused_lstm_graves)
     return [c for m in (fused_lstm, fused_lstm_graves, fused_gru)
             for c in (m.counter, m.save_counter, m.bwd_counter)] + \
         [fa.counter, fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter,
          fused_dropout.counter, fused_dropout.bwd_counter,
-         sa.counter, sa.bwd_counter, sa.btd_counter, sa.btd_bwd_counter]
+         sa.counter, sa.bwd_counter, sa.btd_counter, sa.btd_bwd_counter, conv_stats.counter]
 
 
 def gru_inputs(T, B, H, dtype, device, seed):
@@ -637,6 +690,23 @@ class plain_attention:
         return False
 
 
+class plain_conv_stats:
+    """Within the block conv_stats runs its plain version on the card in
+    place of the kernel (the same autograd Function, the same backward): the
+    trainer built from the plain version, for comparison only."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        self.cs, self.saved = cs, cs.launch_conv_stats
+        cs.launch_conv_stats = lambda x2d, w, shift, launches=None: \
+            cs.conv_stats_reference(x2d, w, shift)
+        return self
+
+    def __exit__(self, *exc):
+        self.cs.launch_conv_stats = self.saved
+        return False
+
+
 class Smoke:
     def __init__(self, device):
         import torch
@@ -649,6 +719,7 @@ class Smoke:
         self.bert_train_step_ms = None  # median step ms of the bert train phase
         self.flash_lse_ms = None  # the saving forward at BERT-base's shape, masked
         self.bert_p50_ms = None  # one 64-row BERT-base request, p50
+        self.resnet_step_ms = None  # median step ms of the resnet phase
 
     def check(self, ok, what):
         log(("ok   " if ok else "FAIL ") + what)
@@ -669,7 +740,8 @@ class Smoke:
 
     def build(self):
         from deeplearning4j_tpu_torch.ops.kernels import (  # noqa: F401
-            _native, flash_attention, fused_attention_short, fused_dropout, fused_gru, fused_lstm)
+            _native, conv_stats, flash_attention, fused_attention_short, fused_dropout, fused_gru,
+            fused_lstm)
         t0 = time.perf_counter()
         seconds = _native.build_all()
         log(f"kernel build: {time.perf_counter() - t0:.2f} s wall; per source {seconds}")
@@ -680,7 +752,7 @@ class Smoke:
                     kernel = line.split("'")[1] if "'" in line else line
                     # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>
                     # or flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
-                    # (dropout_kernel<T> has no flag)
+                    # (dropout_kernel<T> and conv_stats_kernel<T> have no flag)
                     m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)*)E", kernel)
                     if m:
                         flags = "".join(", " + f for f in re.findall(r"L[ib](\d+)E", m[3]))
@@ -709,6 +781,41 @@ class Smoke:
         self.flash_backward_checks()
         self.dropout_checks()
         self.short_attention_checks()
+        self.conv_stats_checks()
+
+    def conv_stats_checks(self):
+        """conv_stats against its plain version at CONV_STATS_SHAPES in fp32
+        and bf16, a nonzero shift, inputs off zero mean (as a ReLU's output
+        is); a second launch bit for bit."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for m, k, n in CONV_STATS_SHAPES:
+                g = torch.Generator(device=self.device).manual_seed(m + k + n)
+                x = (torch.rand(m, k, generator=g, device=self.device) * 2.0).to(dtype)
+                w = (torch.randn(k, n, generator=g, device=self.device) * k ** -0.5).to(dtype)
+                shift = torch.randn(n, generator=g, device=self.device)
+                with torch.no_grad():
+                    got = cs.launch_conv_stats(x, w, shift)
+                    again = cs.launch_conv_stats(x, w, shift)
+                    torch.cuda.synchronize()
+                    want = cs.conv_stats_reference(x, w, shift)
+                scale = float(want[0].float().abs().max())
+                err_y = max_err(got[:1], want[:1]) / max(scale, 1e-30)
+                err_s = max(max_err([a], [b], relative=True) for a, b in zip(got[1:], want[1:]))
+                same = all(bits_equal(a, b) for a, b in zip(got, again))
+                finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+                self.check(finite and same and err_y <= CONV_STATS_TOL[dname]
+                           and err_s <= CONV_STATS_SUM_TOL,
+                           f"conv_stats {dname:8s} M={m} K={k} N={n}: y max_err/max|y|="
+                           f"{err_y:.3g} (tol {CONV_STATS_TOL[dname]:g}), s1/s2 max_rel_err="
+                           f"{err_s:.3g} (tol {CONV_STATS_SUM_TOL:g}); a second launch bit for "
+                           f"bit: {same}")
+                if dtype == torch.bfloat16 and (m, k, n) == CONV_STATS_SHAPES[0]:
+                    self.kernels.setdefault(cs.counter.name, {})["max_abs_err"] = \
+                        max_err(got[:1], want[:1])
+                del x, w, got, again, want
 
     def flash_backward_checks(self):
         torch = self.torch
@@ -1481,6 +1588,161 @@ class Smoke:
         reg.shutdown()
         self.check(not served.batcher._worker.is_alive(), "bert registry shut down")
 
+    def resnet_phase(self, workdir):
+        """ResNet-50 trained by ``fit`` as bench_resnet trains it (batch 256
+        at 224x224, bf16 compute over fp32 weights, Nesterovs(0.1, 0.9), one
+        synthetic batch repeated): the main path, counted, 36 conv_stats
+        launches a step and nothing else; step ms, img/s, peak memory, a
+        device-busy breakdown; the loss falls and every BatchNormalization's
+        running statistics move; the first steps against the same net with
+        conv_stats' plain version. Then the trained net through an archive
+        and ``ModelRegistry``: p50 of 20 sequential 64-row requests, answers
+        against the net's own output."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ComputationGraph
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.train.updaters import Nesterovs
+        from deeplearning4j_tpu_torch.zoo import ResNet50
+        get_environment().allow_bfloat16()
+        torch.cuda.empty_cache()
+        zoo = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW, width=RESNET_HW,
+                       updater=Nesterovs(0.1, momentum=0.9))
+        t0 = time.perf_counter()
+        net = zoo.init(device=self.device)
+        torch.cuda.synchronize()
+        pairs = net.fused_pairs
+        log(f"resnet: ResNet50 init {time.perf_counter() - t0:.1f} s, {net.num_params()} "
+            f"parameters, {len(net.conf.nodes)} nodes, {len(pairs)} fused 1x1 conv + "
+            f"BatchNormalization pairs")
+        self.check(len(pairs) == RESNET_PAIRS, f"resnet fused pairs: {len(pairs)} (expected "
+                                               f"{RESNET_PAIRS}): {sorted(pairs)}")
+        g = torch.Generator(device=self.device).manual_seed(0)
+        x = torch.randn(RESNET_B, RESNET_HW, RESNET_HW, 3, generator=g,
+                        device=self.device).to(torch.bfloat16)
+        labels = torch.randint(0, RESNET_CLASSES, (RESNET_B,), generator=g, device=self.device)
+        y = torch.nn.functional.one_hot(labels, RESNET_CLASSES).float()
+        state0 = clone_tree(net._model_state)
+        snaps = []  # (params, state) before each of the first RESNET_CMP_STEPS steps
+        scores, stamps = CollectScoresListener(), []
+        net.set_listeners(scores, StepStamps(stamps))
+        counters = all_counters()
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        for i in range(RESNET_STEPS):
+            if i < RESNET_CMP_STEPS:
+                snaps.append((clone_tree(net.params()), clone_tree(net._model_state)))
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {c.name: 0 for c in counters}
+        want[cs.counter.name] = RESNET_PAIRS * RESNET_STEPS
+        self.check(counts == want, f"resnet fit launch counts over {RESNET_STEPS} steps: "
+                                   f"{counts} (expected {RESNET_PAIRS} conv_stats a step from "
+                                   "fit itself, nothing else)")
+        self.kernels.setdefault(cs.counter.name, {})["launches"] = counts[cs.counter.name]
+        losses = [v for _, v in scores.scores]
+        tail = sum(losses[-3:]) / 3
+        self.check(len(losses) == RESNET_STEPS and all(np.isfinite(v) for v in losses)
+                   and tail < losses[0],
+                   f"resnet bf16 loss on the repeated batch: first {losses[0]:.4f}, mean of the "
+                   f"last 3 {tail:.4f} (must be below the first): "
+                   + " ".join(f"{v:.4f}" for v in losses))
+        moved = {name: max(float((net._model_state[name][k] - st[k]).abs().max())
+                           for k in ("mean", "var")) for name, st in state0.items()}
+        still = sorted(n for n, v in moved.items() if not v > 0.0)
+        self.check(not still, f"resnet running statistics of all {len(moved)} "
+                              f"BatchNormalizations moved over {RESNET_STEPS} steps (least "
+                              f"max |change| {min(moved.values()):.3g}, stem_bn "
+                              f"{moved['stem_bn']:.3g}, s3b1_b1 {moved['s3b1_b1']:.3g}); "
+                              f"unmoved: {still}")
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        self.resnet_step_ms = med
+        log(f"resnet train: {RESNET_STEPS} steps of batch {RESNET_B} at {RESNET_HW}x{RESNET_HW} "
+            f"bf16 in {wall:.3f} s; step ms after the first: median {med:.2f} (min "
+            f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}); {RESNET_B / med * 1e3:.1f} img/s at the "
+            f"median; first step {1e3 * (stamps[0] - t0):.1f} ms; peak memory {peak:.2f} GiB")
+        net.set_listeners()
+        self.device_breakdown(lambda: net.fit(x, y), f"resnet fit step (batch {RESNET_B})",
+                              reps=3, step_ms=med)
+
+        # ---- serving: the trained net through an archive and the registry
+        path = os.path.join(workdir, "resnet50.zip")
+        t0 = time.perf_counter()
+        net.save(path)
+        t1 = time.perf_counter()
+        reg = ModelRegistry()
+        served = reg.load("resnet", path, device=self.device, max_batch_size=RESNET_SERVE_B)
+        log(f"resnet: save {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.0f} MB archive), "
+            f"ModelRegistry.load {time.perf_counter() - t1:.1f} s")
+        rng = np.random.default_rng(11)
+        reqs = [rng.normal(0, 1, (RESNET_SERVE_B, RESNET_HW, RESNET_HW, 3)).astype(np.float32)
+                for _ in range(4)]
+        reg.predict("resnet", reqs[0])  # warm-up
+        for c in counters:
+            c.reset()
+        ms, answers = [], []
+        for i in range(20):
+            t_req = time.perf_counter()
+            answers.append(reg.predict("resnet", reqs[i % len(reqs)]))
+            ms.append(1e3 * (time.perf_counter() - t_req))
+        counts = {c.name: c.value for c in counters}
+        ms.sort()
+        p50 = ms[len(ms) // 2]
+        log(f"resnet serving (bf16): 20 sequential {RESNET_SERVE_B}-row requests: p50 "
+            f"{p50:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
+            f"{RESNET_SERVE_B / p50 * 1e3:.1f} img/s at p50")
+        self.check(all(v == 0 for v in counts.values()),
+                   f"resnet serving launches nothing of the port (inference runs the pairs "
+                   f"unfused): {counts}")
+        with torch.inference_mode():
+            own = [net.output(r).float().cpu().numpy() for r in reqs]
+        err = max(float(np.abs(a - own[i % len(reqs)]).max()) for i, a in enumerate(answers))
+        top = np.sort(np.concatenate([a.max(1) for a in answers[:len(reqs)]]))
+        self.check(err <= RESNET_SERVE_TOL and all(a.shape == (RESNET_SERVE_B, RESNET_CLASSES)
+                                                   for a in answers),
+                   f"resnet 20 answers served from the archive vs the trained net's own "
+                   f"output: max_abs_err={err:.3g} on probabilities, tol={RESNET_SERVE_TOL:g}; "
+                   f"top probability min {top[0]:.4f}, median {top[len(top) // 2]:.4f}, max "
+                   f"{top[-1]:.4f}")
+        reg.shutdown()
+        self.check(not served.batcher._worker.is_alive(), "resnet registry shut down")
+        del net, served, reg
+        torch.cuda.empty_cache()
+
+        # ---- the kernel vs the plain version, at the weights of each of the
+        # first RESNET_CMP_STEPS steps
+        plain = ComputationGraph(zoo.conf(), device=self.device).init(params=snaps[0][0])
+        plain_scores = CollectScoresListener()
+        plain.set_listeners(plain_scores)
+        with plain_conv_stats():
+            for params, state in snaps:
+                plain.set_params(params)
+                plain._model_state = state
+                plain.fit(x, y)
+        want_l = [v for _, v in plain_scores.scores]
+        got = losses[:RESNET_CMP_STEPS]
+        err = max(abs(a - b) for a, b in zip(got, want_l))
+        self.check(err <= RESNET_TOL,
+                   f"resnet bf16 losses of the first {RESNET_CMP_STEPS} steps, kernel "
+                   f"{' '.join(f'{v:.5f}' for v in got)} vs plain conv_stats from the same "
+                   f"weights {' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
+                   f"tol={RESNET_TOL:g}")
+        del plain, snaps, state0, x, y
+        torch.cuda.empty_cache()
+
     def profile_kernels(self, fn, reps):
         """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
         warm-up call): ``{kernel name: (device ms per call, launches per
@@ -1798,6 +2060,7 @@ class Smoke:
         self.flash_times()
         self.dropout_times()
         self.short_times()
+        self.conv_stats_times()
 
     def gru_times(self):
         """The GRU kernels' time at B=64, T=256, H=512 bf16 (CUDA events,
@@ -2043,6 +2306,46 @@ class Smoke:
         log(f"fused_dropout_add (x + dropout(h)): {add_ms:.4f} ms per launch, L2 cold; bound "
             f"{add_bound:.4f} ms (bytes); x + F.dropout(h) {add_lib:.4f} ms")
 
+    def conv_stats_times(self):
+        """conv_stats at row 13's shape and at ResNet-50's stage-0 shape in
+        bf16 (CUDA events, after warm-up) beside its bound, its plain version
+        and ``torch.matmul`` plus the two fp32 column sums (a yardstick the
+        port never calls); the JSON row carries row 13's shape."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        dt = torch.bfloat16
+        for i, (m, k, n) in enumerate(CONV_STATS_SHAPES[:2]):
+            g = torch.Generator(device=self.device).manual_seed(m + k)
+            x = (torch.rand(m, k, generator=g, device=self.device) * 2.0).to(dt)
+            w = (torch.randn(k, n, generator=g, device=self.device) * k ** -0.5).to(dt)
+            shift = torch.randn(n, generator=g, device=self.device)
+
+            def library():
+                yf = torch.matmul(x, w).float()
+                return yf.sum(0), (yf * yf).sum(0)
+
+            with torch.no_grad():
+                outs = cs.launch_conv_stats(x, w, shift)
+                ms = cuda_ms(lambda: cs.launch_conv_stats(x, w, shift), reps=20)
+                plain_ms = cuda_ms(lambda: cs.conv_stats_reference(x, w, shift), reps=5,
+                                   warmup=1)
+                lib_ms = cuda_ms(library, reps=20)
+                mm_ms = cuda_ms(lambda: torch.matmul(x, w), reps=20)
+            flops = 2.0 * m * k * n
+            bound_ms, bound_by = bound([x, w, shift, *outs], flops, dt)
+            log(f"conv_stats: {ms:.4f} ms per launch at M={m} K={k} N={n} bf16 "
+                f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{flops / 1e9:.2f} GFLOP); plain version {plain_ms:.3f} ms; torch.matmul + the "
+                f"two fp32 column sums {lib_ms:.4f} ms (torch.matmul alone {mm_ms:.4f} ms)")
+            if i == 0:
+                self.kernels.setdefault(cs.counter.name, {}).update({
+                    "name": cs.counter.name, "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/conv_stats.cu",
+                    "replaces": "experiments/resnet_megakernel_stage4.py:64", "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms})
+            del x, w, outs
+
     def cold_ms(self, fn, reps=20):
         """Milliseconds of ``fn`` with the L2 cache evicted before each call:
         CUDA events over ``reps`` of (zero a 256 MB buffer, ``fn``) less the
@@ -2168,6 +2471,18 @@ def main() -> int:
     if sys.argv[1:] == ["--label-rules"]:
         smoke.phase("label rules", smoke.label_rules_phase)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--resnet"]:
+        smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        smoke.phase("times conv_stats", smoke.conv_stats_times)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     smoke.phase("kernels", smoke.kernel_phase)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
@@ -2179,6 +2494,7 @@ def main() -> int:
         smoke.phase("train graves=False", lambda: smoke.train_phase("lstm"))
         smoke.phase("train bert", smoke.bert_train_phase)
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
+        smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

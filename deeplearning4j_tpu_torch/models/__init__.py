@@ -1,6 +1,9 @@
 """Networks and archives (counterpart of ``deeplearning4j_tpu.models``)."""
 
+from deeplearning4j_tpu_torch.models.computation_graph import (ComputationGraph,
+                                                              ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.serializer import ModelSerializer, params_from_numpy
 
-__all__ = ["ModelSerializer", "MultiLayerNetwork", "params_from_numpy"]
+__all__ = ["ComputationGraph", "ComputationGraphConfiguration", "ModelSerializer",
+           "MultiLayerNetwork", "params_from_numpy"]

@@ -73,26 +73,26 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict] = None) -> "MultiLayerNetwork":
-        """Draw the parameters (or take ``params``) and place them on the
-        network's device. Each layer draws from its own generator, folded
-        from the config seed and the layer index."""
+        """Draw the parameters (or take ``params``) and the layers' state,
+        and place them on the network's device. Each layer draws from its own
+        generator, folded from the config seed and the layer index."""
         self.device = get_environment().resolve_device(self._requested_device)
         g = self.conf.global_conf
         if g.dtype is None:
             g = dataclasses.replace(g, dtype=get_environment().default_dtype)
         new_params: Dict[str, Dict] = {}
         model_state: Dict[str, Dict] = {}
-        if params is None:
-            for i, layer in enumerate(self.layers):
-                it = self.conf.layer_input_types[i] if self.conf.layer_input_types else None
-                p, s = layer.init(generator_for(g.seed, i), it, g)
-                if p:
-                    new_params[_layer_key(i, layer)] = p
-                if s:
-                    model_state[_layer_key(i, layer)] = s
-        else:
-            new_params = params
-        self._params = tree_map(lambda t: t.to(self.device), new_params)
+        for i, layer in enumerate(self.layers):
+            if params is not None and not layer.has_state:
+                continue  # given params: only the layers' state is drawn
+            it = self.conf.layer_input_types[i] if self.conf.layer_input_types else None
+            p, s = layer.init(generator_for(g.seed, i), it, g)
+            if p and params is None:
+                new_params[_layer_key(i, layer)] = p
+            if s:
+                model_state[_layer_key(i, layer)] = s
+        self._params = tree_map(lambda t: t.to(self.device),
+                                new_params if params is None else params)
         self._model_state = tree_map(lambda t: t.to(self.device), model_state)
         self._optimizer = None  # built at the first fit, on these parameters
         self._restored_updater_leaves = None
@@ -115,14 +115,18 @@ class MultiLayerNetwork:
     def _forward(self, params, model_state, x, *, training: bool = False,
                  generator: Optional[torch.Generator] = None, fmask=None,
                  carries: Optional[Dict] = None):
-        """Compose all layers; returns ``(out, last_in, new_carries)``.
-        ``last_in`` is the output layer's input after its input dropout, so
-        the loss and the output see the same activations."""
+        """Compose all layers; returns ``(out, last_in, new_state,
+        new_carries)``. ``last_in`` is the output layer's input after its
+        input dropout, so the loss and the output see the same activations.
+        ``new_state`` is ``model_state`` with each stateful layer's new state
+        (``BatchNormalization``'s running statistics in training), as JAX
+        ``:208-212`` keeps it."""
         cdt = get_environment().compute_dtype
         if x.is_floating_point() and x.dtype != cdt:
             x = x.to(cdt)
         params = cast_floating(params, cdt)
         new_carries = {} if carries is not None else None
+        new_state = dict(model_state)
         last_in = x
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
@@ -137,24 +141,27 @@ class MultiLayerNetwork:
                 x, new_carries[k] = layer.forward_with_carry(
                     p, carries[k], x, training=training, generator=generator, mask=fmask)
             else:
-                x, _ = layer.forward(p, model_state.get(k, {}), x, training=training,
-                                     generator=generator, mask=fmask)
-        return x, last_in, new_carries
+                s = model_state.get(k, {})
+                x, s_new = layer.forward(p, s, x, training=training, generator=generator,
+                                         mask=fmask)
+                if s:
+                    new_state[k] = s_new
+        return x, last_in, new_state, new_carries
 
     def _loss(self, params, model_state, x, y, generator=None, fmask=None, lmask=None,
               carries=None, training: bool = True):
         """The output layer's loss on ``(x, y)`` (JAX ``:217-251``); returns
-        ``(loss, new_carries)``."""
+        ``(loss, new_state, new_carries)``."""
         final = self.layers[-1]
         if not hasattr(final, "compute_loss"):
             raise ValueError("Last layer must be an output/loss layer to compute loss")
         params = cast_floating(params, get_environment().compute_dtype)
-        _, last_in, new_carries = self._forward(params, model_state, x, training=training,
-                                                generator=generator, fmask=fmask,
-                                                carries=carries)
+        _, last_in, new_state, new_carries = self._forward(
+            params, model_state, x, training=training, generator=generator, fmask=fmask,
+            carries=carries)
         k = _layer_key(len(self.layers) - 1, final)
         loss = final.compute_loss(params.get(k, {}), last_in, y, mask=lmask)
-        return loss, new_carries
+        return loss, new_state, new_carries
 
     def _zero_carries(self, batch: int, dtype) -> Dict[str, Any]:
         return {_layer_key(i, layer): layer.init_carry(batch, dtype, self.device)
@@ -169,14 +176,14 @@ class MultiLayerNetwork:
         self._ensure_init()
         with torch.inference_mode():
             m = None if mask is None else self._as_input(mask)
-            out, _, _ = self._forward(self._params, self._model_state, self._as_input(x),
-                                      fmask=m)
+            out, _, _, _ = self._forward(self._params, self._model_state,
+                                         self._as_input(x), fmask=m)
         return out
 
     def _rnn_step(self, carries, x):
         with torch.inference_mode():
-            out, _, new_carries = self._forward(self._params, self._model_state, x,
-                                                carries=carries)
+            out, _, _, new_carries = self._forward(self._params, self._model_state, x,
+                                                   carries=carries)
         return out, new_carries
 
     def rnn_time_step(self, x) -> torch.Tensor:
@@ -292,7 +299,9 @@ class MultiLayerNetwork:
 
     def _train_step(self, x, y, fmask, lmask, carries=None):
         """One step: loss, gradients of the float parameters through the
-        compute-dtype cast, and the optimizer's update in place. The
+        compute-dtype cast, and the optimizer's update in place; the layers'
+        new state (``BatchNormalization``'s running statistics) replaces the
+        old, as the JAX step's ``model_state=new_state`` does. The
         parameters may nest (``"attn"``, ``"stack"``): every leaf is walked
         in :func:`tree_leaves` order. Returns the detached loss and the new
         carries."""
@@ -302,8 +311,9 @@ class MultiLayerNetwork:
         for t in trained:
             t.requires_grad_(True)
         try:
-            loss, new_carries = self._loss(self._params, self._model_state, x, y,
-                                           self.rng.next_generator(), fmask, lmask, carries)
+            loss, new_state, new_carries = self._loss(
+                self._params, self._model_state, x, y, self.rng.next_generator(), fmask,
+                lmask, carries)
             grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
         finally:
             for t in trained:
@@ -313,6 +323,7 @@ class MultiLayerNetwork:
             g = next(grads) if t.is_floating_point() else None
             per_leaf.append(torch.zeros_like(t) if g is None else g)
         optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
+        self._model_state = tree_map(lambda t: t.detach(), new_state)
         return loss.detach(), new_carries
 
     def _iteration_done(self, loss) -> None:
@@ -330,8 +341,8 @@ class MultiLayerNetwork:
         self._ensure_init()
         with torch.inference_mode():
             x, y, fm, lm = self._coerce_batch(dataset)
-            loss, _ = self._loss(self._params, self._model_state, x, y, None, fm, lm,
-                                 training=False)
+            loss, _, _ = self._loss(self._params, self._model_state, x, y, None, fm, lm,
+                                    training=False)
         return float(loss)
 
     def set_listeners(self, *listeners: TrainingListener) -> None:

@@ -5,6 +5,9 @@ that carries weights between the two packages. The zip is the same:
 ``configuration.json`` (the config tree), ``coefficients.npz`` (the
 parameters), ``metadata.json`` and, optionally, ``updaterState.npz``.
 
+A ``ComputationGraph`` archive is keyed by node name where a network's is
+keyed by ``layer_<i>``; everything else is the same.
+
 ``coefficients.npz`` holds ``leaf_0 .. leaf_N`` in the JAX package's
 ``jax.tree.leaves`` order of ``{"params": ..., "model_state": ...}``: dict
 keys sorted as strings, recursively. So ``"model_state"`` < ``"params"``,
@@ -17,7 +20,8 @@ without JAX.
 JAX package's ``jax.tree.leaves(opt_state)`` (JAX ``serializer.py:33-48``,
 ``:75``, ``:132``): per layer label in sorted order, that layer's leaves in
 sorted, nested parameter order (``"attn"/...``, ``"stack"/...``). For
-``RmsProp`` each layer's ``nu``; for ``Adam`` each layer's 0-d int32
+``RmsProp`` each layer's ``nu``; for ``Nesterovs`` each layer's ``trace``;
+for ``Adam`` each layer's 0-d int32
 ``count``, then its ``mu`` leaves, then its ``nu`` leaves; nothing for
 ``Sgd``. So an archive written by either package resumes training in the
 other with its optimizer state. The
@@ -127,16 +131,19 @@ class ModelSerializer:
 
     @staticmethod
     def restore_model(path: str, device=None):
-        """Type-dispatching restore; only ``MultiLayerNetwork`` archives are
-        ported so far."""
+        """Type-dispatching restore on the archive's ``model_type``: a
+        ``MultiLayerNetwork`` or a ``ComputationGraph``."""
         with zipfile.ZipFile(path) as zf:
             names = zf.namelist()
             meta = json.loads(zf.read(_META).decode()) if _META in names else {}
         kind = meta.get("model_type", "MultiLayerNetwork")
-        if kind != "MultiLayerNetwork" or "quantization.json" in names:
-            raise NotImplementedError(
-                f"restoring a {kind if kind != 'MultiLayerNetwork' else 'quantized'} "
-                "archive is not ported to deeplearning4j_tpu_torch yet")
+        if "quantization.json" in names:
+            kind = "quantized"
+        if kind not in ("MultiLayerNetwork", "ComputationGraph"):
+            raise NotImplementedError(f"restoring a {kind} archive is not ported to "
+                                      "deeplearning4j_tpu_torch yet")
+        if kind == "ComputationGraph":
+            return ModelSerializer.restore_computation_graph(path, device=device)
         return ModelSerializer.restore_multi_layer_network(path, device=device)
 
     @staticmethod
@@ -145,9 +152,23 @@ class ModelSerializer:
         environment asks for the CPU)."""
         from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
         from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+        return ModelSerializer._restore(path, lambda js: MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(js), device=device))
+
+    @staticmethod
+    def restore_computation_graph(path: str, device=None):
+        """Restore a graph on ``device``: its leaves are keyed by node name
+        in the JAX package's order, so a JAX archive (ResNet-50's, say)
+        loads here."""
+        from deeplearning4j_tpu_torch.models.computation_graph import (
+            ComputationGraph, ComputationGraphConfiguration)
+        return ModelSerializer._restore(path, lambda js: ComputationGraph(
+            ComputationGraphConfiguration.from_json(js), device=device))
+
+    @staticmethod
+    def _restore(path: str, build):
         with zipfile.ZipFile(path) as zf:
-            conf = MultiLayerConfiguration.from_json(zf.read(_CONF).decode())
-            net = MultiLayerNetwork(conf, device=device).init()
+            net = build(zf.read(_CONF).decode()).init()
             coeff = _load_leaves(zf.read(_COEFF), {"params": net.params(),
                                                    "model_state": net._model_state})
             meta = json.loads(zf.read(_META).decode()) if _META in zf.namelist() else {}

@@ -6,6 +6,9 @@ from deeplearning4j_tpu_torch.nn.attention_layers import (BertEmbeddingLayer, Cl
                                                           TransformerEncoderBlock,
                                                           TransformerEncoderStack)
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, register_layer
+from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, ConvolutionLayer,
+                                                     GlobalPoolingLayer, PoolingType,
+                                                     SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.config import (MultiLayerConfiguration,
                                                 NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.core_layers import (ActivationLayer, DenseLayer,
@@ -19,11 +22,12 @@ from deeplearning4j_tpu_torch.nn.recurrent_layers import (GRU, LSTM, BaseRecurre
                                                           SimpleRnn)
 
 __all__ = [
-    "ActivationLayer", "BaseRecurrentLayer", "BertEmbeddingLayer", "Bidirectional",
-    "ClsPoolingLayer", "DenseLayer", "DropoutLayer", "EmbeddingLayer",
-    "EmbeddingSequenceLayer", "GRU", "GlobalConfig", "GravesLSTM", "InputType", "LSTM",
-    "LastTimeStep", "Layer", "LearnedPositionalEmbeddingLayer", "LossLayer",
-    "MultiLayerConfiguration", "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer",
-    "SelfAttentionLayer", "SimpleRnn", "TransformerEncoderBlock", "TransformerEncoderStack",
-    "register_layer",
+    "ActivationLayer", "BaseRecurrentLayer", "BatchNormalization", "BertEmbeddingLayer",
+    "Bidirectional", "ClsPoolingLayer", "ConvolutionLayer", "DenseLayer", "DropoutLayer",
+    "EmbeddingLayer", "EmbeddingSequenceLayer", "GRU", "GlobalConfig", "GlobalPoolingLayer",
+    "GravesLSTM", "InputType", "LSTM", "LastTimeStep", "Layer",
+    "LearnedPositionalEmbeddingLayer", "LossLayer", "MultiLayerConfiguration",
+    "NeuralNetConfiguration", "OutputLayer", "PoolingType", "RnnOutputLayer",
+    "SelfAttentionLayer", "SimpleRnn", "SubsamplingLayer", "TransformerEncoderBlock",
+    "TransformerEncoderStack", "register_layer",
 ]

@@ -117,6 +117,8 @@ class Layer:
     weight_noise: Any = None
     # GlobalConfig attached by the network at build time (not serialized)
     _g: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # whether init returns a state (not a field: a property of the layer type)
+    has_state = False
 
     def output_type(self, input_type: InputType) -> InputType:
         return input_type

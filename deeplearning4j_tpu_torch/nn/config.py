@@ -25,10 +25,30 @@ import json
 from typing import List, Optional
 
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer
+from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, ConvolutionLayer,
+                                                     GlobalPoolingLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.core_layers import ActivationLayer, DropoutLayer
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.runtime.environment import coerce_dtype, dtype_name
+
+
+def check_input(layer: Layer, cur: Optional[InputType]) -> None:
+    """Raise by name where ``layer`` would need an input preprocessor on an
+    input of type ``cur`` (JAX ``_auto_preprocessor``): the preprocessors
+    are not ported yet. Images go as they are into the ported convolution,
+    pooling and normalization layers and into the layers that take any
+    input."""
+    if cur is None or cur.kind in ("feedforward", "recurrent"):
+        return
+    if cur.kind == "convolutional" and isinstance(
+            layer, (ConvolutionLayer, SubsamplingLayer, BatchNormalization,
+                    GlobalPoolingLayer, ActivationLayer, DropoutLayer)):
+        return
+    raise NotImplementedError(
+        f"{type(layer).__name__} after a {cur.kind!r} input needs an input "
+        "preprocessor, which is not ported to deeplearning4j_tpu_torch yet")
 
 
 class NeuralNetConfiguration:
@@ -103,6 +123,10 @@ class Builder:
     def list(self) -> "ListBuilder":
         return ListBuilder(self._g)
 
+    def graph_builder(self):
+        from deeplearning4j_tpu_torch.models.computation_graph import GraphBuilder
+        return GraphBuilder(self._g)
+
 
 class ListBuilder:
     def __init__(self, g: GlobalConfig):
@@ -159,15 +183,11 @@ class MultiLayerConfiguration:
     def _infer_shapes(self) -> None:
         """Record each layer's input type. The ported layers need no input
         preprocessor; an input that would need one (an image into a dense
-        layer) is refused by name."""
+        layer) is refused by name (:func:`check_input`)."""
         self.layer_input_types = []
         cur = self.input_type
         for layer in self.layers:
-            if cur is not None and cur.kind not in ("feedforward", "recurrent"):
-                raise NotImplementedError(
-                    f"{type(layer).__name__} after a {cur.kind!r} input needs an "
-                    "input preprocessor, which is not ported to "
-                    "deeplearning4j_tpu_torch yet")
+            check_input(layer, cur)
             self.layer_input_types.append(cur)
             if cur is not None:
                 cur = layer.output_type(cur)

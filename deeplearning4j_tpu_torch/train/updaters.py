@@ -6,9 +6,10 @@ Counterpart of ``deeplearning4j_tpu/train/updaters.py``: the reference's
 dataclasses with the same defaults and the same ``to_dict``/``from_dict``
 schema, so a ``configuration.json`` written by either package parses here.
 
-The math of ``Sgd``, ``Adam``, ``RmsProp`` and ``NoOp`` is ported: each is
-the optax 0.2.6 transform the JAX package builds (``optax.sgd``,
-``optax.adam``, ``optax.rmsprop``, ``optax.set_to_zero``), with the same
+The math of ``Sgd``, ``Adam``, ``Nesterovs``, ``RmsProp`` and ``NoOp`` is
+ported: each is the optax 0.2.6 transform the JAX package builds
+(``optax.sgd``, ``optax.adam``, ``optax.sgd(nesterov=True)``,
+``optax.rmsprop``, ``optax.set_to_zero``), with the same
 state, the same float operations in the same order, and the same state leaf
 order in ``updaterState.npz``. A layer's update runs as ``torch._foreach_*``
 ops over all its leaves, a few launches per layer instead of a few per leaf.
@@ -169,8 +170,26 @@ class Nadam(Adam):
 @register_updater
 @dataclasses.dataclass
 class Nesterovs(Updater):
+    """``optax.sgd(lr, momentum, nesterov=True)`` (``trace`` then the
+    learning rate): ``trace = g + momentum * trace``, then ``p += -lr * (g +
+    momentum * trace)`` with the new trace, in the parameter's dtype. The
+    state of a layer is its ``trace``, nested as its parameters, so its
+    leaves are optax's ``TraceState`` leaves in sorted parameter order."""
+
     learning_rate: Any = 0.1
     momentum: float = 0.9
+
+    def init_state(self, params):
+        return tree_map(torch.zeros_like, params)
+
+    def apply(self, params, grads, state):
+        trace = tree_leaves(state)
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        update = torch._foreach_mul(trace, self.momentum)
+        torch._foreach_add_(update, grads)
+        torch._foreach_mul_(update, -self._lr())
+        torch._foreach_add_(params, update)
 
 
 @register_updater
@@ -235,7 +254,8 @@ class NetworkOptimizer:
     """The per-layer optimizer of a network: ``transforms`` maps each layer
     key that has parameters to its :class:`Updater`. ``state`` maps the
     stateful layers' keys to their state (``{param: nu}`` for RmsProp,
-    ``{"count", "mu", "nu"}`` for Adam, each nested as the layer's
+    ``{param: trace}`` for Nesterovs, ``{"count", "mu", "nu"}`` for Adam,
+    each nested as the layer's
     parameters), so :func:`tree_leaves` of it is the JAX package's
     ``jax.tree.leaves(opt_state)`` order (``optax.multi_transform`` keeps
     one inner state per layer label, sorted, each holding that layer's

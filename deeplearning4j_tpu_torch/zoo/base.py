@@ -16,6 +16,13 @@ class ZooModel:
 
     def init(self, device=None):
         """Build and initialise the network on ``device`` (``cuda`` unless
-        the caller or the environment asks for the CPU)."""
+        the caller or the environment asks for the CPU): a
+        ``ComputationGraph`` for a graph configuration, else a
+        ``MultiLayerNetwork``."""
+        from deeplearning4j_tpu_torch.models.computation_graph import (
+            ComputationGraph, ComputationGraphConfiguration)
         from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
-        return MultiLayerNetwork(self.conf(), device=device).init()
+        conf = self.conf()
+        if isinstance(conf, ComputationGraphConfiguration):
+            return ComputationGraph(conf, device=device).init()
+        return MultiLayerNetwork(conf, device=device).init()

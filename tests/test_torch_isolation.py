@@ -74,11 +74,12 @@ def _archive(tmp_path):
 def _entry_points(path):
     from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelRegistry
-    from deeplearning4j_tpu_torch.zoo import Bert, TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo import Bert, ResNet50, TextGenerationLSTM
     x = np.zeros((1, 3, 10), np.float32)
     return {
         "zoo.init": lambda: TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).init(),
         "zoo.Bert.init": lambda: Bert.small(vocab_size=10).init(),
+        "zoo.ResNet50.init": lambda: ResNet50(num_classes=3, height=32, width=32).init(),
         "MultiLayerNetwork.init": lambda: MultiLayerNetwork(
             TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).conf()).init(),
         "MultiLayerNetwork.output": lambda: MultiLayerNetwork(
@@ -93,7 +94,8 @@ def _entry_points(path):
     }
 
 
-ENTRY_POINTS = ["zoo.init", "zoo.Bert.init", "MultiLayerNetwork.init", "MultiLayerNetwork.output",
+ENTRY_POINTS = ["zoo.init", "zoo.Bert.init", "zoo.ResNet50.init", "MultiLayerNetwork.init",
+                "MultiLayerNetwork.output",
                 "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.fit",
                 "MultiLayerNetwork.load",
                 "ModelSerializer.restore_model", "ModelRegistry.load"]

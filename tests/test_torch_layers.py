@@ -231,11 +231,11 @@ def test_configuration_json_is_the_same_schema(graves):
 def test_unported_layer_and_preprocessor_are_named():
     from deeplearning4j_tpu.nn.config import NeuralNetConfiguration as JNN
     from deeplearning4j_tpu.nn.core_layers import OutputLayer as JOut
-    from deeplearning4j_tpu.nn.conv_layers import BatchNormalization as JBatchNorm
-    conf = (JNN.builder().list().layer(JBatchNorm())
+    from deeplearning4j_tpu.nn.conv_layers import LocalResponseNormalization as JLrn
+    conf = (JNN.builder().list().layer(JLrn())
             .layer(jrec.RnnOutputLayer(n_out=3)).set_input_type(JInputType.recurrent(5))
             .build())
-    with pytest.raises(KeyError, match="BatchNormalization"):
+    with pytest.raises(KeyError, match="LocalResponseNormalization"):
         tconfig.MultiLayerConfiguration.from_json(conf.to_json())
     conf = (JNN.builder().list().layer(JOut(n_out=3))
             .set_input_type(JInputType.convolutional(4, 4, 1)).build())

@@ -64,16 +64,18 @@ def _jax_multi_transform(make, shapes):
                                      ("NoOp", {}),
                                      ("Adam", {"learning_rate": 2e-5}),
                                      ("Adam", {"learning_rate": 1e-3, "beta1": 0.8,
-                                               "beta2": 0.99, "epsilon": 1e-6})],
+                                               "beta2": 0.99, "epsilon": 1e-6}),
+                                     ("Nesterovs", {"learning_rate": 0.1, "momentum": 0.9}),
+                                     ("Nesterovs", {"learning_rate": 1e-2, "momentum": 0.5})],
                          ids=["rmsprop", "rmsprop_decay_eps", "sgd", "noop", "adam",
-                              "adam_betas_eps"])
+                              "adam_betas_eps", "nesterovs", "nesterovs_lr_momentum"])
 def test_updater_matches_optax_over_five_steps(name, kw):
     import jax
     import jax.numpy as jnp
     import optax
 
     from deeplearning4j_tpu.train import updaters as jupd
-    shapes = NESTED if name == "Adam" else SHAPES
+    shapes = NESTED if name in ("Adam", "Nesterovs") else SHAPES
     rng = np.random.default_rng(0)
     params = _tree(rng, shapes=shapes)
     tx = _jax_multi_transform(lambda: getattr(jupd, name)(**kw).make(), shapes)
@@ -209,3 +211,38 @@ def test_adam_subclasses_raise_by_name():
             upd.init_state({"W": torch.zeros(2)})
         with pytest.raises(NotImplementedError, match=name):
             upd.apply([torch.zeros(2)], [torch.zeros(2)], None)
+
+
+def test_nesterovs_state_leaf_order_matches_jax_opt_state():
+    """Nesterovs' ``updaterState.npz`` order on a graph: per node name in
+    sorted order, that node's ``trace`` leaves in sorted parameter order —
+    the JAX graph's ``jax.tree.leaves(opt_state)`` (optax ``TraceState``
+    under ``multi_transform``); BatchNormalization's gamma/beta are traced,
+    its running statistics are not."""
+    import jax
+
+    from deeplearning4j_tpu.models.computation_graph import ComputationGraph as JGraph
+    from deeplearning4j_tpu.nn import (BatchNormalization, ConvolutionLayer,
+                                       GlobalPoolingLayer, InputType, OutputLayer)
+    from deeplearning4j_tpu.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu.train.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.models import (ComputationGraph,
+                                                 ComputationGraphConfiguration)
+    conf = (NeuralNetConfiguration.builder().seed(3).updater(Nesterovs(0.1, momentum=0.9))
+            .graph_builder().add_inputs("in")
+            .add_layer("conv", ConvolutionLayer(n_out=4, kernel_size=(1, 1),
+                                                activation="identity", has_bias=False), "in")
+            .add_layer("bn", BatchNormalization(activation="relu"), "conv")
+            .add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), "bn")
+            .add_layer("fc", OutputLayer(n_out=3, activation="softmax"), "pool")
+            .set_outputs("fc").set_input_types(InputType.convolutional(5, 5, 2)).build())
+    jnet = JGraph(conf).init()
+    net = ComputationGraph(ComputationGraphConfiguration.from_json(conf.to_json()),
+                           device="cpu").init()
+    jleaves = jax.tree.leaves(jnet.train_state.opt_state)
+    tleaves = tree_leaves(net.updater_state())
+    assert [(tuple(a.shape), np.asarray(a).dtype.name) for a in jleaves] == \
+        [(tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in tleaves]
+    assert sorted(net.updater_state()) == ["bn", "conv", "fc"]
+    assert sorted(net.updater_state()["bn"]) == ["beta", "gamma"]
+    assert isinstance(net._ensure_optimizer().transforms["conv"], tupd.Nesterovs)
