@@ -21,8 +21,11 @@ the card and exits nonzero if any phase fails:
             (inference: o; saving: o and lse), against its plain version in
             float32 and bfloat16 at BERT-base serving's shape (with and
             without a key-padding mask holding a length-1 row and a fully
-            masked row), at T=4096 causal, and at ragged, cross-attention,
-            d_v != d and d=256 shapes. The flash backward kernels (dq;
+            masked row), at T=4096 causal (also with a mask), and at ragged,
+            cross-attention, d_v != d, d and d_v no multiple of 16, and d=256
+            shapes, and on views one element into their buffers (the bf16
+            kernel then stages element by element; each line names the
+            staging). The flash backward kernels (dq;
             dk/dv) against the plain backward on the same o and lse, in
             float32 and bfloat16, at the same shapes and at T=16384 causal
             (the TPU's chunked-backward regime), max error relative to the
@@ -44,8 +47,11 @@ the card and exits nonzero if any phase fails:
             backward kernels against their plain versions in float32 and
             bfloat16, in both layouts, at BERT-base's shape (with a mask
             holding a length-1 and a fully masked row, and without), t = 512,
-            t = 1, odd t and d of 32, 64 and 128, and the autograd Function's
-            float32 gradients against ``torch.autograd`` of the plain forward.
+            t = 1, odd t and d of 24, 32, 33, 64, 128 and 256 (both designs
+            of the bf16 forward: score rows in registers at t <= 128, two
+            passes beyond), on views one element into their buffers, and the
+            autograd Function's float32 gradients against ``torch.autograd``
+            of the plain forward.
             conv_stats (TPU row 13: a 1x1 convolution as a product, with
             BatchNormalization's shifted per-channel sums in its epilogue)
             against its plain version in float32 and bfloat16 with a nonzero
@@ -108,7 +114,10 @@ the card and exits nonzero if any phase fails:
             64-row requests, answers against the net's own output); the
             first 3 losses against the same net with conv_stats' plain
             version. ``--resnet`` runs the build, the conv_stats checks,
-            this phase and conv_stats' times only;
+            this phase and conv_stats' times only. ``--attention`` runs the
+            build, the flash and short-attention checks, ``slice bert``,
+            ``train bert``, ``ops`` and the times of rows 7, 8-9 and 11-12
+            only;
 5. ops    : the entry points of the last three TPU kernels, which no layer
             routes to, driven under autograd as ``bench.py:572-626``
             (``verify_kernels``) drives the JAX package's:
@@ -124,17 +133,20 @@ the card and exits nonzero if any phase fails:
             beside ``torch.nn.GRU`` (cuDNN), with their share of a serving
             request and of a training step. The flash kernel in bf16 at
             BERT-base serving's shape (unmasked as served, and masked) and
-            at T=4096 causal, beside its bound, its saving instance, its
-            plain version and ``scaled_dot_product_attention`` (a yardstick
-            the port never calls); attention's share of a BERT request. The
+            at T=4096 causal, by its own device time (``torch.profiler``;
+            back-to-back CUDA events beside it), beside its bound and the
+            share of it reached, its saving instance, its plain version and
+            ``scaled_dot_product_attention``'s device time (a yardstick the
+            port never calls); its share of a BERT request and of a
+            fine-tuning step. The
             backward pair at BERT-base's shape (masked, as trained, and
             unmasked), at T=4096 causal and at T=16384 causal, beside its
             bound, the plain backward, ``scaled_dot_product_attention``'s
             backward and each kernel's own device time (``torch.profiler``);
             attention's share of a BERT training step. The dropout kernel
             (forward, backward, and with x) beside ``F.dropout``, and the
-            short-attention kernels in both layouts beside
-            ``scaled_dot_product_attention``, at the ops phase's shapes.
+            short-attention kernels in both layouts by device time beside
+            ``scaled_dot_product_attention``'s, at the ops phase's shapes.
             conv_stats at row 13's shape and at ResNet-50's stage-0 shape
             beside its bound, its plain version and ``torch.matmul`` plus
             the two fp32 column sums.
@@ -228,12 +240,23 @@ LOSS_FALL = 0.98
 # causal). BERT-base serving (with and without a mask that holds a length-1
 # row and a fully masked row), the causal heads of
 # examples/long_context_attention.py (12 x d=64) at T=4096, ragged lengths,
-# cross attention, d_v != d, and the widest head the kernel takes.
+# cross attention, d_v != d, and the widest head the kernel takes; then d and
+# d_v that are no multiple of 16 (d = 40, d_v = 20: rows that do not start on
+# a 16-byte boundary, which the bf16 kernel stages element by element; d =
+# 24, d_v = 40: padded with zeros to 32 and 48, staged by cp.async), and
+# T=4096 causal with a key-padding mask (the causally skipped tiles and the
+# bias together).
 FLASH_SHAPES = [(64, 12, 128, 128, 64, 64, False, False), (64, 12, 128, 128, 64, 64, True, False),
                 (1, 12, 4096, 4096, 64, 64, False, True), (3, 2, 77, 77, 64, 64, True, False),
                 (3, 2, 77, 77, 64, 64, True, True), (2, 4, 100, 300, 32, 32, True, False),
                 (2, 2, 256, 256, 128, 128, True, False), (2, 2, 256, 256, 128, 128, False, True),
-                (2, 3, 33, 47, 48, 160, True, False), (2, 2, 70, 70, 256, 256, True, True)]
+                (2, 3, 33, 47, 48, 160, True, False), (2, 2, 70, 70, 256, 256, True, True),
+                (3, 3, 65, 130, 40, 20, True, False), (2, 2, 50, 50, 24, 40, False, True),
+                (1, 12, 4096, 4096, 64, 64, True, True)]
+# The same checks on views that start one element into their buffers (as
+# check_dropout's offset): no row starts on a 16-byte boundary, so the bf16
+# kernel stages element by element.
+FLASH_UNALIGNED = (3, 2, 77, 77, 64, 64, True, False)
 # Flash kernel vs its plain version, max abs error of o and of lse. float32:
 # summation order only (the online softmax rescales partial sums the dense
 # softmax never forms). bfloat16: both round P to bf16 before P @ V, the
@@ -271,10 +294,16 @@ DROPOUT_RATES = (0.1, 0.5, 0.0)
 DROPOUT_SIGMAS = 5.0
 # Short attention (rows 11-12): (b, h, t, d, key mask). BERT-base (with a
 # mask holding a length-1 row and a fully masked row, and without), the
-# longest t, t = 1, odd t, and d of 32, 64 and 128.
+# longest t, t = 1, odd t, and d of 32, 64 and 128; then d = 24 at t = 17
+# (padded to 32 with zeros, staged by cp.async), t = 129 with d = 33 (the
+# bf16 forward's two passes, staged element by element) and d = 256 (two
+# passes over 32-key tiles).
 SHORT_SHAPES = [(64, 12, 128, 64, True), (64, 12, 128, 64, False), (2, 4, 512, 64, True),
                 (3, 2, 1, 64, False), (3, 2, 77, 32, True), (2, 3, 77, 128, False),
-                (2, 2, 512, 128, True)]
+                (2, 2, 512, 128, True), (3, 2, 17, 24, True), (2, 2, 129, 33, False),
+                (3, 2, 100, 256, True)]
+# The same checks on views one element into their buffers (element staging).
+SHORT_UNALIGNED = (3, 2, 77, 64, True)
 # Forward kernel vs its plain version, max abs error of o. float32: summation
 # order only (d-term dots and the t-term row sum). bfloat16: both round P to
 # bf16 before P @ V; the card's expf and the plain softmax's exp differ in the
@@ -471,6 +500,22 @@ def flash_inputs(b, h, t_q, t_k, d, d_v, dtype, device, seed, mask):
             lengths[0], lengths[1] = 1, 0
         m = (torch.arange(t_k)[None, :] < lengths[:, None]).to(device)
     return [t.to(dtype).to(device) for t in (q, k, v)], m
+
+
+def shifted(x, offset):
+    """A copy of ``x`` that starts ``offset`` elements into its buffer (so
+    that, for offset 1, no row starts on a 16-byte boundary)."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:].copy_(x.reshape(-1))
+    return buf[offset:].view(x.shape)
+
+
+def stage_tag(module, q, k, v, offset=0):
+    """How the bf16 forward kernel stages these operands (o is allocated
+    aligned): by cp.async or element by element; with the view's offset."""
+    how = "cp.async" if module._vector_ok(q, k, v) else "element"
+    return f"stage={how}" + (f" offset={offset}" if offset else "")
 
 
 def btd_views(tensors, heads):
@@ -751,14 +796,17 @@ class Smoke:
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
                     # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>
-                    # or flash_fwd_kernel<T, DMAX, CAUSAL, SAVE> from its mangled name
-                    # (dropout_kernel<T> and conv_stats_kernel<T> have no flag)
-                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)((?:L[ib]\d+E)*)E", kernel)
+                    # or flash_fwd_mma_kernel<DMAX, CAUSAL, VEC> from its mangled name
+                    # (dropout_kernel<T> and conv_stats_kernel<T> have no flag,
+                    # flash_fwd_kernel<DMAX, CAUSAL, SAVE> no type)
+                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w*?)((?:L[ib]\d+E)*)E", kernel)
                     if m:
-                        flags = "".join(", " + f for f in re.findall(r"L[ib](\d+)E", m[3]))
-                        kernel = f"{m[1]}<{m[2]}{flags}>"
+                        args = ([m[2]] if m[2] else []) + re.findall(r"L[ib](\d+)E", m[3])
+                        kernel = f"{m[1]}<{', '.join(args)}>"
                 elif "Used" in line and "registers" in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
+                elif "spill" in line and " 0 bytes spill stores" not in line:
+                    log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[-1].strip()}")
 
     def kernel_phase(self):
         torch = self.torch
@@ -775,13 +823,20 @@ class Smoke:
         for T, B, H in GRAD_SHAPES:
             self.check_gru_autograd(T, B, H)
         self.check_bidirectional_gru()
-        for dtype in (torch.float32, torch.bfloat16):
-            for shape in FLASH_SHAPES:
-                self.check_flash(shape, dtype)
-        self.flash_backward_checks()
+        self.flash_checks()
         self.dropout_checks()
         self.short_attention_checks()
         self.conv_stats_checks()
+
+    def flash_checks(self):
+        """Row 7 (both instances) at every FLASH_SHAPES entry and on
+        unaligned views, then rows 8-9 (the backward kernels)."""
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in FLASH_SHAPES:
+                self.check_flash(shape, dtype)
+            self.check_flash(FLASH_UNALIGNED, dtype, offset=1)
+        self.flash_backward_checks()
 
     def conv_stats_checks(self):
         """conv_stats against its plain version at CONV_STATS_SHAPES in fp32
@@ -887,15 +942,21 @@ class Smoke:
                    f"dk={errs[1]:.3g} dv={errs[2]:.3g} tol={FLASH_GRAD_TOL:g}; backward "
                    f"launches {launched} (expected (1, 1))")
 
-    def check_flash(self, shape, dtype):
+    def check_flash(self, shape, dtype, offset=0):
         """Both flash instances (inference: o; saving: o and lse) against
-        the plain version on the same inputs."""
+        the plain version on the same inputs; ``offset`` > 0 hands the
+        kernel views that start that many elements into their buffers.
+        The line names the bf16 kernel's staging (cp.async or element by
+        element), which the launcher chooses from the pointers and
+        strides."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
         b, h, t_q, t_k, d, d_v, masked, causal = shape
         dname = str(dtype).replace("torch.", "")
         (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dtype, self.device,
                                        seed=t_q + 3 * t_k + d_v, mask=masked)
+        if offset:
+            q, k, v = (shifted(x, offset) for x in (q, k, v))
         bias = fa.key_bias(mask, b, t_k)
         with torch.no_grad():
             got = fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter)
@@ -905,7 +966,8 @@ class Smoke:
         torch.cuda.synchronize()
         tol_o, tol_lse = FLASH_TOL[dname]
         tag = (f"{dname:8s} b={b:2d} h={h:2d} t_q={t_q:4d} t_k={t_k:4d} d={d:3d} d_v={d_v:3d} "
-               f"mask={'yes' if masked else 'no '} causal={'yes' if causal else 'no '}")
+               f"mask={'yes' if masked else 'no '} causal={'yes' if causal else 'no '} "
+               f"{stage_tag(fa, q, k, v, offset)}")
         err = max_err([got], [want_o])
         err_o, err_lse = max_err([got_o], [want_o]), max_err([got_lse], [want_lse])
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (got, got_o))
@@ -984,14 +1046,18 @@ class Smoke:
             for shape in SHORT_SHAPES:
                 for btd in (False, True):
                     self.check_short(shape, dtype, btd)
+            for btd in (False, True):
+                self.check_short(SHORT_UNALIGNED, dtype, btd, offset=1)
         for shape in (SHORT_SHAPES[1], SHORT_SHAPES[4]):
             for btd in (False, True):
                 self.check_short_autograd(shape, btd)
 
-    def check_short(self, shape, dtype, btd):
+    def check_short(self, shape, dtype, btd, offset=0):
         """The short-attention forward and backward kernels against their
         plain versions on the same inputs and dO, in the (b, h, t, d) layout
-        or through the (b, h, t, d) views of (b, t, h*d) tensors."""
+        or through the (b, h, t, d) views of (b, t, h*d) tensors; with
+        ``offset`` > 0 the tensors start that many elements into their
+        buffers."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
         b, h, t, d, masked = shape
@@ -1001,7 +1067,11 @@ class Smoke:
         g = torch.Generator().manual_seed(t + d)
         do = torch.randn(b, h, t, d, generator=g).to(dtype).to(self.device)
         if btd:
-            _, (q, k, v, do) = btd_views([q, k, v, do], h)
+            flat, _ = btd_views([q, k, v, do], h)
+            flat = [shifted(x, offset) if offset else x for x in flat]
+            q, k, v, do = (x.view(b, t, h, d).transpose(1, 2) for x in flat)
+        elif offset:
+            q, k, v, do = (shifted(x, offset) for x in (q, k, v, do))
         bias, scale = sa.key_bias(mask, b, t), d ** -0.5
         fwd_c, bwd_c = (sa.btd_counter, sa.btd_bwd_counter) if btd else (sa.counter,
                                                                             sa.bwd_counter)
@@ -1018,7 +1088,7 @@ class Smoke:
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, *grads))
         tol, tol_b = SHORT_TOL[dname], SHORT_BWD_TOL[dname]
         tag = (f"{dname:8s} {'btd ' if btd else 'bhtd'} b={b:2d} h={h:2d} t={t:3d} d={d:3d} "
-               f"mask={'yes' if masked else 'no '}")
+               f"mask={'yes' if masked else 'no '} {stage_tag(sa, q, k, v, offset)}")
         self.check(finite and err_o <= tol,
                    f"{fwd_c.name:23s} {tag} o max_abs_err={err_o:.3g} tol={tol:g}")
         self.check(finite and max(errs) <= tol_b,
@@ -1764,6 +1834,24 @@ class Smoke:
                 per[e.key] = (dev / 1e3 / reps, e.count // reps)
         return per, wall
 
+    def device_ms(self, fn, match=None, reps=20):
+        """Device milliseconds per call of ``fn`` from ``torch.profiler``:
+        the kernels whose names hold ``match``, or every kernel the call
+        launches. A launch shorter than its wrapper's host time is timed
+        by its own device time, not by back-to-back CUDA events, which
+        then measure the host. A profile that came back with no device
+        event at all (seen once on an H100 after many profiler sessions in
+        one process) is taken again, up to 3 times."""
+        for _ in range(3):
+            per, _ = self.profile_kernels(fn, reps)
+            if per:
+                break
+        ms = sum(t for name, (t, _) in per.items() if match is None or match in name)
+        if ms <= 0:
+            raise RuntimeError(f"the profiler saw no device time of {match or 'the call'} "
+                               f"(kernels seen: {sorted(per)})")
+        return ms
+
     def device_breakdown(self, fn, what, reps=5, step_ms=None):
         """Device busy time per call of ``fn`` (the sum of its kernels'
         device time, so idle gaps between kernels are not in it), the
@@ -2121,39 +2209,48 @@ class Smoke:
     def flash_times(self):
         """The flash kernel's time in bf16 at BERT-base serving's shape
         without a mask (the main path's arguments: served requests carry
-        none) and with one, and at the long-context causal shape: beside
-        its bound, the saving instance, the plain version and
-        ``scaled_dot_product_attention`` with the same mask or
-        ``is_causal`` (a yardstick the port never calls); then attention's
-        share of one 64-row request."""
+        none) and with one, and at the long-context causal shape, by its
+        own device time (``torch.profiler``) with the CUDA-event figure of
+        back-to-back launches beside it: against its bound (and the share
+        of the bound it reaches), the saving instance, the plain version
+        and ``scaled_dot_product_attention`` with the same mask or
+        ``is_causal`` (a yardstick the port never calls; its device time is
+        that of every kernel of the call); then flash's share of one
+        64-row request and of a fine-tuning step."""
         torch = self.torch
         import torch.nn.functional as F
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
         dt = torch.bfloat16
         main = None
+        log_clocks("flash times")
         for shape in (FLASH_SHAPES[0], FLASH_SHAPES[1], FLASH_SHAPES[2]):
             b, h, t_q, t_k, d, d_v, masked, causal = shape
             (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dt, self.device, seed=9,
                                            mask=masked)
             bias = fa.key_bias(mask, b, t_k)
+            sdpa_mask = None if mask is None else mask[:, None, None, :]
+            infer = lambda: fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter)  # noqa: E731
+            save = lambda: fa.launch_flash_fwd(q, k, v, bias, causal,  # noqa: E731
+                                               fa.lse_counter, save=True)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=sdpa_mask, is_causal=causal)
             with torch.no_grad():
-                o = fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter)
-                ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, bias, causal, fa.counter),
-                             reps=20)
-                lse_ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, bias, causal,
-                                                             fa.lse_counter, save=True), reps=20)
+                o = infer()
+                ms, ms_ev = self.device_ms(infer, "flash_fwd"), cuda_ms(infer, reps=20)
+                lse_ms, lse_ev = self.device_ms(save, "flash_fwd"), cuda_ms(save, reps=20)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask, causal),
                                    reps=3, warmup=1)
-                sdpa_mask = None if mask is None else mask[:, None, None, :]
-                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=sdpa_mask, is_causal=causal), reps=20)
+                sdpa_ms, sdpa_ev = self.device_ms(sdpa), cuda_ms(sdpa, reps=20)
             flops = 2.0 * attention_pairs(b, h, t_q, t_k, mask, causal) * (d + d_v)
             bound_ms, bound_by = bound([q, k, v, o, bias], flops, dt)
-            log(f"{fa.counter.name}: {ms:.4f} ms per launch at b={b} h={h} t_q={t_q} t_k={t_k} "
-                f"d={d} bf16 mask={'yes' if masked else 'no'} causal={'yes' if causal else 'no'}; "
-                f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP); saving instance "
-                f"{lse_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
-                f"scaled_dot_product_attention {sdpa_ms:.4f} ms")
+            log(f"{fa.counter.name}: {ms:.4f} ms per launch (profiler; back-to-back CUDA events "
+                f"{ms_ev:.4f}) at b={b} h={h} t_q={t_q} t_k={t_k} d={d} bf16 "
+                f"mask={'yes' if masked else 'no'} causal={'yes' if causal else 'no'}; bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP), "
+                f"{100 * bound_ms / ms:.1f}% of it reached; saving instance {lse_ms:.4f} ms "
+                f"(events {lse_ev:.4f}); plain version {plain_ms:.3f} ms; "
+                f"scaled_dot_product_attention {sdpa_ms:.4f} ms (profiler; events "
+                f"{sdpa_ev:.4f}), the kernel at {ms / sdpa_ms:.2f}x it")
             if main is None:
                 main = ms
                 self.kernels.setdefault(fa.counter.name, {}).update({
@@ -2164,7 +2261,7 @@ class Smoke:
                     "library_ms": sdpa_ms})
             if shape == FLASH_SHAPES[1]:  # masked: the saving instance as trained
                 with torch.no_grad():
-                    saved = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
+                    saved = save()
                 lse_bound, lse_by = bound([q, k, v, bias, *saved], flops, dt)
                 self.flash_lse_ms = lse_ms
                 self.kernels.setdefault(fa.lse_counter.name, {}).update({
@@ -2173,11 +2270,19 @@ class Smoke:
                     "replaces": "deeplearning4j_tpu/ops/pallas/flash_attention.py:226",
                     "ms": lse_ms, "plain_ms": plain_ms, "bound_ms": lse_bound,
                     "bound_by": lse_by, "library_ms": sdpa_ms})
+                log(f"{fa.lse_counter.name}: {lse_ms:.4f} ms per launch (profiler) masked as "
+                    f"trained; bound {lse_bound:.4f} ms ({lse_by}), "
+                    f"{100 * lse_bound / lse_ms:.1f}% of it reached")
         if self.bert_p50_ms is not None:
             share = BERT_LAYERS * main
             log(f"bert one {BERT_B}-row request: the {BERT_LAYERS} flash launches take "
-                f"{share:.3f} ms of the {self.bert_p50_ms:.2f} ms p50 "
+                f"{share:.3f} ms (profiler) of the {self.bert_p50_ms:.2f} ms p50 "
                 f"({100 * share / self.bert_p50_ms:.1f}%)")
+        if self.bert_train_step_ms is not None and self.flash_lse_ms is not None:
+            share = BERT_LAYERS * self.flash_lse_ms
+            log(f"bert train step: the {BERT_LAYERS} saving flash forwards take {share:.3f} ms "
+                f"(profiler) of the {self.bert_train_step_ms:.2f} ms median step "
+                f"({100 * share / self.bert_train_step_ms:.1f}%)")
         self.flash_bwd_times()
 
     def flash_bwd_times(self):
@@ -2361,15 +2466,18 @@ class Smoke:
     def short_times(self):
         """The short-attention kernels at BERT-base's shape (64, 12, 128, 64)
         bf16 without a mask (the ops phase's call), in both layouts: the
-        forward and the backward pair by CUDA events beside the bound, the
-        plain versions and ``scaled_dot_product_attention`` on the same
-        tensors or views (its backward: ``autograd.grad`` minus its
-        forward; a yardstick the port never calls)."""
+        forward and the backward pair by their own device time
+        (``torch.profiler``) with back-to-back CUDA events beside it,
+        against the bound (and the share of it reached), the plain versions
+        and ``scaled_dot_product_attention`` on the same tensors or views by
+        device time (its backward: ``autograd.grad`` minus its forward; a
+        yardstick the port never calls)."""
         torch = self.torch
         import torch.nn.functional as F
         from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
         b, h, t, d = OPS_SHORT
         dt = torch.bfloat16
+        log_clocks("short attention times")
         g = torch.Generator().manual_seed(9)
         bhtd = [torch.randn(b, h, t, d, generator=g).to(dt).to(self.device) for _ in range(4)]
         _, views = btd_views(bhtd, h)
@@ -2381,34 +2489,40 @@ class Smoke:
             fwd_c, bwd_c = (sa.btd_counter, sa.btd_bwd_counter) if btd else (sa.counter,
                                                                                 sa.bwd_counter)
             lines = (":320", ":353") if btd else (":169", ":197")
+            fwd = lambda: sa.launch_short_fwd(q, k, v, None, scale, fwd_c, btd)  # noqa: E731
+            bwd = lambda: sa.launch_short_bwd(q, k, v, do, None, scale, bwd_c, btd)  # noqa: E731
             with torch.no_grad():
-                o = sa.launch_short_fwd(q, k, v, None, scale, fwd_c, btd)
-                grads = sa.launch_short_bwd(q, k, v, do, None, scale, bwd_c, btd)
-                ms = cuda_ms(lambda: sa.launch_short_fwd(q, k, v, None, scale, fwd_c, btd),
-                             reps=20)
-                bwd_ms = cuda_ms(lambda: sa.launch_short_bwd(q, k, v, do, None, scale, bwd_c,
-                                                             btd), reps=20)
+                o = fwd()
+                grads = bwd()
+                ms, ms_ev = self.device_ms(fwd, "short_fwd"), cuda_ms(fwd, reps=20)
+                bwd_ms, bwd_ev = self.device_ms(bwd, "short_bwd"), cuda_ms(bwd, reps=20)
                 plain_ms = cuda_ms(lambda: sa.short_attention_reference(q, k, v), reps=5,
                                    warmup=1)
                 plain_bwd = cuda_ms(lambda: sa.short_attention_backward_reference(q, k, v, do),
                                     reps=5, warmup=1)
             leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
             sdpa = lambda: F.scaled_dot_product_attention(*leaves)  # noqa: E731
-            sdpa_fwd = cuda_ms(sdpa, reps=20)
-            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), leaves, do), reps=20) - sdpa_fwd
-            for c, kms, pms, lib, tensors, flops, line in (
-                    (fwd_c, ms, plain_ms, sdpa_fwd, [q, k, v, o], 2.0 * pairs * 2 * d, lines[0]),
-                    (bwd_c, bwd_ms, plain_bwd, sdpa_bwd, [q, k, v, do, *grads],
+            sdpa_fwd = self.device_ms(sdpa)
+            sdpa_bwd = self.device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do)) - sdpa_fwd
+            sdpa_ev = cuda_ms(sdpa, reps=20)
+            for c, kms, ev, pms, lib, tensors, flops, line in (
+                    (fwd_c, ms, ms_ev, plain_ms, sdpa_fwd, [q, k, v, o], 2.0 * pairs * 2 * d,
+                     lines[0]),
+                    (bwd_c, bwd_ms, bwd_ev, plain_bwd, sdpa_bwd, [q, k, v, do, *grads],
                      2.0 * pairs * 5 * d, lines[1])):
                 kb, kby = bound(tensors, flops, dt)
                 self.kernels.setdefault(c.name, {}).update({
                     "name": c.name, "route": "cuda", "source": csrc, "replaces": pallas + line,
                     "ms": kms, "plain_ms": pms, "bound_ms": kb, "bound_by": kby,
                     "library_ms": lib})
-                log(f"{c.name}: {kms:.4f} ms per launch at b={b} h={h} t={t} d={d} bf16 "
+                log(f"{c.name}: {kms:.4f} ms per launch (profiler; back-to-back CUDA events "
+                    f"{ev:.4f}) at b={b} h={h} t={t} d={d} bf16 "
                     f"{'(b, t, h*d) views' if btd else '(b, h, t, d)'}; bound {kb:.4f} ms "
-                    f"({kby}, {flops / 1e9:.2f} GFLOP); plain version {pms:.3f} ms; "
-                    f"scaled_dot_product_attention{' backward' if c is bwd_c else ''} {lib:.4f} ms")
+                    f"({kby}, {flops / 1e9:.2f} GFLOP), {100 * kb / kms:.1f}% of it reached; "
+                    f"plain version {pms:.3f} ms; scaled_dot_product_attention"
+                    f"{' backward' if c is bwd_c else ''} {lib:.4f} ms (profiler"
+                    f"{f'; events {sdpa_ev:.4f}' if c is fwd_c else ''}), the kernel at "
+                    f"{kms / lib:.2f}x it")
             del leaves, o, grads
 
     def cudnn_ms(self, module, T, B, H, dtype):
@@ -2431,15 +2545,22 @@ class Smoke:
         return {"infer": infer, "fwd": fwd, "bwd": bwd}
 
 
-def nvidia_smi():
+def nvidia_smi(query="name,power.limit"):
     try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60)
         return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
             f"nvidia-smi gave nothing (exit {out.returncode})"
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi failed: {e}"
+
+
+def log_clocks(what):
+    """The SM clock now and at most, and the power drawn, beside a block of
+    timings: device times of one card move with its clock."""
+    log(f"{what}: nvidia-smi clocks.sm, clocks.max.sm, power.draw: "
+        f"{nvidia_smi('clocks.sm,clocks.max.sm,power.draw')}")
 
 
 def main() -> int:
@@ -2470,6 +2591,22 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--label-rules"]:
         smoke.phase("label rules", smoke.label_rules_phase)
+        return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--attention"]:
+        smoke.phase("kernels flash", smoke.flash_checks)
+        smoke.phase("kernels short attention", smoke.short_attention_checks)
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.phase("slice bert", lambda: smoke.bert_phase(workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        smoke.phase("train bert", smoke.bert_train_phase)
+        smoke.phase("ops", smoke.ops_phase)
+        smoke.phase("times flash", smoke.flash_times)
+        smoke.phase("times short attention", smoke.short_times)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
         return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)

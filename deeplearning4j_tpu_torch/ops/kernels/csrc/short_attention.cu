@@ -28,29 +28,54 @@
 // k, v, dO, dq, dk, dv, 88 MB, 26.3 us, against 10 t^2 d FLOP per head (8.1
 // GFLOP, 8.2 us): bytes.
 //
-// Design (first version: right and simple; CUDA-core products, 256
-// threads a block, operands staged in shared memory as fp32):
-//   - forward: a block per (32-query tile, batch * head) keeps its rows'
-//     whole score rows (32 x t fp32 <= 64 KB) in shared memory: S tile by
-//     tile of 64 staged keys, then the exact softmax (8 threads a row), then
-//     round(P) @ V tile by tile of 64 staged values;
-//   - backward, two kernels. dK and dV sum over every query, and a block
-//     cannot keep a (t, d) fp32 sum for all of them, so the work is split:
-//     (1) a dq kernel, a block per (16-query tile, batch * head), forms its
-//     rows' S and dP, the softmax, delta and dS = round(...), writes each
-//     row's m, l and delta (fp32 scratch of 3 x (B*H, t), made by the
-//     wrapper) and dQ = dS K; (2) a dk/dv kernel, a block per (32-key tile,
-//     batch * head), walks the query tiles of 16, recomputes S and dP for
-//     its keys with the same device functions in the same order, and from
-//     the saved m, l and delta gets the same P and dS bit for bit, and sums
-//     dV and dK in registers. Nothing of the forward is read: the autograd
-//     Function saves q, k, v and the mask only.
-// Tensor cores (mma/wgmma), TMA and bf16 operands in shared memory are later
-// work.
+// Forward design, bf16 (short_fwd_mma_kernel): a block of 4 warps per
+// (batch * head, 64-query tile), 16 query rows a warp, products on
+// mma.sync m16n8k16 (bf16 operands, fp32 sums) with the tile machinery of
+// attention_mma.cuh: operands staged as bf16 by cp.async (element by
+// element where a row does not start on a 16-byte boundary; the launcher
+// sets VEC from the pointers and strides), d padded to a multiple of 16
+// with zeros, scores and P in registers. P is normalised before it is
+// rounded, so no online rescaling of a rounded P:
+//   - t <= 128 and d <= 128 (RESIDENT): K and V of the head are staged
+//     whole, as two cp.async groups, so V lands while S = Q K^T runs; each
+//     warp keeps its 16 rows' whole score rows in registers (64 fp32 values
+//     a thread at t = 128), takes the exact max and sum across the quad,
+//     forms round(e / l) straight into the A fragments of P V;
+//   - otherwise (t up to 512, or d > 128) two passes over K/V tiles of 64
+//     keys (32 at d > 128) in a ring of two stages: the first finds each
+//     row's max m and sum l (l rescaled as m grows), the second recomputes
+//     S, forms round(exp(S - m) / l) in registers and multiplies it by V.
+// The exponentials and the division stay expf and __fdiv_rn, as in the
+// float32 kernel (short_fwd_kernel, the card's check of the algorithm),
+// which stays on the CUDA cores: a block per (32-query tile, batch * head)
+// keeps its rows' score rows in shared memory as fp32 and forms each score
+// with a scalar dot over staged rows.
+// On an H100 (700 W) the bf16 forward takes 0.047-0.048 ms at BERT-base in
+// either layout (32% of its byte bound; SDPA 0.021). What still holds it
+// back: mma.sync rather than wgmma, each of a head's two query tiles
+// reading all of its K and V, the exact expf and division per score, and
+// each block's short life (one pass over the head) leaving its loads'
+// latency exposed.
+//
+// Backward design (right and simple; CUDA-core products, 256 threads a
+// block, operands staged in shared memory as fp32), two kernels. dK and dV
+// sum over every query, and a block cannot keep a (t, d) fp32 sum for all
+// of them, so the work is split: (1) a dq kernel, a block per (16-query
+// tile, batch * head), forms its rows' S and dP, the softmax, delta and dS
+// = round(...), writes each row's m, l and delta (fp32 scratch of 3 x (B*H,
+// t), made by the wrapper) and dQ = dS K; (2) a dk/dv kernel, a block per
+// (32-key tile, batch * head), walks the query tiles of 16, recomputes S and
+// dP for its keys with the same device functions in the same order, and
+// from the saved m, l and delta gets the same P and dS bit for bit, and sums
+// dV and dK in registers. Nothing of the forward is read: the autograd
+// Function saves q, k, v and the mask only. Tensor cores for the backward
+// are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -150,9 +175,11 @@ size_t dkv_smem(int D) {
                           2 * (size_t)kDqRows * kKvKeys);
 }
 
-// NJ: output columns per thread in steps of 16 (DMAX / 16, DMAX = 64, 128 or 256)
-template <typename T, int NJ>
+// float32 forward on the CUDA cores (bf16 runs short_fwd_mma_kernel). NJ:
+// output columns per thread in steps of 16 (DMAX / 16, DMAX = 64, 128 or 256)
+template <int NJ>
 __global__ void __launch_bounds__(kThreads) short_fwd_kernel(Args a) {
+  using T = float;
   extern __shared__ float smem[];
   const int D = a.D, DS = a.D + 1, T_ = a.T;
   float* qt = smem;                  // (kFwdRows, DS) Q rows
@@ -403,35 +430,218 @@ __global__ void __launch_bounds__(kThreads) short_bwd_dkv_kernel(Args a) {
   }
 }
 
+// bf16 forward on the tensor cores. DMAX: d rounded up to 64, 128 or 256.
+// RESIDENT: t <= 128 and DMAX <= 128; K and V are staged whole and each
+// warp's score rows stay in registers. Otherwise two passes over a ring of
+// two K/V tiles of BK keys. VEC: stage with cp.async (see attention_mma.cuh).
+template <int DMAX, bool VEC, bool RESIDENT>
+__global__ void __launch_bounds__(attn_mma::kMmaThreads) short_fwd_mma_kernel(Args a) {
+  using namespace attn_mma;
+  constexpr int BK = RESIDENT ? 128 : (DMAX <= 128 ? 64 : 32);  // keys a K/V tile holds
+  constexpr int NT = BK / 8;    // score fragments (8 keys each) of a warp
+  constexpr int NV = DMAX / 8;  // output fragments (8 columns each)
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int T_ = a.T, dp = round16(a.D), ld = tile_ld(dp);
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // (kMmaRows, ld)
+  bf16* ks = qs + kMmaRows * ld;                  // RESIDENT: (BK, ld), else 2 x (BK, ld)
+  bf16* vs = ks + (RESIDENT ? 1 : 2) * BK * ld;   // the same for V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x, bi = bh / a.H, hi = bh % a.H;
+  const int q0 = blockIdx.y * kMmaRows, wrow = q0 + warp * 16, key_lane = 2 * (lane & 3);
+  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.qs[0] + hi * a.qs[1];
+  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.ks[0] + hi * a.ks[1];
+  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.vs[0] + hi * a.vs[1];
+  const float* bias = a.bias ? a.bias + (size_t)bi * T_ : nullptr;
+  const bf16* qw = qs + warp * 16 * ld;
+
+  // S of keys [k0, k0 + BK) from the K rows at kt: (q . k) * scale, then
+  // + bias, two roundings; keys past t at -inf (weight 0)
+  auto scores = [&](float (&s)[NT][4], const bf16* kt, int k0, int pairs) {
+    float bv[NT][2];
+    if (bias) load_bias<NT>(bv, bias, k0, T_);
+    warp_scores<NT, DMAX>(s, qw, ld, kt, ld, dp, pairs);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + key_lane + (e & 1);
+        float x = -INFINITY;
+        if (key < T_) {
+          x = __fmul_rn(s[nt][e], a.scale);
+          if (bias) x = __fadd_rn(x, bv[nt][e & 1]);
+        }
+        s[nt][e] = x;
+      }
+  };
+
+  float o[NV][4];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nv][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  stage_tile<VEC>(qs, ld, q, a.qs[2], q0, kMmaRows, T_, a.D, dp);
+  if constexpr (RESIDENT) {
+    const int kr = round16(T_);  // key rows staged: t, and zeros up to a multiple of 16
+    stage_tile<VEC>(ks, ld, k, a.ks[2], 0, kr, T_, a.D, dp);
+    cp_async_commit();
+    stage_tile<VEC>(vs, ld, v, a.vs[2], 0, kr, T_, a.D, dp);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and K have landed; V may still be in flight
+    __syncthreads();
+    float s[NT][4];
+    scores(s, ks, 0, kr / 16);
+    // the exact softmax of each row: m = max, e = exp(S - m), l = sum e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      m[h] = quad_max(mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = expf(__fsub_rn(s[nt][e], m[h]));
+          sum += s[nt][e];
+        }
+      l[h] = quad_sum(sum);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) s[nt][e] = __fdiv_rn(s[nt][e], l[h]);
+    }
+    uint32_t pa[NT / 2][4];
+    scores_to_a<NT>(pa, s);  // P = e / l rounded to bf16
+    cp_async_wait<0>();
+    __syncthreads();
+    warp_pv<NT, NV>(o, pa, vs, ld, dp, kr / 16);
+  } else {
+    const int n_tiles = (T_ + BK - 1) / BK;
+    // pass 1: each row's max m and sum l over the K tiles
+    stage_tile<VEC>(ks, ld, k, a.ks[2], 0, BK, T_, a.D, dp);
+    cp_async_commit();
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1;
+      if (j + 1 < n_tiles)
+        stage_tile<VEC>(ks + (st ^ 1) * BK * ld, ld, k, a.ks[2], (j + 1) * BK, BK, T_, a.D, dp);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float s[NT][4];
+      scores(s, ks + st * BK * ld, j * BK, NT / 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+        const float m_new = fmaxf(m[h], quad_max(mx));  // finite: key 0 is in tile 0
+        float sum = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) sum += expf(__fsub_rn(s[nt][e], m_new));
+        l[h] = l[h] * expf(__fsub_rn(m[h], m_new)) + sum;  // this thread's share
+        m[h] = m_new;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+    // pass 2: S again, P = round(exp(S - m) / l), O += P V
+    stage_tile<VEC>(ks, ld, k, a.ks[2], 0, BK, T_, a.D, dp);
+    stage_tile<VEC>(vs, ld, v, a.vs[2], 0, BK, T_, a.D, dp);
+    cp_async_commit();
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1;
+      if (j + 1 < n_tiles) {
+        stage_tile<VEC>(ks + (st ^ 1) * BK * ld, ld, k, a.ks[2], (j + 1) * BK, BK, T_, a.D, dp);
+        stage_tile<VEC>(vs + (st ^ 1) * BK * ld, ld, v, a.vs[2], (j + 1) * BK, BK, T_, a.D, dp);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float s[NT][4];
+      scores(s, ks + st * BK * ld, j * BK, NT / 2);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = __fdiv_rn(expf(__fsub_rn(s[nt][e], m[e >> 1])), l[e >> 1]);
+      uint32_t pa[NT / 2][4];
+      scores_to_a<NT>(pa, s);
+      warp_pv<NT, NV>(o, pa, vs + st * BK * ld, ld, dp, NT / 2);
+      __syncthreads();
+    }
+  }
+  bf16* out = static_cast<bf16*>(a.o) + bi * a.os[0] + hi * a.os[1];
+  const float one[2] = {1.0f, 1.0f};  // P was normalised before the product
+  store_rows<NV, VEC>(out, a.os[2], wrow, T_, a.D, o, one);
+}
+
 template <typename Kernel>
-cudaError_t run(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t stream) {
+cudaError_t run(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a,
+                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
-cudaError_t forward(const Args& a, cudaStream_t s) {
+template <int DMAX, bool VEC, bool RESIDENT>
+cudaError_t forward_mma(const Args& a, cudaStream_t s) {
+  using namespace attn_mma;
+  constexpr int BK = RESIDENT ? 128 : (DMAX <= 128 ? 64 : 32);
+  const size_t smem =
+      sizeof(bf16) * (size_t)tile_ld(round16(a.D)) * (kMmaRows + (RESIDENT ? 2 : 4) * BK);
+  const dim3 grid(a.B * a.H, (a.T + kMmaRows - 1) / kMmaRows);
+  return run(short_fwd_mma_kernel<DMAX, VEC, RESIDENT>, grid, kMmaThreads, smem, a, s);
+}
+
+template <int DMAX, bool VEC>
+cudaError_t forward_bf16(const Args& a, cudaStream_t s) {
+  if constexpr (DMAX <= 128) {
+    if (a.T <= 128) return forward_mma<DMAX, VEC, true>(a, s);
+  }
+  return forward_mma<DMAX, VEC, false>(a, s);
+}
+
+template <int DMAX>
+cudaError_t forward_fp32(const Args& a, cudaStream_t s) {
   const dim3 grid((a.T + kFwdRows - 1) / kFwdRows, a.B * a.H);
-  return run(short_fwd_kernel<T, DMAX / 16>, grid, fwd_smem(a.T, a.D), a, s);
+  return run(short_fwd_kernel<DMAX / 16>, grid, kThreads, fwd_smem(a.T, a.D), a, s);
 }
 
 template <typename T, int DMAX>
 cudaError_t backward(const Args& a, cudaStream_t s) {
   const dim3 grid_q((a.T + kDqRows - 1) / kDqRows, a.B * a.H);
-  cudaError_t err = run(short_bwd_dq_kernel<T, DMAX / 16>, grid_q, dq_smem(a.T, a.D), a, s);
+  cudaError_t err = run(short_bwd_dq_kernel<T, DMAX / 16>, grid_q, kThreads, dq_smem(a.T, a.D),
+                        a, s);
   if (err != cudaSuccess) return err;
   const dim3 grid_k((a.T + kKvKeys - 1) / kKvKeys, a.B * a.H);
-  return run(short_bwd_dkv_kernel<T, DMAX / 8>, grid_k, dkv_smem(a.D), a, s);
+  return run(short_bwd_dkv_kernel<T, DMAX / 8>, grid_k, kThreads, dkv_smem(a.D), a, s);
+}
+
+template <int DMAX>
+cudaError_t forward(const Args& a, bool bf16, bool vec, cudaStream_t s) {
+  if (!bf16) return forward_fp32<DMAX>(a, s);
+  return vec ? forward_bf16<DMAX, true>(a, s) : forward_bf16<DMAX, false>(a, s);
+}
+
+cudaError_t dispatch_fwd(const Args& a, bool bf16, bool vec, cudaStream_t s) {
+  if (a.D <= 64) return forward<64>(a, bf16, vec, s);
+  if (a.D <= 128) return forward<128>(a, bf16, vec, s);
+  return forward<256>(a, bf16, vec, s);
 }
 
 template <typename T>
-cudaError_t dispatch(const Args& a, bool bwd, cudaStream_t s) {
-  if (a.D <= 64) return bwd ? backward<T, 64>(a, s) : forward<T, 64>(a, s);
-  if (a.D <= 128) return bwd ? backward<T, 128>(a, s) : forward<T, 128>(a, s);
-  return bwd ? backward<T, 256>(a, s) : forward<T, 256>(a, s);
+cudaError_t dispatch_bwd(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return backward<T, 64>(a, s);
+  if (a.D <= 128) return backward<T, 128>(a, s);
+  return backward<T, 256>(a, s);
 }
 
 bool valid(int B, int H, int T_, int D) {
@@ -449,20 +659,29 @@ void copy3(long long* dst, const long long* src) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 values in elements, the
 // (batch, head, time) strides of q, k, v and o; the last dimension is
-// contiguous. bias (B, T) fp32 may be null. Returns the launch's cudaError_t.
+// contiguous. bias (B, T) fp32 may be null. vec: the bf16 kernel stages with
+// 16-byte cp.async copies, which needs every row of q, k, v and o to start
+// on a 16-byte boundary and d % 8 == 0 (refused otherwise); 0 stages element
+// by element. The float32 kernel stages element by element either way.
+// Returns the launch's cudaError_t.
 extern "C" int dl4j_short_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                         const float* bias, void* o, int B, int H, int T, int D,
-                                        const long long* strides, float scale, void* stream) {
-  if (!valid(B, H, T, D)) return (int)cudaErrorInvalidValue;
+                                        const long long* strides, float scale, int vec,
+                                        void* stream) {
+  if (!valid(B, H, T, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.o = o;
   a.B = B, a.H = H, a.T = T, a.D = D, a.scale = scale;
   copy3(a.qs, strides), copy3(a.ks, strides + 3), copy3(a.vs, strides + 6);
   copy3(a.os, strides + 9);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(a, false, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, false, s);
-  return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  if (bf16 && vec &&
+      !(attn_mma::rows_vectorizable(q, a.qs, B, H, T, D) &&
+        attn_mma::rows_vectorizable(k, a.ks, B, H, T, D) &&
+        attn_mma::rows_vectorizable(v, a.vs, B, H, T, D) &&
+        attn_mma::rows_vectorizable(o, a.os, B, H, T, D)))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_fwd(a, bf16, vec != 0, static_cast<cudaStream_t>(stream));
 }
 
 // The backward pair: the dq kernel, then the dk/dv kernel, on one stream.
@@ -482,8 +701,8 @@ extern "C" int dl4j_short_attention_bwd(int dtype, const void* q, const void* k,
   copy3(a.dos, strides + 9), copy3(a.dqs, strides + 12), copy3(a.dks, strides + 15);
   copy3(a.dvs, strides + 18);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(a, true, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, true, s);
+  if (dtype == 0) return (int)dispatch_bwd<float>(a, s);
+  if (dtype == 1) return (int)dispatch_bwd<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,10 @@ strides (the last dimension must be contiguous), so a head split
 ``x.reshape(b, t, h, d).transpose(1, 2)`` costs no copy, and they write O,
 dq, dk and dv into ``(b, t, h, d)`` buffers whose ``(b, h, t, d)`` views
 they return, so the merge of the heads that follows costs none either.
+The bf16 forward runs on the tensor cores and stages its operands with
+16-byte ``cp.async`` copies where every row starts on a 16-byte boundary
+(:func:`_vector_ok`), element by element otherwise; the float32 forward is
+the card's fp32 check of the algorithm, on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from deeplearning4j_tpu_torch.ops.kernels._native import (LaunchCounter,
 # keeps a finite running max (the mean of V) instead of NaN.
 MASK_VALUE = -1e30
 MAX_HEAD_DIM = 256
-MAX_GRID_ROWS = 65535  # batch * heads: the grid's second dimension
+MAX_GRID_ROWS = 65535  # batch * heads: the y extent of the float32 and backward grids
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,8 +69,10 @@ def _declare_error_string(lib: ctypes.CDLL) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # (dtype, q, k, v, bias, o, lse, B, H, Tq, Tk, D, Dv, strides x 12, scale,
+    #  causal, vec, stream)
     lib.dl4j_flash_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
-                                   *([ll] * 12), ctypes.c_float, i, p]
+                                   *([ll] * 12), ctypes.c_float, i, i, p]
     lib.dl4j_flash_fwd.restype = i
     _declare_error_string(lib)
 
@@ -229,6 +235,24 @@ def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _vector_ok(*tensors) -> bool:
+    """Whether the bf16 forward kernels may stage these operands with 16-byte
+    ``cp.async`` copies (their ``VEC`` flag): every base pointer on a
+    16-byte boundary, and every stride of an extent above 1 and the width of
+    the last dimension (whose stride is 1) whole multiples of 16 bytes, so
+    that each row starts on a 16-byte boundary and holds whole 16-byte
+    chunks. Otherwise (``d % 8 != 0`` in bf16, a view cut into its buffer)
+    the same kernels stage element by element. A function of pointers,
+    strides and element size only."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or (t.shape[-1] * size) % 16:
+            return False
+        if any(n > 1 and (s * size) % 16 for n, s in zip(t.shape[:-1], t.stride()[:-1])):
+            return False
+    return True
+
+
 def _raise_launch(lib, err: int, what: str, q, k, v, causal) -> None:
     msg = lib.dl4j_cuda_error_string(err).decode()
     raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err}) at q {tuple(q.shape)} "
@@ -254,7 +278,7 @@ def launch_flash_fwd(q, k, v, bias, causal: bool, launches: LaunchCounter,
             None if bias is None else bias.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, t_q, t_k, d, d_v,
             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-            1.0 / math.sqrt(d), int(bool(causal)), stream)
+            1.0 / math.sqrt(d), int(bool(causal)), int(_vector_ok(q, k, v, o)), stream)
     if err != 0:
         _raise_launch(lib, err, "flash attention kernel", q, k, v, causal)
     launches.add()

@@ -36,6 +36,9 @@ CUDA tensors launch the kernels (or the call raises); only CPU tensors take
 the plain versions, :func:`short_attention_reference` and
 :func:`short_attention_backward_reference`. A call that autograd records goes
 through :class:`ShortAttentionFunction`, which saves q, k, v and the mask.
+The bf16 forward runs on the tensor cores and, like flash attention's,
+stages with 16-byte ``cp.async`` copies only where :func:`_vector_ok` says
+every row starts on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -50,12 +53,13 @@ from deeplearning4j_tpu_torch.ops.kernels._native import (LaunchCounter,
                                                           register_library)
 # The key bias (0 / MASK_VALUE = -1e30 from a (b, t) or (b, 1, 1, t) mask) is
 # the flash kernels' (JAX ``_bias_from_mask`` builds the same one).
+# So is the choice of the bf16 forward's staging (``_vector_ok``).
 from deeplearning4j_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
-    MASK_VALUE, key_bias, padding_mask_2d)
+    MASK_VALUE, _vector_ok, key_bias, padding_mask_2d)
 
 MAX_SEQ = 512
 MAX_HEAD_DIM = 256
-MAX_GRID_ROWS = 65535  # batch * heads: the grid's second dimension
+MAX_GRID_ROWS = 65535  # batch * heads: the y extent of the float32 and backward grids
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,8 +71,8 @@ btd_bwd_counter = LaunchCounter("short_attention_btd_bwd")
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # (dtype, q, k, v, bias, o, B, H, T, D, strides, scale, stream)
-    lib.dl4j_short_attention_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, p, f, p]
+    # (dtype, q, k, v, bias, o, B, H, T, D, strides, scale, vec, stream)
+    lib.dl4j_short_attention_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, p, f, i, p]
     lib.dl4j_short_attention_fwd.restype = i
     # (dtype, q, k, v, dO, bias, dq, dk, dv, m, l, delta, B, H, T, D, strides, scale, stream)
     lib.dl4j_short_attention_bwd.argtypes = [i, *([p] * 11), i, i, i, i, p, f, p]
@@ -222,7 +226,7 @@ def launch_short_fwd(q, k, v, bias, scale: float, launches: LaunchCounter, btd: 
         err = lib.dl4j_short_attention_fwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), o.data_ptr(), b, h, t, d, strides,
-            scale, stream)
+            scale, int(_vector_ok(q, k, v, o)), stream)
     if err != 0:
         _raise_launch(lib, err, "short attention kernel", q)
     launches.add()

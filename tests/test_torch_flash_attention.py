@@ -220,3 +220,56 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(bad):
     v = {"dtype_mix": k.bfloat16(), "shapes": torch.zeros(2, 2, 7, 8)}.get(bad, k)
     with pytest.raises(TypeError if bad == "dtype_mix" else ValueError):
         fa.flash_attention(q, k, v, **kwargs)
+
+
+def _buffer_view(shape, dtype=torch.bfloat16, offset=0):
+    """A tensor of ``shape`` that starts ``offset`` elements into a buffer
+    the allocator aligned."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+def _btd_heads(b, t, h, d, dtype=torch.bfloat16):
+    """The (b, h, t, d) view of a (b, t, h*d) tensor, as the attention
+    layers hand it to the kernels."""
+    return torch.zeros(b, t, h * d, dtype=dtype).view(b, t, h, d).transpose(1, 2)
+
+
+def _odd_size_one_strides():
+    """(1, 1, 5, 64) with strides of the two size-1 extents that are no
+    multiple of 8: never applied, so they do not matter."""
+    base = torch.zeros(5 * 64, dtype=torch.bfloat16)
+    return base.as_strided((1, 1, 5, 64), (3, 5, 64, 1))
+
+
+VECTOR_CASES = {
+    # name: (a function making q, k and v, whether the bf16 forward stages with cp.async)
+    "contiguous_d64": (lambda: [_buffer_view((2, 3, 7, 64)) for _ in range(3)], True),
+    "btd_views_d64": (lambda: [_btd_heads(2, 7, 12, 64) for _ in range(3)], True),
+    "d40_dv24": (lambda: [_buffer_view((2, 3, 7, 40)), _buffer_view((2, 3, 9, 40)),
+                          _buffer_view((2, 3, 9, 24))], True),
+    "size_one_extents": (lambda: [_odd_size_one_strides() for _ in range(3)], True),
+    "float32_d4": (lambda: [_buffer_view((2, 3, 7, 4), torch.float32) for _ in range(3)], True),
+    "d33": (lambda: [_buffer_view((2, 3, 7, 33)) for _ in range(3)], False),
+    "dv20": (lambda: [_buffer_view((2, 3, 7, 64)), _buffer_view((2, 3, 7, 64)),
+                      _buffer_view((2, 3, 7, 20))], False),
+    "btd_views_d20": (lambda: [_btd_heads(2, 7, 12, 20) for _ in range(3)], False),
+    "offset_view": (lambda: [_buffer_view((2, 3, 7, 64), offset=1), _buffer_view((2, 3, 7, 64)),
+                             _buffer_view((2, 3, 7, 64))], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VECTOR_CASES))
+def test_vector_staging_needs_16_byte_rows(name):
+    """The launcher's choice of the bf16 forward's staging: cp.async where
+    every row starts on a 16-byte boundary and holds whole 16-byte chunks,
+    element by element otherwise. A function of pointers, strides and the
+    element size, so CPU tensors reach it."""
+    build, want = VECTOR_CASES[name]
+    tensors = build()
+    assert fa._vector_ok(*tensors) is want
+    # o, as the launcher allocates it: (b, t_q, h, d_v) seen as (b, h, t_q, d_v)
+    b, h, t_q, _ = tensors[0].shape
+    d_v = tensors[2].shape[-1]
+    o = torch.empty((b, t_q, h, d_v), dtype=tensors[0].dtype).transpose(1, 2)
+    assert fa._vector_ok(*tensors, o) is want

@@ -202,3 +202,47 @@ def test_cuda_path_launches_the_kernels_and_saves_only_inputs(monkeypatch, layou
     assert launched[-1][:2] == ("fwd", name)
     saved = sa.ShortAttentionFunction.apply(q, k, v, None, 0.5, btd).grad_fn.saved_tensors
     assert len(saved) == 4 and saved[3] is None  # q, k, v and the mask, nothing else
+
+
+@pytest.mark.parametrize("d", [24, 80])
+@pytest.mark.parametrize("t", [1, 17, 129])
+def test_plain_version_matches_jax_at_odd_lengths_and_widths(t, d):
+    """Lengths and widths that are no tile multiple (t = 129 takes the bf16
+    kernel's two-pass design on the card; d = 24 and 80 are padded to 32
+    and 96 there): the plain version, which the CUDA kernels are held to,
+    against the Pallas kernels in interpret mode, with a key mask."""
+    q, k, v, do = _inputs("bhtd", t, d, seed=3 * t + d)
+    mask = _mask("mask_2d", t, seed=t)
+    want = _jax("bhtd", q, k, v, do, mask, None)
+    got = _torch("bhtd", q, k, v, do, mask, None)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=f"t={t} d={d} {name}")
+
+
+def _view(shape, offset=0, dtype=torch.bfloat16):
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+VECTOR_CASES = {  # (b, t, h*d) tensors or their views -> cp.async staging
+    "contiguous_d64": (lambda: _view((2, 3, 16, 64)), True),
+    "btd_views_d64": (lambda: _view((2, 16, 3 * 64)).view(2, 16, 3, 64).transpose(1, 2), True),
+    "d24": (lambda: _view((2, 3, 17, 24)), True),
+    "d33": (lambda: _view((2, 3, 17, 33)), False),
+    "btd_views_d20": (lambda: _view((2, 16, 3 * 20)).view(2, 16, 3, 20).transpose(1, 2), False),
+    "offset_view": (lambda: _view((2, 3, 16, 64), offset=1), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VECTOR_CASES))
+def test_vector_staging_choice_of_the_launcher(name):
+    """``launch_short_fwd`` stages with cp.async only where every row of q,
+    k, v and o starts on a 16-byte boundary and holds whole 16-byte chunks;
+    otherwise the same kernel stages element by element. A function of
+    pointers and strides, so CPU tensors reach it."""
+    build, want = VECTOR_CASES[name]
+    x = build()
+    aligned = _view(tuple(x.shape))
+    assert sa._vector_ok(x, aligned, aligned) is want
+    assert sa._vector_ok(aligned, aligned, x) is want
+    assert sa._vector_ok(aligned, aligned, aligned) is (x.shape[-1] % 8 == 0)
