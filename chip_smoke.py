@@ -27,9 +27,11 @@ the card and exits nonzero if any phase fails:
             kernel then stages element by element; each line names the
             staging). The flash backward kernels (dq;
             dk/dv) against the plain backward on the same o and lse, in
-            float32 and bfloat16, at the same shapes and at T=16384 causal
-            (the TPU's chunked-backward regime), max error relative to the
-            largest plain gradient; the autograd Function's float32
+            float32 and bfloat16, at the same shapes, at T=16384 causal
+            (the TPU's chunked-backward regime) and on views one element
+            into their buffers, max error relative to the largest plain
+            gradient, a second launch bit for bit, each line naming the
+            kernels and staging taken; the autograd Function's float32
             gradients against ``torch.autograd`` of the plain forward. The
             GRU kernels (inference forward; saving forward: ys, hT, gates,
             zh_n; backward: dzx, dh0 on the same residuals) against
@@ -140,9 +142,10 @@ the card and exits nonzero if any phase fails:
             port never calls); its share of a BERT request and of a
             fine-tuning step. The
             backward pair at BERT-base's shape (masked, as trained, and
-            unmasked), at T=4096 causal and at T=16384 causal, beside its
-            bound, the plain backward, ``scaled_dot_product_attention``'s
-            backward and each kernel's own device time (``torch.profiler``);
+            unmasked), at T=4096 causal and at T=16384 causal, by each
+            kernel's own device time (``torch.profiler``) beside its bound
+            and the share of it reached, the plain backward and
+            ``scaled_dot_product_attention``'s backward by device time;
             attention's share of a BERT training step. The dropout kernel
             (forward, backward, and with x) beside ``F.dropout``, and the
             short-attention kernels in both layouts by device time beside
@@ -253,9 +256,9 @@ FLASH_SHAPES = [(64, 12, 128, 128, 64, 64, False, False), (64, 12, 128, 128, 64,
                 (2, 3, 33, 47, 48, 160, True, False), (2, 2, 70, 70, 256, 256, True, True),
                 (3, 3, 65, 130, 40, 20, True, False), (2, 2, 50, 50, 24, 40, False, True),
                 (1, 12, 4096, 4096, 64, 64, True, True)]
-# The same checks on views that start one element into their buffers (as
-# check_dropout's offset): no row starts on a 16-byte boundary, so the bf16
-# kernel stages element by element.
+# The same checks, forward and backward, on views that start one element
+# into their buffers (as check_dropout's offset): no row starts on a 16-byte
+# boundary, so the bf16 kernels stage element by element.
 FLASH_UNALIGNED = (3, 2, 77, 77, 64, 64, True, False)
 # Flash kernel vs its plain version, max abs error of o and of lse. float32:
 # summation order only (the online softmax rescales partial sums the dense
@@ -273,12 +276,14 @@ FLASH_LONG_SHAPE = (1, 1, 16384, 16384, 64, 64, False, True)
 # error of dq, dk and dv divided by max |plain| of that gradient (no floor at
 # 1: BERT's gradients are below 1). float32: summation order (up to 16384
 # terms). bfloat16: the plain backward rounds dS and P at the kernel's points,
-# so only fp32 sums formed in another order, then rounded to bf16, can land
-# one bf16 ulp apart; on an H100 (700 W) that read <= 1.4e-7 at every
-# FLASH_SHAPES entry and 1.2e-3 at T=16384 (then still divided by max(1,
-# max |plain|)). The limit is 2^-8: one bf16 ulp of a value at the bottom of
-# the largest gradient's binade, which a kernel that skipped the rounding of
-# dS or P reaches wherever that moves a near-largest value by one ulp.
+# so a value lands one bf16 ulp apart only where the tensor cores' sums (S in
+# another order, P by ex2.approx) put a P or dS, or an fp32 sum, on the other
+# side of a rounding tie. On an H100 (700 W) the tensor-core kernels read
+# 0-2.7e-3 at the FLASH_SHAPES entries and 3.9e-3 at T=16384 (dk: one ulp of a
+# value in [1, 2) against max |plain| 2.0), the same bits in every run. The
+# limit is 2^-8: half a bf16 ulp of a value at the bottom of the largest
+# gradient's binade, which a kernel that skipped the rounding of dS or P
+# reaches wherever that moves a near-largest value by one ulp.
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 # The autograd Function's float32 gradients vs torch.autograd of the plain
 # forward, max abs error / max(1, max |plain|): summation order only (the
@@ -511,10 +516,11 @@ def shifted(x, offset):
     return buf[offset:].view(x.shape)
 
 
-def stage_tag(module, q, k, v, offset=0):
-    """How the bf16 forward kernel stages these operands (o is allocated
-    aligned): by cp.async or element by element; with the view's offset."""
-    how = "cp.async" if module._vector_ok(q, k, v) else "element"
+def stage_tag(module, tensors, offset=0):
+    """How a bf16 tensor-core kernel stages these operands (the outputs
+    the launcher allocates are aligned): by cp.async or element by
+    element; with the view's offset."""
+    how = "cp.async" if module._vector_ok(*tensors) else "element"
     return f"stage={how}" + (f" offset={offset}" if offset else "")
 
 
@@ -795,11 +801,13 @@ class Smoke:
             for line in lib.build_log.splitlines():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
-                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>
-                    # or flash_fwd_mma_kernel<DMAX, CAUSAL, VEC> from its mangled name
+                    # lstm_fwd_kernel<T, PEEP, MASK, SAVE>, gru_fwd_kernel<T, SAVE>,
+                    # flash_fwd_mma_kernel<DMAX, CAUSAL, VEC> or
+                    # flash_bwd_dq_kernel_mma<DMAX, CAUSAL, VEC> from its mangled name
                     # (dropout_kernel<T> and conv_stats_kernel<T> have no flag,
                     # flash_fwd_kernel<DMAX, CAUSAL, SAVE> no type)
-                    m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w*?)((?:L[ib]\d+E)*)E", kernel)
+                    m = re.search(r"\d+([a-z_]+_kernel(?:_mma)?)I\d*(\w*?)((?:L[ib]\d+E)*)E",
+                                  kernel)
                     if m:
                         args = ([m[2]] if m[2] else []) + re.findall(r"L[ib](\d+)E", m[3])
                         kernel = f"{m[1]}<{', '.join(args)}>"
@@ -873,17 +881,26 @@ class Smoke:
                 del x, w, got, again, want
 
     def flash_backward_checks(self):
+        """Rows 8-9: the backward kernels at every FLASH_SHAPES entry, at
+        T=16384 causal and on unaligned views, in fp32 and bf16; then the
+        autograd Function in fp32."""
         torch = self.torch
         for dtype in (torch.float32, torch.bfloat16):
             for shape in FLASH_SHAPES + [FLASH_LONG_SHAPE]:
                 self.check_flash_bwd(shape, dtype)
+            self.check_flash_bwd(FLASH_UNALIGNED, dtype, offset=1)
         for shape in FLASH_SHAPES:
             if not (shape[6] and shape[0] >= 3):  # no fully masked row
                 self.check_flash_autograd(shape)
 
-    def check_flash_bwd(self, shape, dtype):
+    def check_flash_bwd(self, shape, dtype, offset=0):
         """The two backward kernels against the plain backward on the same
-        inputs: o and lse from the saving forward kernel, a random dO."""
+        inputs: o and lse from the saving forward kernel, a random dO; with
+        ``offset`` > 0, q, k, v, o and dO start that many elements into
+        their buffers. A second launch must give the same bits. The line
+        names the kernels the dispatch takes by width (bf16 at d, d_v <=
+        128: the tensor-core pair, with the staging the launcher chooses
+        over the eight operands; else the CUDA-core pair)."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
         b, h, t_q, t_k, d, d_v, masked, causal = shape
@@ -895,7 +912,10 @@ class Smoke:
         with torch.no_grad():
             o, lse = fa.launch_flash_fwd(q, k, v, bias, causal, fa.lse_counter, save=True)
             do = torch.randn(b, h, t_q, d_v, generator=g).to(dtype).to(self.device)
+            if offset:
+                q, k, v, o, do = (shifted(x, offset) for x in (q, k, v, o, do))
             got = fa.launch_flash_bwd(q, k, v, o, lse, do, bias, causal)
+            again = fa.launch_flash_bwd(q, k, v, o, lse, do, bias, causal)
             torch.cuda.synchronize()
             want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, mask, causal)
             torch.cuda.synchronize()
@@ -903,16 +923,24 @@ class Smoke:
         peaks = [float(y.float().abs().max()) for y in want]
         errs = [max_err([x], [y]) / (p or 1.0) for x, y, p in zip(got, want, peaks)]
         finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
-        self.check(finite and max(errs) <= tol,
+        same = all(bits_equal(x, y) for x, y in zip(got, again))
+        if dtype == torch.bfloat16 and max(d, d_v) <= 128:
+            route = "mma " + stage_tag(fa, (q, k, v, o, do, *fa.grad_buffers(q, k, v)), offset)
+        else:
+            route = "cuda-core" + (f" offset={offset}" if offset else "")
+        self.check(finite and same and max(errs) <= tol,
                    f"flash_attention_bwd   {dname:8s} b={b:2d} h={h:2d} t_q={t_q:5d} "
                    f"t_k={t_k:5d} d={d:3d} d_v={d_v:3d} mask={'yes' if masked else 'no '} "
-                   f"causal={'yes' if causal else 'no '} max_rel_err dq={errs[0]:.3g} "
+                   f"causal={'yes' if causal else 'no '} {route}: max_rel_err dq={errs[0]:.3g} "
                    f"dk={errs[1]:.3g} dv={errs[2]:.3g} tol={tol:g} (max |plain| "
-                   + " ".join(f"{p:.3g}" for p in peaks) + ")")
+                   + " ".join(f"{p:.3g}" for p in peaks) + f"); a second launch bit for bit: "
+                   f"{same}")
         if shape == FLASH_SHAPES[1] and dtype == torch.bfloat16:  # masked, as trained
-            self.kernels.setdefault(fa.bwd_dq_counter.name, {})["max_abs_err"] = errs[0]
-            self.kernels.setdefault(fa.bwd_dkv_counter.name, {})["max_abs_err"] = max(errs[1:])
-        del q, k, v, o, lse, do, got, want
+            self.kernels.setdefault(fa.bwd_dq_counter.name, {})["max_abs_err"] = \
+                max_err(got[:1], want[:1])
+            self.kernels.setdefault(fa.bwd_dkv_counter.name, {})["max_abs_err"] = \
+                max_err(got[1:], want[1:])
+        del q, k, v, o, lse, do, got, again, want
         torch.cuda.empty_cache()
 
     def check_flash_autograd(self, shape):
@@ -967,7 +995,7 @@ class Smoke:
         tol_o, tol_lse = FLASH_TOL[dname]
         tag = (f"{dname:8s} b={b:2d} h={h:2d} t_q={t_q:4d} t_k={t_k:4d} d={d:3d} d_v={d_v:3d} "
                f"mask={'yes' if masked else 'no '} causal={'yes' if causal else 'no '} "
-               f"{stage_tag(fa, q, k, v, offset)}")
+               f"{stage_tag(fa, (q, k, v), offset)}")
         err = max_err([got], [want_o])
         err_o, err_lse = max_err([got_o], [want_o]), max_err([got_lse], [want_lse])
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (got, got_o))
@@ -1088,7 +1116,7 @@ class Smoke:
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, *grads))
         tol, tol_b = SHORT_TOL[dname], SHORT_BWD_TOL[dname]
         tag = (f"{dname:8s} {'btd ' if btd else 'bhtd'} b={b:2d} h={h:2d} t={t:3d} d={d:3d} "
-               f"mask={'yes' if masked else 'no '} {stage_tag(sa, q, k, v, offset)}")
+               f"mask={'yes' if masked else 'no '} {stage_tag(sa, (q, k, v), offset)}")
         self.check(finite and err_o <= tol,
                    f"{fwd_c.name:23s} {tag} o max_abs_err={err_o:.3g} tol={tol:g}")
         self.check(finite and max(errs) <= tol_b,
@@ -1816,7 +1844,8 @@ class Smoke:
     def profile_kernels(self, fn, reps):
         """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
         warm-up call): ``{kernel name: (device ms per call, launches per
-        call)}`` and the host wall ms per call under the profiler."""
+        call)}`` (launches a float: a session that lost events shows a
+        fraction) and the host wall ms per call under the profiler."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -1831,7 +1860,7 @@ class Smoke:
         for e in prof.key_averages():
             if str(e.device_type).endswith("CUDA"):
                 dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                per[e.key] = (dev / 1e3 / reps, e.count // reps)
+                per[e.key] = (dev / 1e3 / reps, e.count / reps)
         return per, wall
 
     def device_ms(self, fn, match=None, reps=20):
@@ -1868,9 +1897,9 @@ class Smoke:
         share = "" if step_ms is None else \
             f"; busy {100 * busy / step_ms:.0f}% of the {step_ms:.2f} ms step measured without it"
         log(f"{what}: device busy {busy:.3f} ms per call over {reps} calls, "
-            f"{sum(n for _, n in per.values())} kernels per call; host wall under the "
+            f"{sum(n for _, n in per.values()):g} kernels per call; host wall under the "
             f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%){share}; top kernels: "
-            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, (ms, n) in top))
+            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, (ms, n) in top))
 
     def train_phase(self, cell):
         """``fit`` of the full-width char-RNN of ``cell`` in bf16 through the
@@ -2286,16 +2315,17 @@ class Smoke:
         self.flash_bwd_times()
 
     def flash_bwd_times(self):
-        """The backward pair's time in bf16 (CUDA events) at BERT-base's
-        shape with a mask (as trained: the features mask makes a bias) and
-        without, at the long-context causal shape, and at T=16384 causal
-        (row 9's regime), beside its bound,
-        the plain backward and ``scaled_dot_product_attention``'s backward
-        (``autograd.grad`` through it minus its forward; a yardstick the
-        port never calls); each kernel's own device time from
-        ``torch.profiler``; then attention's share of a BERT training
-        step. The JSON rows of the two kernels carry their own time and
-        bound, and the pair's plain and library times."""
+        """The backward pair's time in bf16 at BERT-base's shape with a mask
+        (as trained: the features mask makes a bias) and without, at the
+        long-context causal shape, and at T=16384 causal (row 9's regime):
+        each kernel's own device time (``torch.profiler``) against its
+        bound and the share of it reached; the pair's device time, with
+        back-to-back CUDA events beside it, against the pair's bound, the
+        plain backward and ``scaled_dot_product_attention``'s backward by
+        device time (``autograd.grad`` through it minus its forward; a
+        yardstick the port never calls); then attention's share of a BERT
+        training step. The JSON rows of the two kernels carry their own
+        time and bound, and the pair's plain and library times."""
         torch = self.torch
         import torch.nn.functional as F
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
@@ -2303,6 +2333,7 @@ class Smoke:
         csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_bwd.cu"
         pallas = "deeplearning4j_tpu/ops/pallas/flash_attention.py"
         pair_main = None
+        log_clocks("flash backward times")
         for shape in (FLASH_SHAPES[1], FLASH_SHAPES[0], FLASH_SHAPES[2], FLASH_LONG_SHAPE):
             b, h, t_q, t_k, d, d_v, masked, causal = shape
             (q, k, v), mask = flash_inputs(b, h, t_q, t_k, d, d_v, dt, self.device, seed=9,
@@ -2313,16 +2344,23 @@ class Smoke:
                 do = torch.randn_like(o)
                 run = lambda: fa.launch_flash_bwd(q, k, v, o, lse, do, bias, causal)  # noqa: E731
                 grads = run()
-                pair_ms = cuda_ms(run, reps=20)
+                pair_ev = cuda_ms(run, reps=20)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
                     q, k, v, o, lse, do, mask, causal), reps=3, warmup=1)
-                per, _ = self.profile_kernels(run, reps=5)
+                for _ in range(3):  # again if the session lost events: one launch each a call
+                    per, _ = self.profile_kernels(run, reps=10)
+                    if all(sum(n for k_, (_, n) in per.items() if key in k_) == 1
+                           for key in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
+                        break
+                else:
+                    log("flash backward times: three profiler sessions lost events; the "
+                        "device times below are from the last")
             sdpa_mask = None if mask is None else mask[:, None, None, :]
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 *leaves, attn_mask=sdpa_mask, is_causal=causal)
-            sdpa_fwd = cuda_ms(sdpa, reps=20)
-            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), leaves, do), reps=20) - sdpa_fwd
+            sdpa_fwd = self.device_ms(sdpa)
+            sdpa_bwd = self.device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do)) - sdpa_fwd
             pairs = attention_pairs(b, h, t_q, t_k, mask, causal)
             delta = torch.empty(b, h, t_q, dtype=torch.float32, device=self.device)
             ins = [q, k, v, o, do, lse, bias]
@@ -2337,21 +2375,27 @@ class Smoke:
             kernel_ms = {}
             for name, (tensors, flops, key, replaces) in rows.items():
                 kms = sum(ms for k_, (ms, _) in per.items() if key in k_)
+                if kms <= 0:
+                    raise RuntimeError(f"the profiler saw no device time of {key} (kernels seen: "
+                                       f"{sorted(per)})")
                 kernel_ms[name] = kms
                 kb, kby = bound(tensors, flops, dt)
                 log(f"{name}: {kms:.4f} ms per launch (profiler) at {tag}; bound {kb:.4f} ms "
-                    f"({kby}, {flops / 1e9:.2f} GFLOP)")
+                    f"({kby}, {flops / 1e9:.2f} GFLOP), {100 * kb / kms:.1f}% of it reached")
                 if pair_main is None:
                     self.kernels.setdefault(name, {}).update({
                         "name": name, "route": "cuda", "source": csrc,
                         "replaces": f"{replaces} (row 8); {pallas}:542, :575 (row 9, T > 8192)",
                         "ms": kms, "plain_ms": plain_ms, "bound_ms": kb, "bound_by": kby,
                         "library_ms": sdpa_bwd})
-            log(f"flash backward pair: {pair_ms:.4f} ms (CUDA events; dq "
+            pair_ms = sum(kernel_ms.values())
+            log(f"flash backward pair: {pair_ms:.4f} ms (profiler: dq "
                 f"{kernel_ms[fa.bwd_dq_counter.name]:.4f} + dk/dv "
-                f"{kernel_ms[fa.bwd_dkv_counter.name]:.4f} ms by the profiler) at {tag}; bound "
-                f"{pair_bound:.4f} ms ({pair_by}); plain backward {plain_ms:.3f} ms; "
-                f"scaled_dot_product_attention backward {sdpa_bwd:.4f} ms (forward {sdpa_fwd:.4f})")
+                f"{kernel_ms[fa.bwd_dkv_counter.name]:.4f}; back-to-back CUDA events "
+                f"{pair_ev:.4f}) at {tag}; bound {pair_bound:.4f} ms ({pair_by}), "
+                f"{100 * pair_bound / pair_ms:.1f}% of it reached; plain backward "
+                f"{plain_ms:.3f} ms; scaled_dot_product_attention backward {sdpa_bwd:.4f} ms "
+                f"(profiler; forward {sdpa_fwd:.4f}), the pair at {pair_ms / sdpa_bwd:.2f}x it")
             if pair_main is None:
                 pair_main = pair_ms
             del q, k, v, o, lse, do, grads, leaves
@@ -2360,7 +2404,7 @@ class Smoke:
         if step is not None and self.flash_lse_ms is not None:
             share = BERT_LAYERS * (self.flash_lse_ms + pair_main)
             log(f"bert train step: attention (the {BERT_LAYERS} saving forwards + backward pairs, "
-                f"masked) takes {share:.3f} ms of the {step:.2f} ms median step "
+                f"masked; profiler) takes {share:.3f} ms of the {step:.2f} ms median step "
                 f"({100 * share / step:.1f}%)")
 
     def dropout_times(self):

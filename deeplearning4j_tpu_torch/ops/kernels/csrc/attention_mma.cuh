@@ -1,5 +1,6 @@
-// Tile machinery of the bf16 attention forward kernels for Hopper (sm_90a):
-// flash_fwd.cu (row 7) and short_attention.cu (rows 11-12) include it.
+// Tile machinery of the bf16 attention kernels for Hopper (sm_90a):
+// flash_fwd.cu (row 7), flash_bwd.cu (rows 8-9) and short_attention.cu
+// (rows 11-12) include it.
 //
 // One warp owns 16 query rows; a block of 4 warps (kMmaThreads) owns 64
 // (kMmaRows). Operands live in shared memory as bf16 rows of `ld` elements,
@@ -77,6 +78,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (src 4-byte aligned), zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
                : "memory");
 }
 

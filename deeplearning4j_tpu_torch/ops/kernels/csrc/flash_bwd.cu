@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of the JAX package's
-// deeplearning4j_tpu/ops/pallas/flash_attention.py, _flash_bwd (dq
+// deeplearning4j_tpu/ops/pallas/flash_attention.py: _flash_bwd (dq
 // pallas_call at :633, kernel _bwd_dq_kernel :243; dk/dv pallas_call at
 // :655, kernel _bwd_dkv_kernel :286) AND _flash_bwd_chunked (:542, :575),
 // which the JAX package takes past T = 8192 only because VMEM cannot hold
@@ -23,7 +23,10 @@
 //                           (dk/dv kernel: a block per key tile, looping over
 //                            query tiles from the causal diagonal on)
 // with every product read from T operands and summed in fp32, and dQ, dK, dV
-// stored in T. Launch the dq kernel first: the dk/dv kernel reads its delta.
+// stored in T. Launch the dq kernel first, on the same stream: the dk/dv
+// kernel reads its delta. Two kernels that each recompute S, as the two
+// pallas_calls do, and no atomics: every gradient is the same bit for bit
+// from launch to launch.
 //
 // Semantics, as the Pallas kernels' (and as flash_fwd.cu's forward):
 //   - bias is the additive key-padding bias (B, t_k) fp32 (0 or -1e30),
@@ -43,26 +46,72 @@
 // (batch, head, time) strides in elements with a unit stride along d, so
 // the caller's (b, t, h, d) buffers are used without transposing them.
 //
-// Bound at the BERT-base training shape (B=64, h=12, T=128, d=64, bf16): it
-// reads q, k, v, o, dO and writes dq, dk, dv, 8 x 12.6 MB = 101 MB, 30 us at
-// 3.35 TB/s, against 4 products of 2 x 768 x 128^2 x 64 FLOP = 6.4 GFLOP,
-// 6.5 us at 989 TFLOP/s: bytes.
+// Bounds on an H100 (3.35 TB/s, 989 TFLOP/s bf16). BERT-base training
+// shape (B=64, h=12, T=128, d=64, bf16): the pair reads q, k, v, o, dO and
+// writes dq, dk, dv, 8 x 12.6 MB = 101 MB, 0.0302 ms, against 5 products of
+// 2 x 768 x 128^2 x 64 FLOP (S and dP in both kernels count once each),
+// 8.1 GFLOP, 0.008 ms: bytes. T=4096 causal (B=1, h=12, d=64): 64.4 GFLOP
+// of products over the attended pairs, 0.0652 ms, against 50 MB, 0.015 ms:
+// operations.
 //
-// Design (first version: right and simple, like the forward): 256 threads,
-// CUDA-core products in fp32 from shared memory. Tiles of BQ query rows and
-// 64 keys: BQ = 64 for heads up to 128 wide, 32 for wider heads, so that the
-// fp32 tiles fit in the 227 KB a block may use (at d = d_v = 256: 222 KB).
-// Both kernels recompute S and dP tile by tile: the dq kernel stages Q^T and
-// dO^T once and walks K^T/V^T tiles; the dk/dv kernel stages K^T and V^T once
-// and walks Q^T/dO^T tiles, writing P (then dS) into one shared tile that the
-// dV (then dK) product reads. Each thread owns a (BQ/16) x 4 block of the
-// score tile and, for the accumulators, 4 (dk/dv) or BQ/16 (dq) rows by the
-// columns tx + 16 m. Tensor cores (mma/wgmma), TMA and pipelining are later
-// work.
+// Design, bf16 with d and d_v up to 128 (flash_bwd_dq_kernel_mma,
+// flash_bwd_dkv_kernel_mma, on the tile machinery of attention_mma.cuh):
+// blocks of 4 warps, each warp 16 rows, every product on mma.sync m16n8k16
+// (bf16 operands, fp32 sums), operands staged as bf16 rows padded to a
+// multiple of 16 columns with zeros, by 16-byte cp.async where every row
+// starts on a 16-byte boundary (VEC, chosen by the launcher and re-checked
+// here) and element by element into the same layout otherwise.
+//   - dq: a block owns 64 query rows. Q, dO and O are staged once (O in the
+//     last V stage, before the ring needs it); the prologue forms delta
+//     (two lanes a row, fp32) and stores it. K/V tiles of 64 keys walk up to
+//     the causal diagonal in a cp.async ring (3 stages at heads up to 64
+//     wide, 2 above, for shared memory), the next tiles in flight while one
+//     is multiplied. Per tile S = Q K^T and dP = dO V^T (warp_scores), P
+//     and dS in registers, then dQ += dS K (warp_pv: dS from scores_to_a,
+//     K through ldmatrix.trans). dQ stays in registers and is stored once.
+//   - dk/dv: a block owns 64 keys. K and V are staged once; query tiles (64
+//     rows, 32 at widths above 64 so that the accumulators fit in
+//     registers) walk from the causal diagonal on in a ring of Q, dO and
+//     the rows' lse and delta (4-byte cp.async), staged alike. The transposed
+//     tiles S^T = K Q^T and dP^T = V dO^T (K and V as the A operand) put
+//     P^T and dS^T in registers as A fragments, so dV += round(P^T) dO and
+//     dK += dS^T Q are warp_pv products with dO and Q through
+//     ldmatrix.trans: nothing goes through shared memory. lse and delta
+//     are per column there, read from the ring's copy for the query
+//     columns a thread holds; the bias is per row (key), loaded once.
+//   - exp: exp_approx(x - lse), the difference formed first (never FA2's
+//     fused x log2e - lse log2e), so a fully masked row (x = lse = -1e30)
+//     still gets exactly exp(0) = 1. dS is rounded to bf16 (nearest even)
+//     before both of its products, P before P^T dO: the plain version's
+//     points.
+// Widths above 128: dK + dV of 16 keys x 256 columns do not fit in a
+// warp's registers, so the C dispatch takes the CUDA-core kernels below for
+// bf16 at d or d_v above 128, by width alone (no try-and-fall-back).
+//
+// float32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: the card's check of
+// the algorithm, and bf16 past 128): 256 threads, CUDA-core products in
+// fp32 from shared memory. Tiles of BQ query rows and 64 keys: BQ = 64 for
+// heads up to 128 wide, 32 for wider heads, so that the fp32 tiles fit in
+// the 227 KB a block may use (at d = d_v = 256: 222 KB). The dq kernel
+// stages Q^T and dO^T once and walks K^T/V^T tiles; the dk/dv kernel stages
+// K^T and V^T once and walks Q^T/dO^T tiles, writing P (then dS) into one
+// shared tile that the dV (then dK) product reads.
+//
+// On an H100 (700 W) the bf16 pair takes 0.116-0.119 ms at BERT-base masked
+// (26% of its byte bound; SDPA's backward 0.091), 0.54 ms at T=4096 causal
+// (12% of its operation bound; SDPA 0.22) and 1.71-1.75 ms at T=16384 causal
+// (5%; SDPA 0.38). What still holds it back: mma.sync, a fraction of the rate
+// wgmma reaches; no TMA (every thread issues its own copies); S and dP are
+// formed twice (once per kernel); at BERT-base each block's life is two
+// tiles, so its first loads' latency is not hidden; at long causal T with
+// few heads, the block that walks the most tiles (T / 64 of them, one 4-warp
+// block alone on its SM at the end) sets the time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -400,7 +449,267 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-// Shared memory of either kernel (the same tiles, the last one BQ or kBK rows)
+// ---------------------------------------------------------------- bf16 on the tensor cores
+constexpr int kMmaMaxDim = 128;  // widest d or d_v of the tensor-core kernels
+constexpr int kMmaBK = 64;       // keys per K/V tile (dq) and per block (dk/dv)
+
+// Per head width (d and d_v up to DMAX): the query rows of a Q/dO tile of the
+// dk/dv kernel, 64, or 32 at heads wider than 64 so that the score tiles and
+// the dK, dV accumulators fit in registers; and the stages of both kernels'
+// rings, 3 (the next two tiles in flight while one is multiplied), or 2 at
+// heads wider than 64 so that the dq kernel's tiles leave room for two
+// blocks on an SM.
+template <int DMAX> struct MmaTiles {
+  static constexpr int BQ = DMAX > 64 ? 32 : 64;
+  static constexpr int STAGES = DMAX > 64 ? 2 : 3;
+};
+
+template <int DMAX, bool CAUSAL, bool VEC>
+__global__ void __launch_bounds__(attn_mma::kMmaThreads) flash_bwd_dq_kernel_mma(Args a) {
+  using namespace attn_mma;
+  constexpr int BQ = kMmaRows, BK = kMmaBK, ST = MmaTiles<DMAX>::STAGES;
+  constexpr int NT = BK / 8;    // score fragments (8 keys each) of a warp
+  constexpr int NV = DMAX / 8;  // dQ fragments (8 columns each)
+  static_assert(BQ == BK, "O is staged in the last V stage");
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int dp = round16(a.D), dvp = round16(a.Dv);
+  const int qld = tile_ld(dp), vld = tile_ld(dvp);
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // (BQ, qld)
+  bf16* dos = qs + BQ * qld;                      // (BQ, vld)
+  bf16* ks = dos + BQ * vld;                      // ST x (BK, qld)
+  bf16* vs = ks + ST * BK * qld;                  // ST x (BK, vld); the last stage holds O first
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x, bi = bh / a.H, hi = bh % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.s[kQ][0] + hi * a.s[kQ][1];
+  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.s[kK][0] + hi * a.s[kK][1];
+  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.s[kV][0] + hi * a.s[kV][1];
+  const bf16* o = static_cast<const bf16*>(a.o) + bi * a.s[kO][0] + hi * a.s[kO][1];
+  const bf16* dout = static_cast<const bf16*>(a.dout) + bi * a.s[kDO][0] + hi * a.s[kDO][1];
+  const float* bias = a.bias ? a.bias + (size_t)bi * a.Tk : nullptr;
+
+  int n_tiles = (a.Tk + BK - 1) / BK;
+  if (CAUSAL) n_tiles = min(n_tiles, (min(q0 + BQ, a.Tq) + BK - 1) / BK);
+
+  stage_tile<VEC>(qs, qld, q, a.s[kQ][2], q0, BQ, a.Tq, a.D, dp);
+  stage_tile<VEC>(dos, vld, dout, a.s[kDO][2], q0, BQ, a.Tq, a.Dv, dvp);
+  bf16* os = vs + (ST - 1) * BK * vld;  // O, until the ring first refills the last stage
+  stage_tile<VEC>(os, vld, o, a.s[kO][2], q0, BQ, a.Tq, a.Dv, dvp);
+  cp_async_commit();
+  // K/V tile t into stage t, one commit group each (empty past the last tile)
+  auto stage_keys = [&](int t, int st) {
+    if (t < n_tiles) {
+      stage_tile<VEC>(ks + st * BK * qld, qld, k, a.s[kK][2], t * BK, BK, a.Tk, a.D, dp);
+      stage_tile<VEC>(vs + st * BK * vld, vld, v, a.s[kV][2], t * BK, BK, a.Tk, a.Dv, dvp);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) stage_keys(t, t);
+  cp_async_wait<ST - 1>();  // Q, dO and O have landed
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in fp32: two lanes a row (columns 8 apart in
+  // steps of 16; the padding is zero), combined by one shuffle
+  const int wrow = q0 + warp * 16;  // the warp's first row
+  float part = 0.0f;
+  {
+    const int r = warp * 16 + (lane >> 1);
+    const bf16* dor = dos + r * vld;
+    const bf16* orow = os + r * vld;
+    for (int c = (lane & 1) * 8; c < dvp; c += 16) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dor + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(orow + c);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]), yf = __bfloat1622float2(yp[e]);
+        part = fmaf(xf.x, yf.x, part);
+        part = fmaf(xf.y, yf.y, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    const int row = q0 + r;
+    if ((lane & 1) == 0 && row < a.Tq) a.delta[(size_t)bh * a.Tq + row] = part;
+  }
+  // this thread's rows g and g + 8 of the warp: delta from lanes 2g and 2g + 16
+  const int g = lane >> 2, key_lane = 2 * (lane & 3), row0 = wrow + g;
+  const float delta[2] = {__shfl_sync(0xffffffffu, part, 2 * g),
+                          __shfl_sync(0xffffffffu, part, 2 * g + 16)};
+  float lse[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    lse[h] = row0 + 8 * h < a.Tq ? a.lse[(size_t)bh * a.Tq + row0 + 8 * h] : 0.0f;
+  __syncthreads();  // every warp has read O before the ring refills its stage
+
+  float acc[NV][4];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nv][e] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % ST;
+    stage_keys(j + ST - 1, (j + ST - 1) % ST);  // into the stage read last iteration
+    cp_async_wait<ST - 1>();                    // this tile has landed
+    __syncthreads();
+
+    const int k0 = j * BK;
+    const bf16* kt = ks + st * BK * qld;
+    float bv[NT][2];
+    if (bias) load_bias<NT>(bv, bias, k0, a.Tk);
+    float s[NT][4], dpv[NT][4];
+    warp_scores<NT, DMAX>(s, qs + warp * 16 * qld, qld, kt, qld, dp, NT / 2);
+    warp_scores<NT, DMAX>(dpv, dos + warp * 16 * vld, vld, vs + st * BK * vld, vld, dvp, NT / 2);
+    // keys past t_k, and causally excluded keys, only in an edge tile
+    const bool edge = k0 + BK > a.Tk || (CAUSAL && k0 + BK - 1 > wrow);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // key c of the pair: entries c (row0) and c + 2 (row0 + 8)
+        const int key = k0 + nt * 8 + key_lane + c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = c + 2 * h;
+          float x = __fmul_rn(s[nt][e], a.scale);
+          if (bias) x = __fadd_rn(x, bv[nt][c]);
+          const bool out = edge && (key >= a.Tk || (CAUSAL && key > row0 + 8 * h));
+          const float p = out ? 0.0f : exp_approx(__fsub_rn(x, lse[h]));
+          s[nt][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpv[nt][e], delta[h])), a.scale);  // dS
+        }
+      }
+    uint32_t dsa[NT / 2][4];
+    scores_to_a<NT>(dsa, s);  // dS rounded to bf16
+    warp_pv<NT, NV>(acc, dsa, kt, qld, dp, NT / 2);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const float one[2] = {1.0f, 1.0f};
+  bf16* dq = static_cast<bf16*>(a.dq) + bi * a.s[kDQ][0] + hi * a.s[kDQ][1];
+  store_rows<NV, VEC>(dq, a.s[kDQ][2], wrow, a.Tq, a.D, acc, one);
+}
+
+template <int DMAX, bool CAUSAL, bool VEC>
+__global__ void __launch_bounds__(attn_mma::kMmaThreads) flash_bwd_dkv_kernel_mma(Args a) {
+  using namespace attn_mma;
+  constexpr int BK = kMmaBK, BQ = MmaTiles<DMAX>::BQ, ST = MmaTiles<DMAX>::STAGES;
+  constexpr int NT = BQ / 8;    // transposed score fragments (8 query columns each) of a warp
+  constexpr int NV = DMAX / 8;  // dK, dV fragments (8 columns each)
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int dp = round16(a.D), dvp = round16(a.Dv);
+  const int qld = tile_ld(dp), vld = tile_ld(dvp);
+  bf16* ks = reinterpret_cast<bf16*>(smem_mma);  // (BK, qld)
+  bf16* vs = ks + BK * qld;                       // (BK, vld)
+  bf16* qs = vs + BK * vld;                       // ST x (BQ, qld)
+  bf16* dos = qs + ST * BQ * qld;                 // ST x (BQ, vld)
+  float* rs = reinterpret_cast<float*>(dos + ST * BQ * vld);  // ST x (lse, delta) x BQ
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x, bi = bh / a.H, hi = bh % a.H;
+  const int k0 = blockIdx.y * BK;  // under causal masking the lowest keys work longest
+  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.s[kQ][0] + hi * a.s[kQ][1];
+  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.s[kK][0] + hi * a.s[kK][1];
+  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.s[kV][0] + hi * a.s[kV][1];
+  const bf16* dout = static_cast<const bf16*>(a.dout) + bi * a.s[kDO][0] + hi * a.s[kDO][1];
+  const float* lse_bh = a.lse + (size_t)bh * a.Tq;
+  const float* delta_bh = a.delta + (size_t)bh * a.Tq;
+  const int n_tiles = (a.Tq + BQ - 1) / BQ;
+  // under causal masking, query tiles wholly above the diagonal add nothing
+  const int first = CAUSAL ? k0 / BQ : 0;
+
+  // query tile `tile` (Q, dO, and its rows' lse and delta) into stage st, one
+  // commit group each (empty past the last tile)
+  auto stage_queries = [&](int tile, int st) {
+    if (tile < n_tiles) {
+      const int r0 = tile * BQ;
+      stage_tile<VEC>(qs + st * BQ * qld, qld, q, a.s[kQ][2], r0, BQ, a.Tq, a.D, dp);
+      stage_tile<VEC>(dos + st * BQ * vld, vld, dout, a.s[kDO][2], r0, BQ, a.Tq, a.Dv, dvp);
+      if (threadIdx.x < 2 * BQ) {
+        const int which = threadIdx.x / BQ, i = threadIdx.x % BQ, row = r0 + i;
+        const float* src = which ? delta_bh : lse_bh;
+        cp_async4(rs + (2 * st + which) * BQ + i, row < a.Tq ? src + row : src,
+                  row < a.Tq ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage_tile<VEC>(ks, qld, k, a.s[kK][2], k0, BK, a.Tk, a.D, dp);
+  stage_tile<VEC>(vs, vld, v, a.s[kV][2], k0, BK, a.Tk, a.Dv, dvp);
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) stage_queries(first + t, t);
+
+  // this thread's keys: rows g and g + 8 of the warp's 16; their bias
+  const int g = lane >> 2, col_lane = 2 * (lane & 3);
+  const int kw = k0 + warp * 16, key0 = kw + g;
+  float kb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    kb[h] = a.bias && key0 + 8 * h < a.Tk ? a.bias[(size_t)bi * a.Tk + key0 + 8 * h] : 0.0f;
+
+  float adk[NV][4], adv[NV][4];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[nv][e] = adv[nv][e] = 0.0f;
+
+  for (int i = first; i < n_tiles; ++i) {
+    const int st = (i - first) % ST;
+    stage_queries(i + ST - 1, (i - first + ST - 1) % ST);  // into the stage read last iteration
+    cp_async_wait<ST - 1>();                               // this tile has landed
+    __syncthreads();
+
+    const int r0 = i * BQ;
+    const bf16* qt = qs + st * BQ * qld;
+    const bf16* dot = dos + st * BQ * vld;
+    const float* lse_s = rs + 2 * st * BQ;
+    const float* delta_s = lse_s + BQ;
+    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns queries
+    float s[NT][4], dpv[NT][4];
+    warp_scores<NT, DMAX>(s, ks + warp * 16 * qld, qld, qt, qld, dp, NT / 2);
+    warp_scores<NT, DMAX>(dpv, vs + warp * 16 * vld, vld, dot, vld, dvp, NT / 2);
+    // queries past t_q, keys past t_k, and causally excluded pairs, only in an edge tile
+    const bool edge = r0 + BQ > a.Tq || kw + 16 > a.Tk || (CAUSAL && r0 < kw + 15);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // lse and delta of the query columns col_lane, col_lane + 1 of this fragment
+      const float2 lv = *reinterpret_cast<const float2*>(lse_s + nt * 8 + col_lane);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + nt * 8 + col_lane);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // query c of the pair: entries c (key0) and c + 2 (key0 + 8)
+        const int row = r0 + nt * 8 + col_lane + c;
+        const float l = c ? lv.y : lv.x, d = c ? dl.y : dl.x;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = c + 2 * h, key = key0 + 8 * h;
+          float x = __fmul_rn(s[nt][e], a.scale);
+          if (a.bias) x = __fadd_rn(x, kb[h]);
+          const bool out = edge && (row >= a.Tq || key >= a.Tk || (CAUSAL && key > row));
+          const float p = out ? 0.0f : exp_approx(__fsub_rn(x, l));
+          dpv[nt][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpv[nt][e], d)), a.scale);  // dS^T
+          s[nt][e] = p;
+        }
+      }
+    }
+    uint32_t pa[NT / 2][4], dsa[NT / 2][4];
+    scores_to_a<NT>(pa, s);     // P^T rounded to bf16
+    scores_to_a<NT>(dsa, dpv);  // dS^T rounded to bf16
+    warp_pv<NT, NV>(adv, pa, dot, vld, dvp, NT / 2);
+    warp_pv<NT, NV>(adk, dsa, qt, qld, dp, NT / 2);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const float one[2] = {1.0f, 1.0f};
+  bf16* dk = static_cast<bf16*>(a.dk) + bi * a.s[kDK][0] + hi * a.s[kDK][1];
+  bf16* dv = static_cast<bf16*>(a.dv) + bi * a.s[kDV][0] + hi * a.s[kDV][1];
+  store_rows<NV, VEC>(dk, a.s[kDK][2], kw, a.Tk, a.D, adk, one);
+  store_rows<NV, VEC>(dv, a.s[kDV][2], kw, a.Tk, a.Dv, adv, one);
+}
+
+// ---------------------------------------------------------------- launch
+// Shared memory of either CUDA-core kernel (the same tiles, the last one BQ or kBK rows)
 template <int DMAX>
 size_t smem_bytes(const Args& a, bool dq) {
   constexpr int BQ = QTile<DMAX>::BQ, QS = BQ + kPad;
@@ -426,28 +735,68 @@ cudaError_t dispatch_causal(const Args& a, bool causal, bool dq, cudaStream_t s)
   return causal ? launch<T, DMAX, true>(a, dq, s) : launch<T, DMAX, false>(a, dq, s);
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, bool causal, bool dq, cudaStream_t s) {
+template <int DMAX, bool CAUSAL, bool VEC>
+cudaError_t launch_mma(const Args& a, bool dq, cudaStream_t stream) {
+  using namespace attn_mma;
+  constexpr int BQ = MmaTiles<DMAX>::BQ, ST = MmaTiles<DMAX>::STAGES;
+  const size_t qld = tile_ld(round16(a.D)), vld = tile_ld(round16(a.Dv));
+  // dq: Q, dO and ST K/V stages; dk/dv: K, V and ST stages of Q, dO, lse, delta
+  const size_t smem = dq ? sizeof(bf16) * (kMmaRows + ST * kMmaBK) * (qld + vld)
+                         : sizeof(bf16) * (kMmaBK + ST * BQ) * (qld + vld) +
+                               sizeof(float) * ST * 2 * BQ;
+  auto kernel = dq ? flash_bwd_dq_kernel_mma<DMAX, CAUSAL, VEC>
+                   : flash_bwd_dkv_kernel_mma<DMAX, CAUSAL, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = dq ? a.Tq : a.Tk;  // 64-row tiles of queries (dq) or keys (dk/dv)
+  const dim3 grid(a.B * a.H, (rows + kMmaRows - 1) / kMmaRows);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t dispatch_mma(const Args& a, bool causal, bool vec, bool dq, cudaStream_t s) {
+  if (causal)
+    return vec ? launch_mma<DMAX, true, true>(a, dq, s) : launch_mma<DMAX, true, false>(a, dq, s);
+  return vec ? launch_mma<DMAX, false, true>(a, dq, s) : launch_mma<DMAX, false, false>(a, dq, s);
+}
+
+// By width alone: float32 on the CUDA cores; bf16 on the tensor cores up to
+// kMmaMaxDim, on the CUDA cores beyond.
+cudaError_t dispatch(const Args& a, bool bf16, bool causal, bool vec, bool dq, cudaStream_t s) {
   const int widest = a.D > a.Dv ? a.D : a.Dv;
-  if (widest <= 64) return dispatch_causal<T, 64>(a, causal, dq, s);
-  if (widest <= 128) return dispatch_causal<T, 128>(a, causal, dq, s);
-  return dispatch_causal<T, 256>(a, causal, dq, s);
+  if (!bf16) {
+    if (widest <= 64) return dispatch_causal<float, 64>(a, causal, dq, s);
+    if (widest <= 128) return dispatch_causal<float, 128>(a, causal, dq, s);
+    return dispatch_causal<float, 256>(a, causal, dq, s);
+  }
+  if (widest <= 64) return dispatch_mma<64>(a, causal, vec, dq, s);
+  if (widest <= kMmaMaxDim) return dispatch_mma<kMmaMaxDim>(a, causal, vec, dq, s);
+  return dispatch_causal<__nv_bfloat16, 256>(a, causal, dq, s);
 }
 
 int run(bool dq, int dtype, const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, const float* bias, float* delta, void* dqp, void* dkp,
         void* dvp, int B, int H, int Tq, int Tk, int D, int Dv, const long long* strides,
-        float scale, int causal, void* stream) {
+        float scale, int causal, int vec, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || Dv < 1 || D > kMaxDim || Dv > kMaxDim ||
-      (long long)B * H > 65535 || (causal && Tq != Tk) || strides == nullptr)
+      (long long)B * H > 65535 || (causal && Tq != Tk) || strides == nullptr ||
+      (Tq + 63) / 64 > 65535 || (Tk + 63) / 64 > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, dout, lse, bias, delta, dqp, dkp, dvp, B, H, Tq, Tk, D, Dv, {}, scale};
   for (int t = 0; t < 8; ++t)
     for (int j = 0; j < 3; ++j) a.s[t][j] = strides[t * 3 + j];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(a, causal != 0, dq, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, causal != 0, dq, s);
-  return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  if (bf16 && vec) {  // the launcher's claim, re-checked: a misaligned cp.async loses the context
+    const void* ptrs[8] = {q, k, v, o, dout, dqp, dkp, dvp};
+    const int times[8] = {Tq, Tk, Tk, Tq, Tq, Tq, Tk, Tk};
+    const int widths[8] = {D, D, Dv, Dv, Dv, D, D, Dv};
+    for (int t = 0; t < 8; ++t)
+      if (ptrs[t] && !attn_mma::rows_vectorizable(ptrs[t], a.s[t], B, H, times[t], widths[t]))
+        return (int)cudaErrorInvalidValue;
+  }
+  return (int)dispatch(a, bf16, causal != 0, vec != 0, dq, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -456,25 +805,29 @@ int run(bool dq, int dtype, const void* q, const void* k, const void* v, const v
 // contiguous; bias (B, Tk) fp32 may be null. strides holds 24 values: the
 // (batch, head, time) strides in elements of q, k, v, o, dout, dq, dk and dv,
 // in that order; the last dimension of each must be contiguous. causal needs
-// Tq == Tk. dl4j_flash_bwd_dq writes dq and delta; dl4j_flash_bwd_dkv reads
-// that delta and writes dk and dv, so it is launched after it on the same
-// stream. Each returns the cudaError_t of its launch (0 on success).
+// Tq == Tk. vec: the bf16 tensor-core kernels stage with 16-byte cp.async
+// copies, which needs every row of the operands the call gets to start on a
+// 16-byte boundary with d and d_v multiples of 8 (refused otherwise); 0
+// stages element by element. The CUDA-core kernels stage element by element
+// either way. dl4j_flash_bwd_dq writes dq and delta; dl4j_flash_bwd_dkv
+// reads that delta and writes dk and dv, so it is launched after it on the
+// same stream. Each returns the cudaError_t of its launch (0 on success).
 extern "C" int dl4j_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, const float* lse,
                                  const float* bias, float* delta, void* dq, int B, int H, int Tq,
                                  int Tk, int D, int Dv, const long long* strides, float scale,
-                                 int causal, void* stream) {
+                                 int causal, int vec, void* stream) {
   return run(true, dtype, q, k, v, o, dout, lse, bias, delta, dq, nullptr, nullptr, B, H, Tq, Tk,
-             D, Dv, strides, scale, causal, stream);
+             D, Dv, strides, scale, causal, vec, stream);
 }
 
 extern "C" int dl4j_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* bias,
                                   const float* delta, void* dk, void* dv, int B, int H, int Tq,
                                   int Tk, int D, int Dv, const long long* strides, float scale,
-                                  int causal, void* stream) {
+                                  int causal, int vec, void* stream) {
   return run(false, dtype, q, k, v, nullptr, dout, lse, bias, const_cast<float*>(delta), nullptr,
-             dk, dv, B, H, Tq, Tk, D, Dv, strides, scale, causal, stream);
+             dk, dv, B, H, Tq, Tk, D, Dv, strides, scale, causal, vec, stream);
 }
 
 extern "C" const char* dl4j_cuda_error_string(int err) {

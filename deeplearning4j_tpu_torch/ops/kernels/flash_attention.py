@@ -30,10 +30,12 @@ strides (the last dimension must be contiguous), so a head split
 ``x.reshape(b, t, h, d).transpose(1, 2)`` costs no copy, and they write O,
 dq, dk and dv into ``(b, t, h, d)`` buffers whose ``(b, h, t, d)`` views
 they return, so the merge of the heads that follows costs none either.
-The bf16 forward runs on the tensor cores and stages its operands with
-16-byte ``cp.async`` copies where every row starts on a 16-byte boundary
-(:func:`_vector_ok`), element by element otherwise; the float32 forward is
-the card's fp32 check of the algorithm, on the CUDA cores.
+The bf16 forward and backward run on the tensor cores (the backward at
+``d`` and ``d_v`` up to 128; wider heads take its CUDA-core kernels) and
+stage their operands with 16-byte ``cp.async`` copies where every row starts
+on a 16-byte boundary (:func:`_vector_ok`), element by element otherwise;
+the float32 kernels are the card's fp32 check of the algorithm, on the CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -80,12 +82,12 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (dtype, q, k, v, o, dout, lse, bias, delta, dq, B, H, Tq, Tk, D, Dv,
-    #  strides, scale, causal, stream)
-    lib.dl4j_flash_bwd_dq.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, p]
+    #  strides, scale, causal, vec, stream)
+    lib.dl4j_flash_bwd_dq.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, i, p]
     lib.dl4j_flash_bwd_dq.restype = i
     # (dtype, q, k, v, dout, lse, bias, delta, dk, dv, B, H, Tq, Tk, D, Dv,
-    #  strides, scale, causal, stream)
-    lib.dl4j_flash_bwd_dkv.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, p]
+    #  strides, scale, causal, vec, stream)
+    lib.dl4j_flash_bwd_dkv.argtypes = [i, *([p] * 9), *([i] * 6), p, f, i, i, p]
     lib.dl4j_flash_bwd_dkv.restype = i
     _declare_error_string(lib)
 
@@ -236,7 +238,7 @@ def _strides(t: torch.Tensor):
 
 
 def _vector_ok(*tensors) -> bool:
-    """Whether the bf16 forward kernels may stage these operands with 16-byte
+    """Whether the bf16 kernels may stage these operands with 16-byte
     ``cp.async`` copies (their ``VEC`` flag): every base pointer on a
     16-byte boundary, and every stride of an extent above 1 and the width of
     the last dimension (whose stride is 1) whole multiples of 16 bytes, so
@@ -285,13 +287,27 @@ def launch_flash_fwd(q, k, v, bias, causal: bool, launches: LaunchCounter,
     return (o, lse) if save else o
 
 
+def grad_buffers(q, k, v):
+    """dq, dk and dv as the backward launcher allocates them: ``(b, h, t,
+    d)`` views of ``(b, t, h, d)`` buffers in the input dtype, so that the
+    merge of the heads that follows costs no copy."""
+    b, h, t_q, d = q.shape
+    t_k, d_v = k.shape[2], v.shape[3]
+
+    def buffer(t, width):
+        return torch.empty((b, t, h, width), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+    return buffer(t_q, d), buffer(t_k, d), buffer(t_k, d_v)
+
+
 def launch_flash_bwd(q, k, v, o, lse, do, bias, causal: bool):
     """Launch the two backward kernels on CUDA tensors (shapes as
     :func:`_check` takes them; o, lse from the saving forward, dO shaped as
     o; ``bias`` is :func:`key_bias`'s): first the dq kernel, which also
     writes ``delta = rowsum(dO * O)``, then the dk/dv kernel, which reads
-    it. Returns dq, dk, dv as ``(b, h, t, d)`` views of ``(b, t, h, d)``
-    buffers in the input dtype."""
+    it, on the same stream. The bf16 kernels stage by ``cp.async`` when
+    :func:`_vector_ok` holds for all eight operands, dq, dk and dv
+    included. Returns dq, dk, dv from :func:`grad_buffers`."""
     lib = BWD_LIBRARY.load()
     q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
@@ -304,15 +320,13 @@ def launch_flash_bwd(q, k, v, o, lse, do, bias, causal: bool):
                          f"{do.dtype} and lse {tuple(lse.shape)} {lse.dtype} do not fit q "
                          f"{tuple(q.shape)} {q.dtype} and v {tuple(v.shape)}")
 
-    def buffer(t, width):
-        return torch.empty((b, t, h, width), dtype=q.dtype, device=q.device).transpose(1, 2)
-
-    dq, dk, dv = buffer(t_q, d), buffer(t_k, d), buffer(t_k, d_v)
+    dq, dk, dv = grad_buffers(q, k, v)
     delta = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(*(x for t in (q, k, v, o, do, dq, dk, dv)
-                                         for x in _strides(t)))
+    operands = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(x for t in operands for x in _strides(t)))
     bias_ptr = None if bias is None else bias.data_ptr()
-    common = (b, h, t_q, t_k, d, d_v, strides, 1.0 / math.sqrt(d), int(bool(causal)))
+    common = (b, h, t_q, t_k, d, d_v, strides, 1.0 / math.sqrt(d), int(bool(causal)),
+              int(_vector_ok(*operands)))
     code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -185,3 +185,48 @@ def test_inference_mode_takes_no_autograd_path():
         out = fa.flash_attention(q, k, v)
     assert out.grad_fn is None
     assert fa.flash_attention(q, k, v).grad_fn is not None
+
+
+def _buffer_view(shape, offset=0):
+    """A bf16 tensor of ``shape`` that starts ``offset`` elements into a
+    buffer the allocator aligned."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+def _btd_heads(b, t, h, d):
+    """The (b, h, t, d) view of a (b, t, h*d) tensor, as the attention
+    layers hand it to the kernels."""
+    return torch.zeros(b, t, h * d, dtype=torch.bfloat16).view(b, t, h, d).transpose(1, 2)
+
+
+BWD_VECTOR_CASES = {
+    # name: (a function making q, k, v and dO, whether the bf16 backward stages with cp.async)
+    "contiguous_d64": (lambda: [_buffer_view((2, 3, 7, 64)) for _ in range(4)], True),
+    "btd_views_d64": (lambda: [_btd_heads(2, 7, 12, 64) for _ in range(4)], True),
+    "d64_dv24": (lambda: [_buffer_view((2, 3, 7, 64)), _buffer_view((2, 3, 9, 64)),
+                          _buffer_view((2, 3, 9, 24)), _buffer_view((2, 3, 7, 24))], True),
+    "d33": (lambda: [_buffer_view((2, 3, 7, 33)) for _ in range(4)], False),
+    "offset_view_of_do": (lambda: [*(_buffer_view((2, 3, 7, 64)) for _ in range(3)),
+                                   _buffer_view((2, 3, 7, 64), offset=1)], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_VECTOR_CASES))
+def test_backward_vector_staging_covers_all_eight_operands(name):
+    """The backward launcher's choice of the bf16 kernels' staging, over q,
+    k, v, o, dO and the dq, dk, dv buffers it allocates: cp.async where
+    every row of all eight starts on a 16-byte boundary and holds whole
+    16-byte chunks, element by element otherwise. A function of pointers,
+    strides and the element size, so CPU tensors reach it."""
+    build, want = BWD_VECTOR_CASES[name]
+    q, k, v, do = build()
+    b, h, t_q, _ = q.shape
+    d_v = v.shape[-1]
+    # o, as the forward launcher allocates it: (b, t_q, h, d_v) seen as (b, h, t_q, d_v)
+    o = torch.empty((b, t_q, h, d_v), dtype=q.dtype).transpose(1, 2)
+    grads = fa.grad_buffers(q, k, v)
+    for g, x in zip(grads, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert g.transpose(1, 2).is_contiguous()  # a (b, t, h, d) buffer
+    assert fa._vector_ok(q, k, v, o, do, *grads) is want
