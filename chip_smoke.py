@@ -329,7 +329,15 @@ SHORT_GRAD_TOL = 1e-4
 # forward max abs error <= 0.05, gradient <= 0.05 * max(max |g|, 1); dropout's
 # zero fraction in (0.08, 0.12) at rate 0.1.
 OPS_SHORT = (64, 12, 128, 64)
+# The backward pair's time also at t = 512 (b, h, t, d), bf16 unmasked: the
+# dq kernel's three passes over K/V tiles instead of the resident K and V.
+SHORT_LONG = (8, 12, 512, 64)
 OPS_FWD_TOL, OPS_GRAD_TOL, OPS_ZERO_FRAC = 0.05, 0.05, (0.08, 0.12)
+# Empty launches (torch.cuda._sleep's spin_kernel) a profiler session makes
+# before the first timed call and after the last, and leaves out of its
+# counts: late in a long run, sessions lost some 8-10 kernel records each
+# (0.6 of a pair's launches a call, or all of a short call's).
+PROFILE_PAD_LAUNCHES = 32
 # BERT-base serving: Bert.base() (L=12, H=768, A=12), bf16 compute over fp32
 # weights, requests of 1-64 rows of T=128 token ids, as bench_zoo_bert.
 BERT_T, BERT_B, BERT_LAYERS, BERT_VOCAB = 128, 64, 12, 30522
@@ -420,6 +428,30 @@ def cuda_ms(fn, reps, warmup=2):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps, warmup=2):
+    """Mean device milliseconds per call of ``fn`` by CUDA events, with the
+    card held by a spin kernel (``torch.cuda._sleep``) while the host queues
+    the ``reps`` calls: calls whose host time outlasts their device time
+    then still run back to back on the card. The gaps between launches are
+    in it, the host's launch time is not (unless ``fn`` waits for the
+    card). The spin lasts at least twice the host time of the calls (from
+    the warm-up, at most 2 GHz)."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / max(warmup, 1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (2 * reps * host_ms + 1)))
     start.record()
     for _ in range(reps):
         fn()
@@ -1079,6 +1111,7 @@ class Smoke:
         for shape in (SHORT_SHAPES[1], SHORT_SHAPES[4]):
             for btd in (False, True):
                 self.check_short_autograd(shape, btd)
+        self.check_short_dispatch()
 
     def check_short(self, shape, dtype, btd, offset=0):
         """The short-attention forward and backward kernels against their
@@ -1126,6 +1159,54 @@ class Smoke:
         if shape == SHORT_SHAPES[1] and dtype == torch.bfloat16:  # unmasked, as the ops phase
             self.kernels.setdefault(fwd_c.name, {})["max_abs_err"] = err_o
             self.kernels.setdefault(bwd_c.name, {})["max_abs_err"] = max(errs)
+        if shape == SHORT_SHAPES[0] and dtype == torch.bfloat16:  # masked BERT-base
+            with torch.no_grad():
+                again = sa.launch_short_bwd(q, k, v, do, bias, scale, bwd_c, btd)
+            torch.cuda.synchronize()
+            same = all(bits_equal(x, y) for x, y in zip(grads, again))
+            self.check(same, f"{bwd_c.name:23s} {tag} a second launch gives the same dq, dk "
+                             f"and dv bit for bit: {same}")
+
+    def pair_kernels(self, run, what, reps=10, tries=5):
+        """Device ms of each kernel that ``run`` (one launch of a backward
+        pair: each kernel once) starts, by ``torch.profiler``: ``{kernel
+        name: ms per launch}``, each kernel's device time over the launches
+        the session saw, so that a lost event does not bias it. A session
+        that lost events (a kernel seen other than once a call) is taken
+        again, up to ``tries`` times; then each kernel's time is from the
+        last session that saw it."""
+        seen = {}
+        for _ in range(tries):
+            per, _ = self.profile_kernels(run, reps)
+            seen.update({k: (ms / n, n) for k, (ms, n) in per.items()})
+            if len(per) == 2 and all(n == 1 for _, n in per.values()):
+                return {k: ms / n for k, (ms, n) in per.items()}
+        log(f"{what}: {tries} profiler sessions lost events; each kernel's time per launch is "
+            f"from the last session that saw it ({ {k: n for k, (_, n) in seen.items()} } a "
+            "call)")
+        return {k: ms for k, (ms, _) in seen.items()}
+
+    def check_short_dispatch(self):
+        """Which backward pair a launch runs, by the kernel names the
+        profiler sees: bf16 with d <= 128 the tensor-core pair (the dq
+        kernel resident at t <= 128, in three passes beyond), float32 and
+        bf16 with d > 128 the CUDA-core pair."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        for dtype, t, d, mma in ((torch.bfloat16, 128, 64, True), (torch.bfloat16, 129, 128, True),
+                                 (torch.bfloat16, 100, 256, False), (torch.float32, 128, 64, False)):
+            (q, k, v), _ = flash_inputs(2, 2, t, t, d, d, dtype, self.device, seed=4, mask=False)
+            do = torch.randn_like(q)
+            with torch.no_grad():
+                names = sorted(self.pair_kernels(
+                    lambda: sa.launch_short_bwd(q, k, v, do, None, d ** -0.5, sa.bwd_counter),
+                    "short attention backward", reps=2))
+            got = [m[0] if (m := re.search(r"short_bwd_(dq|dkv)_kernel(_mma)?", n)) else n
+                   for n in names]
+            want = [f"short_bwd_{w}_kernel{'_mma' if mma else ''}" for w in ("dkv", "dq")]
+            dname = str(dtype).replace("torch.", "")
+            self.check(got == want, f"short attention backward {dname} t={t} d={d} runs "
+                                    f"{' + '.join(names)} (expected {' + '.join(want)})")
 
     def check_short_autograd(self, shape, btd):
         """``short_attention`` (or ``short_attention_btd``) under autograd
@@ -1845,20 +1926,29 @@ class Smoke:
         """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
         warm-up call): ``{kernel name: (device ms per call, launches per
         call)}`` (launches a float: a session that lost events shows a
-        fraction) and the host wall ms per call under the profiler."""
+        fraction) and the host wall ms per call under the profiler. The
+        session makes PROFILE_PAD_LAUNCHES empty launches before the first
+        call and after the last, outside the counts, for the records a
+        session late in a long run loses."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD_LAUNCHES):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
+            for _ in range(PROFILE_PAD_LAUNCHES):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
         per = {}
         for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA"):
+            if str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key:
                 dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                 per[e.key] = (dev / 1e3 / reps, e.count / reps)
         return per, wall
@@ -1869,16 +1959,20 @@ class Smoke:
         launches. A launch shorter than its wrapper's host time is timed
         by its own device time, not by back-to-back CUDA events, which
         then measure the host. A profile that came back with no device
-        event at all (seen once on an H100 after many profiler sessions in
-        one process) is taken again, up to 3 times."""
+        event at all, or that lost some (a kernel seen a fractional number
+        of times a call, or none of ``match``), is taken again, up to 3
+        times; after that the whole call is timed by ``queued_ms`` (its
+        gaps included), and the log says so."""
+        what = match or "the call"
         for _ in range(3):
             per, _ = self.profile_kernels(fn, reps)
-            if per:
-                break
-        ms = sum(t for name, (t, _) in per.items() if match is None or match in name)
-        if ms <= 0:
-            raise RuntimeError(f"the profiler saw no device time of {match or 'the call'} "
-                               f"(kernels seen: {sorted(per)})")
+            ms = sum(t for name, (t, _) in per.items() if match is None or match in name)
+            if ms > 0 and all(float(n).is_integer() for _, n in per.values()):
+                return ms
+        ms = queued_ms(fn, reps)
+        log(f"device time of {what}: three profiler sessions lost events (the last saw "
+            f"{ {k[:60]: n for k, (_, n) in per.items()} } a call); the time given for it below "
+            f"is by CUDA events with the card held while the host queues the calls: {ms:.4f} ms")
         return ms
 
     def device_breakdown(self, fn, what, reps=5, step_ms=None):
@@ -2347,14 +2441,7 @@ class Smoke:
                 pair_ev = cuda_ms(run, reps=20)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
                     q, k, v, o, lse, do, mask, causal), reps=3, warmup=1)
-                for _ in range(3):  # again if the session lost events: one launch each a call
-                    per, _ = self.profile_kernels(run, reps=10)
-                    if all(sum(n for k_, (_, n) in per.items() if key in k_) == 1
-                           for key in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
-                        break
-                else:
-                    log("flash backward times: three profiler sessions lost events; the "
-                        "device times below are from the last")
+                per = self.pair_kernels(run, "flash backward times")
             sdpa_mask = None if mask is None else mask[:, None, None, :]
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2374,7 +2461,7 @@ class Smoke:
                    f"causal={'yes' if causal else 'no'}")
             kernel_ms = {}
             for name, (tensors, flops, key, replaces) in rows.items():
-                kms = sum(ms for k_, (ms, _) in per.items() if key in k_)
+                kms = sum(ms for k_, ms in per.items() if key in k_)
                 if kms <= 0:
                     raise RuntimeError(f"the profiler saw no device time of {key} (kernels seen: "
                                        f"{sorted(per)})")
@@ -2511,11 +2598,13 @@ class Smoke:
         """The short-attention kernels at BERT-base's shape (64, 12, 128, 64)
         bf16 without a mask (the ops phase's call), in both layouts: the
         forward and the backward pair by their own device time
-        (``torch.profiler``) with back-to-back CUDA events beside it,
-        against the bound (and the share of it reached), the plain versions
-        and ``scaled_dot_product_attention`` on the same tensors or views by
+        (``torch.profiler``; the pair's two kernels each by name) with
+        back-to-back CUDA events beside it, against the bound (and the share
+        of it reached), the plain versions and
+        ``scaled_dot_product_attention`` on the same tensors or views by
         device time (its backward: ``autograd.grad`` minus its forward; a
-        yardstick the port never calls)."""
+        yardstick the port never calls). Then the pair alone at SHORT_LONG
+        (t = 512) beside the same yardsticks."""
         torch = self.torch
         import torch.nn.functional as F
         from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
@@ -2539,7 +2628,8 @@ class Smoke:
                 o = fwd()
                 grads = bwd()
                 ms, ms_ev = self.device_ms(fwd, "short_fwd"), cuda_ms(fwd, reps=20)
-                bwd_ms, bwd_ev = self.device_ms(bwd, "short_bwd"), cuda_ms(bwd, reps=20)
+                pair = self.pair_kernels(bwd, "short attention backward")
+                bwd_ms, bwd_ev = sum(pair.values()), cuda_ms(bwd, reps=20)
                 plain_ms = cuda_ms(lambda: sa.short_attention_reference(q, k, v), reps=5,
                                    warmup=1)
                 plain_bwd = cuda_ms(lambda: sa.short_attention_backward_reference(q, k, v, do),
@@ -2567,7 +2657,45 @@ class Smoke:
                     f"{' backward' if c is bwd_c else ''} {lib:.4f} ms (profiler"
                     f"{f'; events {sdpa_ev:.4f}' if c is fwd_c else ''}), the kernel at "
                     f"{kms / lib:.2f}x it")
+            log(f"{bwd_c.name} kernels: " + "; ".join(f"{n[:70]} {t_:.4f} ms"
+                                                      for n, t_ in sorted(pair.items())))
             del leaves, o, grads
+        self.short_long_times()
+
+    def short_long_times(self):
+        """The backward pair at SHORT_LONG, bf16, unmasked, (b, h, t, d):
+        each kernel's device time, the pair's against its bound, back-to-back
+        CUDA events, the plain backward and SDPA's backward on the same
+        tensors."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops.kernels import fused_attention_short as sa
+        b, h, t, d = SHORT_LONG
+        dt = torch.bfloat16
+        g = torch.Generator().manual_seed(10)
+        q, k, v, do = (torch.randn(b, h, t, d, generator=g).to(dt).to(self.device)
+                       for _ in range(4))
+        bwd = lambda: sa.launch_short_bwd(q, k, v, do, None, d ** -0.5, sa.bwd_counter)  # noqa: E731
+        with torch.no_grad():
+            grads = bwd()
+            pair = self.pair_kernels(bwd, "short attention backward")
+            ev = cuda_ms(bwd, reps=20)
+            plain = cuda_ms(lambda: sa.short_attention_backward_reference(q, k, v, do), reps=3,
+                            warmup=1)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves)  # noqa: E731
+        sdpa_fwd = self.device_ms(sdpa)
+        sdpa_bwd = self.device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do)) - sdpa_fwd
+        ms = sum(pair.values())
+        kb, kby = bound([q, k, v, do, *grads], 2.0 * b * h * t * t * 5 * d, dt)
+        log(f"short attention backward pair: {ms:.4f} ms (profiler; back-to-back CUDA events "
+            f"{ev:.4f}) at b={b} h={h} t={t} d={d} bf16 (b, h, t, d); bound {kb:.4f} ms ({kby}), "
+            f"{100 * kb / ms:.1f}% of it reached; plain backward {plain:.3f} ms; "
+            f"scaled_dot_product_attention backward {sdpa_bwd:.4f} ms (profiler; forward "
+            f"{sdpa_fwd:.4f}), the pair at {ms / sdpa_bwd:.2f}x it; kernels: "
+            + "; ".join(f"{n[:70]} {t_:.4f} ms" for n, t_ in sorted(pair.items())))
+        del q, k, v, do, grads, leaves
+        torch.cuda.empty_cache()
 
     def cudnn_ms(self, module, T, B, H, dtype):
         """``torch.nn.LSTM`` or ``torch.nn.GRU`` (cuDNN) on layer 0's work:

@@ -36,9 +36,18 @@ CUDA tensors launch the kernels (or the call raises); only CPU tensors take
 the plain versions, :func:`short_attention_reference` and
 :func:`short_attention_backward_reference`. A call that autograd records goes
 through :class:`ShortAttentionFunction`, which saves q, k, v and the mask.
-The bf16 forward runs on the tensor cores and, like flash attention's,
-stages with 16-byte ``cp.async`` copies only where :func:`_vector_ok` says
-every row starts on a 16-byte boundary.
+The bf16 kernels run on the tensor cores and, like flash attention's, stage
+with 16-byte ``cp.async`` copies only where :func:`_vector_ok` says every
+row of their operands starts on a 16-byte boundary: the forward over q, k,
+v and o, the backward over q, k, v, dO and the dq, dk, dv buffers it
+allocates. The backward is a pair chosen by dtype and width alone: bf16
+with ``d <= 128`` takes ``short_bwd_dq_kernel_mma`` (the exact softmax of
+each row with K and V resident at ``t <= 128``, in three passes over key
+tiles beyond; it writes each row's max, sum and delta to fp32 scratch) and
+then ``short_bwd_dkv_kernel_mma``, which recomputes the transposed scores
+with the same products in the same order and so gets the same P and dS bit
+for bit; float32 and wider bf16 heads take the CUDA-core pair. See
+``csrc/short_attention.cu`` for the design and its times on an H100.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from deeplearning4j_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
 
 MAX_SEQ = 512
 MAX_HEAD_DIM = 256
-MAX_GRID_ROWS = 65535  # batch * heads: the y extent of the float32 and backward grids
+MAX_GRID_ROWS = 65535  # batch * heads: the y extent of the CUDA-core kernels' grids
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,8 +83,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (dtype, q, k, v, bias, o, B, H, T, D, strides, scale, vec, stream)
     lib.dl4j_short_attention_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, p, f, i, p]
     lib.dl4j_short_attention_fwd.restype = i
-    # (dtype, q, k, v, dO, bias, dq, dk, dv, m, l, delta, B, H, T, D, strides, scale, stream)
-    lib.dl4j_short_attention_bwd.argtypes = [i, *([p] * 11), i, i, i, i, p, f, p]
+    # (dtype, q, k, v, dO, bias, dq, dk, dv, m, l, delta, B, H, T, D, strides, scale, vec,
+    #  stream)
+    lib.dl4j_short_attention_bwd.argtypes = [i, *([p] * 11), i, i, i, i, p, f, i, p]
     lib.dl4j_short_attention_bwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -235,8 +245,11 @@ def launch_short_fwd(q, k, v, bias, scale: float, launches: LaunchCounter, btd: 
 
 def launch_short_bwd(q, k, v, do, bias, scale: float, launches: LaunchCounter,
                      btd: bool = False):
-    """Launch the backward pair (the dq kernel, then the dk/dv kernel; one
+    """Launch the backward pair (the dq kernel, which writes each row's m,
+    l and delta, then the dk/dv kernel, which reads them, on one stream; one
     count on ``launches``) on ``(b, h, t, d)`` CUDA tensors; dO shaped as q.
+    The bf16 pair stages by ``cp.async`` when :func:`_vector_ok` holds for
+    all seven operands, the dq, dk and dv buffers it allocates included.
     Returns dq, dk, dv, views of ``(b, t, h, d)`` buffers when ``btd``."""
     lib = LIBRARY.load()
     q, k, v, do = (_unit_last(x) for x in (q, k, v, do))
@@ -246,15 +259,15 @@ def launch_short_bwd(q, k, v, do, bias, scale: float, launches: LaunchCounter,
     b, h, t, d = q.shape
     dq, dk, dv = _buffers(q, btd, 3)
     m, l, delta = torch.empty((3, b * h, t), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, dq, dk, dv)
-                                         for s in _strides(x)))
+    operands = (q, k, v, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(*(s for x in operands for s in _strides(x)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_short_attention_bwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             None if bias is None else bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(), b, h, t, d, strides,
-            scale, stream)
+            scale, int(_vector_ok(*operands)), stream)
     if err != 0:
         _raise_launch(lib, err, "short attention backward kernels", q)
     launches.add()

@@ -17,6 +17,9 @@ one bf16 ulp apart in P or dS, and the outputs are rounded to bf16, so the
 limit is 2 bf16 ulps of each output's largest value (2 x 2^-7 relative).
 """
 
+import contextlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -231,6 +234,10 @@ VECTOR_CASES = {  # (b, t, h*d) tensors or their views -> cp.async staging
     "d33": (lambda: _view((2, 3, 17, 33)), False),
     "btd_views_d20": (lambda: _view((2, 16, 3 * 20)).view(2, 16, 3, 20).transpose(1, 2), False),
     "offset_view": (lambda: _view((2, 3, 16, 64), offset=1), False),
+    "offset_16_bytes": (lambda: _view((2, 3, 16, 64), offset=8), True),
+    "d128": (lambda: _view((2, 3, 9, 128)), True),
+    "btd_views_offset": (lambda: _view((2, 16, 3 * 64), offset=1).view(2, 16, 3, 64)
+                         .transpose(1, 2), False),
 }
 
 
@@ -246,3 +253,46 @@ def test_vector_staging_choice_of_the_launcher(name):
     assert sa._vector_ok(x, aligned, aligned) is want
     assert sa._vector_ok(aligned, aligned, x) is want
     assert sa._vector_ok(aligned, aligned, aligned) is (x.shape[-1] % 8 == 0)
+
+
+@pytest.mark.parametrize("btd", [False, True])
+@pytest.mark.parametrize("where", ["q", "do"])
+@pytest.mark.parametrize("name", sorted(VECTOR_CASES))
+def test_backward_launcher_stages_by_its_seven_operands(monkeypatch, name, where, btd):
+    """``launch_short_bwd`` hands the bf16 pair ``vec = _vector_ok`` over q,
+    k, v, dO and the dq, dk, dv buffers it allocates (``(b, t, h, d)``
+    buffers seen as ``(b, h, t, d)`` when ``btd``), with their strides. A
+    stand-in library object takes the built one's place, so CPU tensors
+    reach the launcher; the case's tensor is q or dO, the others aligned."""
+    build, want = VECTOR_CASES[name]
+    x = build()
+    aligned = [_view(tuple(x.shape)) for _ in range(3)]
+    operands = [x, *aligned] if where == "q" else [*aligned, x]
+    calls, seen = [], []
+    vector_ok = sa._vector_ok
+
+    def spy(*tensors):
+        seen.append(tensors)
+        return vector_ok(*tensors)
+
+    class Library:
+        def dl4j_short_attention_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(sa, "_vector_ok", spy)
+    monkeypatch.setattr(sa, "LIBRARY", SimpleNamespace(load=Library))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    launches = sa.LaunchCounter("short_attention_bwd_test")
+    grads = sa.launch_short_bwd(*operands, None, 0.125, launches, btd)
+    (args,) = calls
+    (checked,) = seen
+    assert [t.data_ptr() for t in checked] == [t.data_ptr() for t in (*operands, *grads)]
+    assert list(args[16]) == [s for t in (*operands, *grads) for s in t.stride()[:3]]
+    assert args[-2] == int(want)  # vec, just before the stream
+    assert launches.value == 1
+    for g in grads:
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert (g.transpose(1, 2) if btd else g).is_contiguous()
