@@ -8,7 +8,9 @@ the card and exits nonzero if any phase fails:
 
 1. build  : compiles every CUDA kernel source of the port with ``nvcc``
             (one process per source, all started together) and prints the
-            build time and each kernel's register use;
+            build time and each kernel's register use; conv_stats' wgmma
+            instances must not spill and must hold ``HGMMA`` instructions
+            (``cuobjdump -sass`` of the built library, counted);
 2. kernels: every kernel against its plain PyTorch version on the card, in
             float32 and bfloat16, at the serving/training shape (B=64,
             T=256, H=512) and at ragged shapes and B > 64 (two launches),
@@ -57,8 +59,12 @@ the card and exits nonzero if any phase fails:
             conv_stats (TPU row 13: a 1x1 convolution as a product, with
             BatchNormalization's shifted per-channel sums in its epilogue)
             against its plain version in float32 and bfloat16 with a nonzero
-            shift at row 13's shape, one shape of each other ResNet-50 stage
-            and two ragged shapes, and a second launch bit for bit;
+            shift at row 13's shape, one shape of each other ResNet-50 stage,
+            the widest M at N = 64, a ragged M at row 13's width and two
+            ragged shapes, and a bf16 x one element into its buffer; a
+            second launch bit for bit; the profiler names the kernel each
+            case ran (``conv_stats_wgmma_kernel`` for every aligned bf16
+            shape, ``conv_stats_kernel`` for float32 and unaligned bf16);
 3. slice  : the serving path at full width. ``TextGenerationLSTM(vocab 96,
             hidden 512, 2 layers)`` with random weights from a seed, in
             bf16 compute, is written to an archive, loaded by
@@ -109,7 +115,8 @@ the card and exits nonzero if any phase fails:
             (batch 256 at 224x224, bf16 compute, Nesterovs(0.1, 0.9), one
             synthetic batch repeated) for 20 steps: 36 conv_stats launches a
             step from ``fit`` itself (every 1x1 convolution +
-            BatchNormalization pair) and nothing else, step ms, img/s, peak
+            BatchNormalization pair) and nothing else, all 36 of them
+            ``conv_stats_wgmma_kernel`` by the profiler, step ms, img/s, peak
             memory, a device-busy breakdown, the loss falling, every
             BatchNormalization's running statistics moving; the trained net
             through an archive and ``ModelRegistry`` (p50 of 20 sequential
@@ -150,9 +157,12 @@ the card and exits nonzero if any phase fails:
             (forward, backward, and with x) beside ``F.dropout``, and the
             short-attention kernels in both layouts by device time beside
             ``scaled_dot_product_attention``'s, at the ops phase's shapes.
-            conv_stats at row 13's shape and at ResNet-50's stage-0 shape
-            beside its bound, its plain version and ``torch.matmul`` plus
-            the two fp32 column sums.
+            conv_stats at each of the 15 distinct shapes of ResNet-50's
+            step by device time (back-to-back CUDA events beside it) beside
+            its bound and ``torch.matmul`` plus the two fp32 column sums
+            (device time), its plain version at row 13's shape, and the sum
+            over the step's 36 launches beside the profiler's conv_stats
+            total in the step.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -381,15 +391,28 @@ BERT_LOSS_FALL, BERT_MIN_ACC = 0.95, 0.9
 BERT_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # conv_stats (TPU row 13): row 13's own shape (s3b1_c1, s3b2_c1), one shape
 # of each other ResNet-50 stage at batch 256 (s0b1_c3 at K = 64 is the widest
-# M; s1b1_c1; s2b1_c3) and two ragged ones, each (M, K, N) in fp32 and bf16
-# with a nonzero shift. y is held to its plain version relative to max |plain
+# M; s1b1_c1; s2b1_c3), the widest M at N = 64 (s0b1_c1: the wgmma kernel's
+# narrowest tile), a ragged M at row 13's width and two ragged ones, each
+# (M, K, N) in fp32 and bf16 with a nonzero shift. (37, 13, 5) is unaligned
+# (K, N % 8 != 0) and takes conv_stats_kernel in bf16 too, as does the bf16
+# x one element into its buffer (CONV_STATS_UNALIGNED). y is held to its plain version relative to max |plain
 # y|: fp32, the same products summed in another order over K <= 2048 (1e-5);
 # bf16, both sides round an fp32 sum to bf16, and two sums that straddle a
 # rounding boundary land one bf16 ulp apart, 2^-8 of the value (2^-7). s1 and
 # s2, fp32 sums over up to 802,816 rows in another order, relative to
 # max(1, max |plain|): 1e-4. A second launch must agree bit for bit.
 CONV_STATS_SHAPES = [(12544, 2048, 512), (802816, 64, 256), (200704, 512, 128),
-                     (50176, 256, 1024), (1000, 200, 72), (37, 13, 5)]
+                     (50176, 256, 1024), (802816, 256, 64), (12545, 2048, 512),
+                     (1000, 200, 72), (37, 13, 5)]
+CONV_STATS_UNALIGNED = (1000, 200, 72)
+# The 15 distinct (M, K, N) of ResNet-50's 36 fused pairs at batch 256, 224x224
+# (zoo/resnet50.py: stage s at (56 / 2^s)^2 x 256 rows), and launches a step.
+RESNET_CONV_SHAPES = {
+    (802816, 64, 64): 1, (802816, 64, 256): 4, (802816, 256, 64): 2,
+    (200704, 256, 128): 1, (200704, 512, 128): 3, (200704, 128, 512): 4,
+    (200704, 256, 512): 1, (50176, 512, 256): 1, (50176, 1024, 256): 5,
+    (50176, 256, 1024): 6, (50176, 512, 1024): 1, (12544, 1024, 512): 1,
+    (12544, 2048, 512): 2, (12544, 512, 2048): 3, (12544, 1024, 2048): 1}
 CONV_STATS_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 CONV_STATS_SUM_TOL = 1e-4
 # ResNet-50, BASELINE config #2 as bench.py:6736-6790 (bench_resnet) trains
@@ -803,6 +826,7 @@ class Smoke:
         self.flash_lse_ms = None  # the saving forward at BERT-base's shape, masked
         self.bert_p50_ms = None  # one 64-row BERT-base request, p50
         self.resnet_step_ms = None  # median step ms of the resnet phase
+        self.resnet_conv_stats_ms = None  # conv_stats' device ms in one resnet step
 
     def check(self, ok, what):
         log(("ok   " if ok else "FAIL ") + what)
@@ -847,6 +871,33 @@ class Smoke:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
                 elif "spill" in line and " 0 bytes spill stores" not in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[-1].strip()}")
+                    if kernel.startswith("conv_stats_wgmma_kernel"):
+                        self.check(False, f"{kernel} spills (a spilling instance does not ship)")
+        self.count_hgmma(conv_stats.LIBRARY)
+
+    def count_hgmma(self, lib):
+        """``HGMMA`` (wgmma) instructions per kernel of a built library, by
+        ``cuobjdump -sass``: each ``conv_stats_wgmma_kernel`` instance must
+        hold some."""
+        from deeplearning4j_tpu_torch.ops.kernels import _native
+        cuobjdump = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", str(lib._target())], capture_output=True,
+                              text=True, timeout=120).stdout
+        counts, kernel = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"\d+([a-z_]+_kernel)I\w*?((?:Li\d+E)*)E", line)
+                kernel = None
+                if m:
+                    args = re.findall(r"Li(\d+)E", m[2])
+                    kernel = f"{m[1]}<{', '.join(args)}>"
+                if kernel and kernel.startswith("conv_stats_wgmma_kernel"):
+                    counts[kernel] = 0
+            elif "HGMMA" in line and kernel in counts:
+                counts[kernel] += 1
+        log(f"  {lib.source.name} HGMMA instructions (cuobjdump -sass): {counts}")
+        self.check(len(counts) == 3 and all(counts.values()),
+                   f"conv_stats_wgmma_kernel<64|128|256> each hold HGMMA: {counts}")
 
     def kernel_phase(self):
         torch = self.torch
@@ -880,37 +931,67 @@ class Smoke:
 
     def conv_stats_checks(self):
         """conv_stats against its plain version at CONV_STATS_SHAPES in fp32
-        and bf16, a nonzero shift, inputs off zero mean (as a ReLU's output
-        is); a second launch bit for bit."""
+        and bf16, and in bf16 with x one element into its buffer, a nonzero
+        shift, inputs off zero mean (as a ReLU's output is); a second launch
+        bit for bit; the kernel each case ran, by the profiler's names."""
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in CONV_STATS_SHAPES:
+                self.check_conv_stats(shape, dtype)
+        self.check_conv_stats(CONV_STATS_UNALIGNED, torch.bfloat16, offset=1)
+
+    def check_conv_stats(self, shape, dtype, offset=0):
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).replace("torch.", "")
-            for m, k, n in CONV_STATS_SHAPES:
-                g = torch.Generator(device=self.device).manual_seed(m + k + n)
-                x = (torch.rand(m, k, generator=g, device=self.device) * 2.0).to(dtype)
-                w = (torch.randn(k, n, generator=g, device=self.device) * k ** -0.5).to(dtype)
-                shift = torch.randn(n, generator=g, device=self.device)
-                with torch.no_grad():
-                    got = cs.launch_conv_stats(x, w, shift)
-                    again = cs.launch_conv_stats(x, w, shift)
-                    torch.cuda.synchronize()
-                    want = cs.conv_stats_reference(x, w, shift)
-                scale = float(want[0].float().abs().max())
-                err_y = max_err(got[:1], want[:1]) / max(scale, 1e-30)
-                err_s = max(max_err([a], [b], relative=True) for a, b in zip(got[1:], want[1:]))
-                same = all(bits_equal(a, b) for a, b in zip(got, again))
-                finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
-                self.check(finite and same and err_y <= CONV_STATS_TOL[dname]
-                           and err_s <= CONV_STATS_SUM_TOL,
-                           f"conv_stats {dname:8s} M={m} K={k} N={n}: y max_err/max|y|="
-                           f"{err_y:.3g} (tol {CONV_STATS_TOL[dname]:g}), s1/s2 max_rel_err="
-                           f"{err_s:.3g} (tol {CONV_STATS_SUM_TOL:g}); a second launch bit for "
-                           f"bit: {same}")
-                if dtype == torch.bfloat16 and (m, k, n) == CONV_STATS_SHAPES[0]:
-                    self.kernels.setdefault(cs.counter.name, {})["max_abs_err"] = \
-                        max_err(got[:1], want[:1])
-                del x, w, got, again, want
+        m, k, n = shape
+        dname = str(dtype).replace("torch.", "")
+        g = torch.Generator(device=self.device).manual_seed(m + k + n)
+        x = (torch.rand(m, k, generator=g, device=self.device) * 2.0).to(dtype)
+        w = (torch.randn(k, n, generator=g, device=self.device) * k ** -0.5).to(dtype)
+        shift = torch.randn(n, generator=g, device=self.device)
+        if offset:
+            x = shifted(x, offset)
+        with torch.no_grad():
+            got = cs.launch_conv_stats(x, w, shift)
+            again = cs.launch_conv_stats(x, w, shift)
+            torch.cuda.synchronize()
+            want = cs.conv_stats_reference(x, w, shift)
+            ran = self.conv_stats_kernels(lambda: cs.launch_conv_stats(x, w, shift))
+        scale = float(want[0].float().abs().max())
+        err_y = max_err(got[:1], want[:1]) / max(scale, 1e-30)
+        err_s = max(max_err([a], [b], relative=True) for a, b in zip(got[1:], want[1:]))
+        same = all(bits_equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        tma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and not offset
+        expect = "conv_stats_wgmma_kernel" if tma else f"conv_stats_kernel<{dname}>"
+        where = f" offset={offset}" if offset else ""
+        self.check(finite and same and err_y <= CONV_STATS_TOL[dname]
+                   and err_s <= CONV_STATS_SUM_TOL and ran == [expect],
+                   f"conv_stats {dname:8s} M={m} K={k} N={n}{where}: y max_err/max|y|="
+                   f"{err_y:.3g} (tol {CONV_STATS_TOL[dname]:g}), s1/s2 max_rel_err="
+                   f"{err_s:.3g} (tol {CONV_STATS_SUM_TOL:g}); a second launch bit for "
+                   f"bit: {same}; ran {' + '.join(ran)} (expected {expect})")
+        if dtype == torch.bfloat16 and shape == CONV_STATS_SHAPES[0] and not offset:
+            self.kernels.setdefault(cs.counter.name, {})["max_abs_err"] = \
+                max_err(got[:1], want[:1])
+
+    def conv_stats_kernels(self, run, tries=3):
+        """The tile kernels one launch of conv_stats runs, by the profiler's
+        names: ``conv_stats_wgmma_kernel`` (any BN) or ``conv_stats_kernel<T>``,
+        beside which ``column_sums_kernel`` must run once. A session that saw
+        neither sum kernel once is taken again."""
+        ran = []
+        for _ in range(tries):
+            per, _ = self.profile_kernels(run, 1)
+            if any("column_sums_kernel" in name and n == 1 for name, (_, n) in per.items()):
+                break
+        for name in per:
+            if "conv_stats_wgmma_kernel" in name:
+                ran.append("conv_stats_wgmma_kernel")
+            elif mt := re.search(r"conv_stats_kernel<(float|__nv_bfloat16)>", name):
+                ran.append("conv_stats_kernel<float32>" if mt[1] == "float" else
+                           "conv_stats_kernel<bfloat16>")
+        return sorted(ran)
 
     def flash_backward_checks(self):
         """Rows 8-9: the backward kernels at every FLASH_SHAPES entry, at
@@ -1854,8 +1935,19 @@ class Smoke:
             f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}); {RESNET_B / med * 1e3:.1f} img/s at the "
             f"median; first step {1e3 * (stamps[0] - t0):.1f} ms; peak memory {peak:.2f} GiB")
         net.set_listeners()
-        self.device_breakdown(lambda: net.fit(x, y), f"resnet fit step (batch {RESNET_B})",
-                              reps=3, step_ms=med)
+        per = self.device_breakdown(lambda: net.fit(x, y), f"resnet fit step (batch {RESNET_B})",
+                                    reps=3, step_ms=med)
+        for _ in range(3):  # a session that lost a launch is taken again
+            new, old, ms = self.conv_stats_in(per)
+            if new == RESNET_PAIRS and old == 0:
+                break
+            per, _ = self.profile_kernels(lambda: net.fit(x, y), 1)
+        self.check(new == RESNET_PAIRS and old == 0,
+                   f"resnet fit step: the profiler sees {new:g} conv_stats_wgmma_kernel and "
+                   f"{old:g} conv_stats_kernel launches a step (expected {RESNET_PAIRS} and 0)")
+        self.resnet_conv_stats_ms = ms
+        log(f"resnet fit step: conv_stats (tile and column-sum kernels) {ms:.3f} ms of the "
+            "step's device time (profiler)")
 
         # ---- serving: the trained net through an archive and the registry
         path = os.path.join(workdir, "resnet50.zip")
@@ -1922,6 +2014,16 @@ class Smoke:
         del plain, snaps, state0, x, y
         torch.cuda.empty_cache()
 
+    @staticmethod
+    def conv_stats_in(per):
+        """From a ``profile_kernels`` table: launches a call of the wgmma
+        conv_stats kernel and of the other one, and the device ms a call of
+        both and of the column sums."""
+        new = sum(n for k, (_, n) in per.items() if "conv_stats_wgmma_kernel" in k)
+        old = sum(n for k, (_, n) in per.items() if "conv_stats_kernel<" in k)
+        ms = sum(t for k, (t, _) in per.items() if "conv_stats" in k or "column_sums_kernel" in k)
+        return new, old, ms
+
     def profile_kernels(self, fn, reps):
         """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
         warm-up call): ``{kernel name: (device ms per call, launches per
@@ -1955,7 +2057,8 @@ class Smoke:
 
     def device_ms(self, fn, match=None, reps=20):
         """Device milliseconds per call of ``fn`` from ``torch.profiler``:
-        the kernels whose names hold ``match``, or every kernel the call
+        the kernels whose names hold ``match`` (a string, or a tuple of
+        strings any of which a name may hold), or every kernel the call
         launches. A launch shorter than its wrapper's host time is timed
         by its own device time, not by back-to-back CUDA events, which
         then measure the host. A profile that came back with no device
@@ -1964,9 +2067,11 @@ class Smoke:
         times; after that the whole call is timed by ``queued_ms`` (its
         gaps included), and the log says so."""
         what = match or "the call"
+        names = (match,) if isinstance(match, str) else match
         for _ in range(3):
             per, _ = self.profile_kernels(fn, reps)
-            ms = sum(t for name, (t, _) in per.items() if match is None or match in name)
+            ms = sum(t for name, (t, _) in per.items()
+                     if names is None or any(m in name for m in names))
             if ms > 0 and all(float(n).is_integer() for _, n in per.values()):
                 return ms
         ms = queued_ms(fn, reps)
@@ -1986,7 +2091,7 @@ class Smoke:
         busy = sum(ms for ms, _ in per.values())
         if busy <= 0:
             log(f"{what}: the profiler saw no device time (not measured)")
-            return
+            return per
         top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
         share = "" if step_ms is None else \
             f"; busy {100 * busy / step_ms:.0f}% of the {step_ms:.2f} ms step measured without it"
@@ -1994,6 +2099,7 @@ class Smoke:
             f"{sum(n for _, n in per.values()):g} kernels per call; host wall under the "
             f"profiler {wall:.3f} ms per call (busy {100 * busy / wall:.0f}%){share}; top kernels: "
             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, (ms, n) in top))
+        return per
 
     def train_phase(self, cell):
         """``fit`` of the full-width char-RNN of ``cell`` in bf16 through the
@@ -2543,14 +2649,19 @@ class Smoke:
             f"{add_bound:.4f} ms (bytes); x + F.dropout(h) {add_lib:.4f} ms")
 
     def conv_stats_times(self):
-        """conv_stats at row 13's shape and at ResNet-50's stage-0 shape in
-        bf16 (CUDA events, after warm-up) beside its bound, its plain version
-        and ``torch.matmul`` plus the two fp32 column sums (a yardstick the
-        port never calls); the JSON row carries row 13's shape."""
+        """conv_stats in bf16 at each of the 15 distinct shapes of ResNet-50's
+        step, by device time (its tile and column-sum kernels, profiler;
+        back-to-back CUDA events beside it) beside its bound and ``torch.matmul``
+        plus the two fp32 column sums by device time (a yardstick the port
+        never calls); the plain version at row 13's shape; the sum over the
+        step's 36 launches beside the profiler's conv_stats total in the
+        step. The JSON row carries row 13's shape."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
         dt = torch.bfloat16
-        for i, (m, k, n) in enumerate(CONV_STATS_SHAPES[:2]):
+        log_clocks("conv_stats times")
+        step_sum = 0.0
+        for (m, k, n), launches in RESNET_CONV_SHAPES.items():
             g = torch.Generator(device=self.device).manual_seed(m + k)
             x = (torch.rand(m, k, generator=g, device=self.device) * 2.0).to(dt)
             w = (torch.randn(k, n, generator=g, device=self.device) * k ** -0.5).to(dt)
@@ -2562,18 +2673,24 @@ class Smoke:
 
             with torch.no_grad():
                 outs = cs.launch_conv_stats(x, w, shift)
-                ms = cuda_ms(lambda: cs.launch_conv_stats(x, w, shift), reps=20)
-                plain_ms = cuda_ms(lambda: cs.conv_stats_reference(x, w, shift), reps=5,
-                                   warmup=1)
-                lib_ms = cuda_ms(library, reps=20)
-                mm_ms = cuda_ms(lambda: torch.matmul(x, w), reps=20)
+                ms = self.device_ms(lambda: cs.launch_conv_stats(x, w, shift),
+                                    match=("conv_stats", "column_sums_kernel"))
+                events = cuda_ms(lambda: cs.launch_conv_stats(x, w, shift), reps=20)
+                lib_ms = self.device_ms(library)
+                row13 = (m, k, n) == CONV_STATS_SHAPES[0]
+                if row13:
+                    plain_ms = cuda_ms(lambda: cs.conv_stats_reference(x, w, shift), reps=5,
+                                       warmup=1)
             flops = 2.0 * m * k * n
             bound_ms, bound_by = bound([x, w, shift, *outs], flops, dt)
-            log(f"conv_stats: {ms:.4f} ms per launch at M={m} K={k} N={n} bf16 "
-                f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms ({bound_by}, "
-                f"{flops / 1e9:.2f} GFLOP); plain version {plain_ms:.3f} ms; torch.matmul + the "
-                f"two fp32 column sums {lib_ms:.4f} ms (torch.matmul alone {mm_ms:.4f} ms)")
-            if i == 0:
+            step_sum += launches * ms
+            log(f"conv_stats: {ms:.4f} ms per launch at M={m} K={k} N={n} bf16 by device time "
+                f"(CUDA events {events:.4f}; {flops / ms / 1e9:.1f} TFLOP/s), x{launches} a "
+                f"step; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP), "
+                f"{100 * bound_ms / ms:.1f}% of it reached; torch.matmul + the two fp32 column "
+                f"sums {lib_ms:.4f} ms by device time"
+                + (f"; plain version {plain_ms:.3f} ms" if row13 else ""))
+            if row13:
                 self.kernels.setdefault(cs.counter.name, {}).update({
                     "name": cs.counter.name, "route": "cuda",
                     "source": "deeplearning4j_tpu_torch/ops/kernels/csrc/conv_stats.cu",
@@ -2581,6 +2698,12 @@ class Smoke:
                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms})
             del x, w, outs
+        total = sum(RESNET_CONV_SHAPES.values())
+        in_step = "not measured" if self.resnet_conv_stats_ms is None else \
+            f"{self.resnet_conv_stats_ms:.3f} ms"
+        log(f"conv_stats over the {total} launches of a ResNet-50 step: {step_sum:.3f} ms "
+            f"(each shape's device time x its launches); the profiler's conv_stats total in the "
+            f"step: {in_step}")
 
     def cold_ms(self, fn, reps=20):
         """Milliseconds of ``fn`` with the L2 cache evicted before each call:

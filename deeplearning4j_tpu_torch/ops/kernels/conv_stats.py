@@ -29,8 +29,16 @@ JAX package. ``shift`` gets no gradient: in JAX it is layer state.
 
 Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at row 13's shape (12544,
 2048) @ (2048, 512) bf16 the 26.3 GFLOP take 0.0266 ms and bound it; at
-stage 0 of ResNet-50 (K = 64) the bytes of x and y do. The kernel's design,
-and what it leaves for later, is in its source.
+stage 0 of ResNet-50 (K = 64) the bytes of x and y do.
+
+The C side picks the kernel from the dtype and the alignment alone: bf16
+with K % 8 == 0, N % 8 == 0 and 16-byte-aligned x, w and y (every ResNet-50
+pair) runs ``conv_stats_wgmma_kernel`` (TMA-fed shared-memory rings,
+``wgmma`` on the tensor cores, a persistent walk over the output tiles);
+float32 and other bf16 inputs run ``conv_stats_kernel``. Either writes one
+partial row of the two sums per 128-row block of x, which a second kernel
+adds in a fixed order, so two launches agree bit for bit. The design and
+its times on the card are in the source's header.
 """
 
 from __future__ import annotations
@@ -115,7 +123,9 @@ def launch_conv_stats(x2d: torch.Tensor, w: torch.Tensor, shift: Optional[torch.
     shift = None if shift is None else shift.contiguous()
     (m, k), n = x2d.shape, w.shape[1]
     y = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    s1, s2 = (torch.zeros(n, dtype=torch.float32, device=x2d.device) for _ in range(2))
+    # the column-sum kernel writes every column; no rows: zero sums, no launch
+    new = torch.empty if m else torch.zeros
+    s1, s2 = (new(n, dtype=torch.float32, device=x2d.device) for _ in range(2))
     if m and n:
         part = torch.empty((2, lib.dl4j_conv_stats_blocks(m), n), dtype=torch.float32,
                            device=x2d.device)

@@ -214,3 +214,86 @@ def test_tensors_off_the_cpu_launch_the_kernel_or_raise(monkeypatch):
     assert launched == [(6, 4), (6, 4)]
     src = pathlib.Path(cs.__file__).read_text()
     assert not [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Try)]
+
+
+class _StandInLibrary:
+    """Takes the launcher's C calls in place of the built library: records
+    ``dl4j_conv_stats``'s arguments and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls, self.blocks_asked = err, [], []
+
+    def load(self):
+        return self
+
+    def dl4j_conv_stats_blocks(self, m):
+        self.blocks_asked.append(m)
+        return (m + 127) // 128
+
+    def dl4j_conv_stats(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def dl4j_cuda_error_string(self, err):
+        return b"stand-in failure"
+
+
+class _Stream:
+    cuda_stream = 0x5EED
+
+
+def _stand_in(monkeypatch, err=0):
+    import contextlib
+    lib = _StandInLibrary(err)
+    monkeypatch.setattr(cs, "LIBRARY", lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    return lib
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("with_shift", [True, False], ids=["shift", "no_shift"])
+@pytest.mark.parametrize("m,k,n", [(300, 16, 24), (37, 13, 5), (128, 64, 256)],
+                         ids=lambda v: str(v))
+def test_launcher_hands_the_c_side_its_arguments(monkeypatch, dtype, with_shift, m, k, n):
+    """``launch_conv_stats`` calls ``dl4j_conv_stats(dtype, x, w, shift, y,
+    part1, part2, s1, s2, M, K, N, stream)`` once, with contiguous operands,
+    the outputs it returns, and part1/part2 two consecutive blocks of
+    ``dl4j_conv_stats_blocks(M)`` rows of N floats: the C side picks the
+    kernel, the wrapper only hands it the tensors."""
+    lib = _stand_in(monkeypatch)
+    x, w = (torch.from_numpy(a).to(dtype) for a in _inputs(m, k, n, seed=m + n))
+    xt = x.t().contiguous().t()  # the same values, column-major: the launcher copies
+    shift = torch.linspace(-1, 1, n) if with_shift else None
+    counter = cs.LaunchCounter("stand-in")
+    y, s1, s2 = cs.launch_conv_stats(xt, w, shift, launches=counter)
+    assert counter.value == 1 and lib.blocks_asked == [m] and len(lib.calls) == 1
+    (code, px, pw, pshift, py, p1, p2, ps1, ps2, mm, kk, nn, stream) = lib.calls[0]
+    assert code == {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert (mm, kk, nn, stream) == (m, k, n, _Stream.cuda_stream)
+    assert px != xt.data_ptr() and pw == w.data_ptr()
+    assert pshift == (None if shift is None else shift.data_ptr())
+    assert (py, ps1, ps2) == (y.data_ptr(), s1.data_ptr(), s2.data_ptr())
+    assert p2 - p1 == (m + 127) // 128 * n * 4
+    assert y.shape == (m, n) and y.dtype == dtype
+    assert s1.shape == s2.shape == (n,) and s1.dtype == s2.dtype == torch.float32
+
+
+def test_launcher_raises_on_a_launch_error_and_counts_nothing(monkeypatch):
+    """A nonzero cudaError_t from the C side raises with its message: no
+    fallback to the plain version, no launch counted."""
+    _stand_in(monkeypatch, err=98)
+    x, w = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(64, 16, 8, seed=4))
+    counter = cs.LaunchCounter("stand-in")
+    with pytest.raises(RuntimeError, match="stand-in failure.*cudaError 98"):
+        cs.launch_conv_stats(x, w, None, launches=counter)
+    assert counter.value == 0
+
+
+def test_launcher_launches_nothing_for_no_rows(monkeypatch):
+    lib = _stand_in(monkeypatch)
+    x, w = torch.zeros(0, 16, dtype=torch.bfloat16), torch.ones(16, 8, dtype=torch.bfloat16)
+    counter = cs.LaunchCounter("stand-in")
+    y, s1, s2 = cs.launch_conv_stats(x, w, None, launches=counter)
+    assert lib.calls == [] and counter.value == 0 and y.shape == (0, 8)
+    assert torch.equal(s1, torch.zeros(8)) and torch.equal(s2, torch.zeros(8))

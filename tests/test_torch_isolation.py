@@ -1,7 +1,7 @@
 """The port stands alone and never falls back to the CPU on its own.
 
-- No file of ``deeplearning4j_tpu_torch/`` and not ``chip_smoke.py``
-  imports ``jax`` or anything of ``deeplearning4j_tpu`` (found by walking
+- No file of ``deeplearning4j_tpu_torch/``, nor ``chip_smoke.py`` or
+  ``chip_ab.py``, imports ``jax`` or anything of ``deeplearning4j_tpu`` (found by walking
   every ``import`` in their syntax trees, so a lazy import inside a function
   counts too).
 - With no GPU and no request for the CPU, every entry point raises; with
@@ -19,7 +19,7 @@ from deeplearning4j_tpu_torch.runtime.environment import get_environment
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu", "optax", "flax")
 
 
