@@ -13,13 +13,19 @@ the card and exits nonzero if any phase fails:
             (``cuobjdump -sass`` of the built library, counted);
 2. kernels: every kernel against its plain PyTorch version on the card, in
             float32 and bfloat16, at the serving/training shape (B=64,
-            T=256, H=512) and at ragged shapes and B > 64 (two launches),
-            with a random mask holding all-zero rows for the peephole/mask
-            cell: the inference forward, the saving forward (ys, hT, cT and
-            the residuals), and the backward (ds, dh0, dc0, on the same
-            residuals); then the whole autograd wrapper's float32 gradients
-            against ``torch.autograd`` of the plain forward. Max error beside
-            the tolerance. The flash-attention kernel, both instances
+            T=256, H=512), at ragged shapes and B > 64 (two launches), and
+            at the edges of the LSTM's row-group kernels (B = 16, 17, 33;
+            H = 8, 1024; H = 100 for the CUDA-core kernels in bf16), with a
+            random mask holding all-zero rows for the peephole/mask cell:
+            the inference forward, the saving forward (ys, hT, cT and the
+            residuals), and the backward (ds, dh0, dc0, on the same
+            residuals), each LSTM check with four more launches bit for bit
+            and the kernel the profiler names (``lstm_fwd_mma_kernel``/
+            ``lstm_bwd_mma_kernel`` for bf16 with H % 8 == 0, the CUDA-core
+            ``lstm_fwd_kernel``/``lstm_bwd_kernel`` otherwise); then the
+            whole autograd wrapper's float32 gradients against
+            ``torch.autograd`` of the plain forward. Max error beside the
+            tolerance. The flash-attention kernel, both instances
             (inference: o; saving: o and lse), against its plain version in
             float32 and bfloat16 at BERT-base serving's shape (with and
             without a key-padding mask holding a length-1 row and a fully
@@ -72,7 +78,9 @@ the card and exits nonzero if any phase fails:
             requests of 1-64 rows at T=256. Every answer is held against a
             forward pass built from the plain versions; the launch counts
             of the run must show the inference kernels ran; ``rnn_time_step``
-            over 4 chunks of 64 steps must equal the whole-sequence output.
+            over 4 chunks of 64 steps must equal the whole-sequence output;
+            the profiler must name the forward kernel of one 64-row request,
+            2 launches (``lstm_fwd_mma_kernel``, ``gru_fwd_kernel``).
             Once with ``graves=True`` (GravesLSTM, kernels of
             ``fused_lstm_graves``) and once with ``graves=False`` (LSTM,
             kernels of ``fused_lstm``). Then ``slice bert``: ``Bert.base()``
@@ -89,8 +97,10 @@ the card and exits nonzero if any phase fails:
             ``tbptt_length=256`` is trained by ``fit`` in bf16 compute on 20
             seeded batches of B=64, T=256 (``bench_char_rnn``'s shape); the
             launch counts must show one saving forward and one backward per
-            layer per step and nothing of the other cell, and the loss must
-            fall. It prints step ms and tokens/s. The first 3 steps' losses
+            layer per step and nothing of the other cell, the profiler must
+            name them in one more step (``lstm_fwd_mma_kernel`` and
+            ``lstm_bwd_mma_kernel`` x 2), and the loss must fall. It prints
+            step ms and tokens/s. The first 3 steps' losses
             are held, in float32 and bfloat16, against the same training
             with the recurrences computed by the plain forward under
             autograd. Once per cell, as the slice phase. Then ``train
@@ -123,7 +133,10 @@ the card and exits nonzero if any phase fails:
             64-row requests, answers against the net's own output); the
             first 3 losses against the same net with conv_stats' plain
             version. ``--resnet`` runs the build, the conv_stats checks,
-            this phase and conv_stats' times only. ``--attention`` runs the
+            this phase and conv_stats' times only. ``--recurrent`` runs the
+            build, the LSTM and GRU checks, the slice and train phases of
+            the three char-RNNs and the times of rows 1-6 only.
+            ``--attention`` runs the
             build, the flash and short-attention checks, ``slice bert``,
             ``train bert``, ``ops`` and the times of rows 7, 8-9 and 11-12
             only;
@@ -134,11 +147,14 @@ the card and exits nonzero if any phase fails:
             64) bf16, forward and gradient against a dense fp32 softmax, and
             ``fused_dropout`` at 8192 x 768 bf16, rate 0.1 (zero fraction,
             the gradient's mask); one forward and one backward launch of each;
-6. times  : each kernel's time at B=64, T=256, H=512 bf16 (CUDA events,
-            after warm-up) beside its bound, its plain version's time and,
-            for the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
+6. times  : each LSTM kernel's time at B=64, T=256, H=512 bf16 by its own
+            device time (``torch.profiler``; back-to-back CUDA events beside
+            it), per step, the kernel the profiler names, beside its bound
+            and the share of it reached, its plain version's time and, for
+            the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
             forward and backward as a yardstick the port never calls; the
-            kernels' share of a training step. The GRU kernels the same way,
+            kernels' share of a training step and of a serving request. The
+            GRU kernels by CUDA events,
             beside ``torch.nn.GRU`` (cuDNN), with their share of a serving
             request and of a training step. The flash kernel in bf16 at
             BERT-base serving's shape (unmasked as served, and masked) and
@@ -195,9 +211,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SERVE_T, SERVE_B, HIDDEN, VOCAB, LAYERS = 256, 64, 512, 96, 2
 # (T, B, H): the serving shape first, then the 1-row bucket, ragged widths, one
-# step (rnn_time_step), and more rows than one launch takes
+# step (rnn_time_step), and more rows than one launch takes; then the edges of
+# the LSTM's row-group kernels (bf16, H % 8 == 0): one whole row group of 16,
+# a ragged one (17), three groups with a ragged third (33), the narrowest
+# width (H = 8: one k tile, zero-padded), the backward's shared-memory edge
+# (H = 1024: 8 units a block), and H = 100, whose bf16 rows are not whole
+# 16-byte chunks (the CUDA-core kernels). H = 200 is a multiple of 8 and takes
+# the row-group kernels, with a ragged unit group.
 KERNEL_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (SERVE_T, 1, HIDDEN), (5, 3, 200),
-                 (1, 64, 512), (3, 130, 64)]
+                 (1, 64, 512), (3, 130, 64),
+                 (8, 16, 512), (8, 17, 512), (8, 33, 512), (8, 5, 8), (8, 16, 1024), (5, 3, 100)]
+# The LSTM kernels' names (the profiler's), by design: the row-group kernels
+# for bf16 with H % 8 == 0 (and aligned operands, as every check's are), the
+# CUDA-core kernels otherwise.
+LSTM_ROW_GROUP = ("lstm_fwd_mma_kernel", "lstm_bwd_mma_kernel")
+LSTM_CUDA_CORE = ("lstm_fwd_kernel", "lstm_bwd_kernel")
+RECURRENT_KERNEL = re.compile(r"((?:lstm|gru)_(?:fwd|bwd)(?:_mma)?_kernel)")
 # Kernel vs plain version, max abs error over ys/hT/cT. float32: the two sum
 # h @ W_rec in different orders. bfloat16: both round h to bf16 at every
 # step, so a tie broken the other way by that order carries one bf16 ulp
@@ -225,6 +254,10 @@ GRAD_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (3, 130, 64)]
 CHAR_RNN_TAGS = {"graves": "graves=True", "lstm": "graves=False", "gru": "gru"}
 CHAR_RNN_KERNELS = {"graves": "fused_graves_lstm", "lstm": "fused_lstm", "gru": "fused_gru"}
 CHAR_RNN_SEEDS = {"graves": 1, "lstm": 0, "gru": 2}
+# The kernels (profiler's names) a bf16 serving request and a training step of
+# each char-RNN run: the forward's, and the backward's.
+CHAR_RNN_RAN = {"graves": LSTM_ROW_GROUP, "lstm": LSTM_ROW_GROUP,
+                "gru": ("gru_fwd_kernel", "gru_bwd_kernel")}
 # One Bidirectional(GRU) forward against the plain loop: (T, B, n_in), H = HIDDEN
 BIDI_SHAPE = (64, 16, VOCAB)
 # Served softmax probabilities vs the plain forward (bf16 compute).
@@ -900,6 +933,17 @@ class Smoke:
                    f"conv_stats_wgmma_kernel<64|128|256> each hold HGMMA: {counts}")
 
     def kernel_phase(self):
+        self.recurrent_checks()
+        self.flash_checks()
+        self.dropout_checks()
+        self.short_attention_checks()
+        self.conv_stats_checks()
+
+    def recurrent_checks(self):
+        """Rows 1-6: the LSTM kernels of both cells and the GRU kernels
+        against their plain versions at every KERNEL_SHAPES entry in fp32
+        and bf16, then under autograd at GRAD_SHAPES, and one
+        ``Bidirectional(GRU)`` forward."""
         torch = self.torch
         for dtype in (torch.float32, torch.bfloat16):
             for T, B, H in KERNEL_SHAPES:
@@ -914,10 +958,6 @@ class Smoke:
         for T, B, H in GRAD_SHAPES:
             self.check_gru_autograd(T, B, H)
         self.check_bidirectional_gru()
-        self.flash_checks()
-        self.dropout_checks()
-        self.short_attention_checks()
-        self.conv_stats_checks()
 
     def flash_checks(self):
         """Row 7 (both instances) at every FLASH_SHAPES entry and on
@@ -975,15 +1015,19 @@ class Smoke:
             self.kernels.setdefault(cs.counter.name, {})["max_abs_err"] = \
                 max_err(got[:1], want[:1])
 
-    def conv_stats_kernels(self, run, tries=3):
+    def conv_stats_kernels(self, run, tries=5):
         """The tile kernels one launch of conv_stats runs, by the profiler's
         names: ``conv_stats_wgmma_kernel`` (any BN) or ``conv_stats_kernel<T>``,
-        beside which ``column_sums_kernel`` must run once. A session that saw
-        neither sum kernel once is taken again."""
+        beside which ``column_sums_kernel`` must run once. A session that did
+        not see the sum kernel and one tile kernel once each (one that lost a
+        record) is taken again."""
         ran = []
         for _ in range(tries):
             per, _ = self.profile_kernels(run, 1)
-            if any("column_sums_kernel" in name and n == 1 for name, (_, n) in per.items()):
+            sums = [n for name, (_, n) in per.items() if "column_sums_kernel" in name]
+            tiles = [n for name, (_, n) in per.items()
+                     if "conv_stats" in name and "column_sums_kernel" not in name]
+            if sums == [1] and tiles == [1]:
                 break
         for name in per:
             if "conv_stats_wgmma_kernel" in name:
@@ -1424,15 +1468,29 @@ class Smoke:
             want_bwd = fl.lstm_bwd_reference(*bwd)
         torch.cuda.synchronize()
         tag = f"{dname:8s} T={T:3d} B={B:3d} H={H:3d} mask={'yes' if mask else 'no '}"
-        for name, got_, want_, tol, rel in (
-                (mod.counter.name, got, want_save[:3], KERNEL_TOL[dname], False),
-                (mod.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
-                (mod.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)):
+        # the three launches again (a warm-up and the profiled calls): their
+        # kernels' names, and every repeat bit for bit the first launches
+        n = -(-B // 64)  # one launch per group of at most 64 rows
+        fwd_k, bwd_k = LSTM_ROW_GROUP if dtype == torch.bfloat16 and H % 8 == 0 else \
+            LSTM_CUDA_CORE
+        expect = {fwd_k: 2 * n, bwd_k: n}
+        again = []
+        with torch.no_grad():
+            ran = self.recurrent_kernels(lambda: again.append((
+                fl.launch_lstm_fwd(*fwd, mod.counter),
+                fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True),
+                fl.launch_lstm_bwd(*bwd, mod.bwd_counter))), expect)
+        for i, (name, got_, want_, tol, rel, kern) in enumerate((
+                (mod.counter.name, got, want_save[:3], KERNEL_TOL[dname], False, fwd_k),
+                (mod.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False, fwd_k),
+                (mod.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True, bwd_k))):
             err = max_err(got_, want_, relative=rel)
             finite = all(bool(torch.isfinite(x.float()).all()) for x in got_)
-            self.check(finite and err <= tol,
+            same = all(bits_equal(x, y) for run in again for x, y in zip(got_, run[i]))
+            self.check(finite and err <= tol and same and ran == expect,
                        f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
-                       f"tol={tol:g}")
+                       f"tol={tol:g}; {len(again)} more launches bit for bit: {same}; ran "
+                       f"{kern} (the three launches: {ran}, expected {expect})")
             if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16 and not mask:
                 self.kernels.setdefault(name, {})["max_abs_err"] = err
         if mask:  # an all-masked row: no gradient reaches its inputs
@@ -1722,6 +1780,10 @@ class Smoke:
         log(f"{tag} one {SERVE_B}-row request at a time, {len(ms)} requests: p50 "
             f"{p50:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
             f"{SERVE_B * SERVE_T / p50 * 1e3:.0f} tokens/s at p50")
+        expect = {CHAR_RNN_RAN[cell][0]: LAYERS}
+        ran = self.recurrent_kernels(lambda: reg.predict("char-rnn", x), expect)
+        self.check(ran == expect, f"{tag} one {SERVE_B}-row request ran {ran} by the "
+                                  f"profiler (expected {expect})")
         reg.shutdown()
         self.check(not served.batcher._worker.is_alive(), f"{tag} registry shut down")
 
@@ -2024,6 +2086,34 @@ class Smoke:
         ms = sum(t for k, (t, _) in per.items() if "conv_stats" in k or "column_sums_kernel" in k)
         return new, old, ms
 
+    def recurrent_kernels(self, fn, expect, reps=3, tries=8):
+        """The recurrent kernels one call of ``fn`` launches, by the
+        profiler's names (``RECURRENT_KERNEL``): ``{name: launches per
+        call}`` over ``reps`` calls, to be held against ``expect``. A
+        session can lose kernel records, never add one (one saw one of a
+        request's two launches: over 3 calls that reads 5/3, not 1; one saw
+        none of a check's three launches; a loss of whole calls' records
+        reads as a smaller whole count). So a session that saw fewer
+        launches of the expected kernels and nothing else is taken again,
+        up to ``tries`` times; a kernel not in ``expect``, or more launches
+        than it says, ends the search at once."""
+        lossy = []
+        for _ in range(tries):
+            per, _ = self.profile_kernels(fn, reps)
+            ran = {}
+            for key, (_, n) in per.items():
+                m = RECURRENT_KERNEL.search(key)
+                if m:
+                    ran[m[1]] = ran.get(m[1], 0) + n
+            ran = {k: int(n) if float(n).is_integer() else n for k, n in sorted(ran.items())}
+            if ran == expect or any(k not in expect or n > expect[k] for k, n in ran.items()):
+                break
+            lossy.append(ran)
+        if lossy:
+            log(f"profiler: {len(lossy)} session(s) lost kernel records (they saw {lossy} a "
+                f"call); the one used saw {ran}")
+        return ran
+
     def profile_kernels(self, fn, reps):
         """``torch.profiler`` over ``reps`` calls of ``fn`` (after one
         warm-up call): ``{kernel name: (device ms per call, launches per
@@ -2157,6 +2247,10 @@ class Smoke:
             f"step ms after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
             f"{step_ms[-1]:.2f}); {TRAIN_B * TRAIN_T / med * 1e3:.0f} tokens/s at the median; "
             f"first step {1e3 * (stamps[0] - t0):.1f} ms")
+        expect = {k: LAYERS for k in CHAR_RNN_RAN[cell]}
+        ran = self.recurrent_kernels(lambda: fit(1, torch.bfloat16), expect)
+        self.check(ran == expect, f"{tag} one bf16 training step ran {ran} by the profiler "
+                                  f"(expected {expect})")
 
         # ---- kernels vs the plain trainer, the first CMP_STEPS steps
         for dtype in (torch.float32, torch.bfloat16):
@@ -2316,9 +2410,22 @@ class Smoke:
         get_environment().allow_bfloat16()
 
     def times_phase(self):
-        """Each kernel's time at the serving/training shape, bf16, with the
-        main path's arguments (GravesLSTM: peepholes, no mask), beside its
-        bound, its plain version's time and, for the plain cell, cuDNN's."""
+        """Every kernel's time at its main path's shape: rows 1-6, 7-9,
+        10-12 and 13."""
+        self.lstm_times()
+        self.gru_times()
+        self.flash_times()
+        self.dropout_times()
+        self.short_times()
+        self.conv_stats_times()
+
+    def lstm_times(self):
+        """Each LSTM kernel's time at the serving/training shape, bf16, with
+        the main path's arguments (GravesLSTM: peepholes, no mask): its own
+        device time (``torch.profiler``) with back-to-back CUDA events
+        beside it, the time per step, the kernel the profiler names, beside
+        its bound and the share of it reached, its plain version's time and,
+        for the plain cell, cuDNN's."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm as fl
         T, B, H = KERNEL_SHAPES[0]
@@ -2333,6 +2440,7 @@ class Smoke:
                   pallas + "fused_lstm_graves.py:241"),
                  ("fused_lstm", False, pallas + "fused_lstm.py:162", pallas + "fused_lstm.py:242")]
         csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
+        log_clocks("LSTM times")
         for cell, peep, fwd_line, bwd_line in specs:
             mod = self.cell_module(cell)
             a = lstm_inputs(T, B, H, dt, self.device, seed=5, peep=peep, mask=False)
@@ -2355,7 +2463,9 @@ class Smoke:
                  lambda: fl.lstm_bwd_reference(*bwd), cudnn["bwd"]),
             ]
             for name, src, replaces, ins, outs_, kern, plain, lib in rows:
-                ms = cuda_ms(kern, reps=10)
+                ms = self.device_ms(kern, ("lstm_fwd", "lstm_bwd"))
+                events_ms = cuda_ms(kern, reps=10)
+                ran = self.recurrent_kernels(kern, {LSTM_ROW_GROUP["bwd" in name]: 1})
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
                 bound_ms, bound_by = bound(list(ins) + list(outs_), 2.0 * T * B * H * 4 * H, dt)
                 library_ms = None if peep else lib
@@ -2363,9 +2473,13 @@ class Smoke:
                     "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
-                log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
-                    f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
-                    f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+                vs = "" if library_ms is None else \
+                    f"; cuDNN {library_ms:.3f} ms ({ms / library_ms:.2f}x it)"
+                log(f"{name}: {ms:.4f} ms per launch by device time (CUDA events "
+                    f"{events_ms:.4f}), {1e3 * ms / T:.2f} us a step at T={T} B={B} H={H} bf16, "
+                    f"{' + '.join(ran)}; bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{100 * bound_ms / ms:.1f}% of it reached; plain version "
+                    f"{plain_ms:.3f} ms{vs}")
             step = self.train_step_ms.get("graves" if peep else "lstm")
             if step is not None:
                 kms = LAYERS * (self.kernels[mod.save_counter.name]["ms"]
@@ -2373,11 +2487,11 @@ class Smoke:
                 log(f"graves={peep} training step: the recurrent kernels take {LAYERS} x "
                     f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
                     f"({100 * kms / step:.0f}%)")
-        self.gru_times()
-        self.flash_times()
-        self.dropout_times()
-        self.short_times()
-        self.conv_stats_times()
+            p50 = self.serve_p50_ms.get("graves" if peep else "lstm")
+            if p50 is not None:
+                kms = LAYERS * self.kernels[mod.counter.name]["ms"]
+                log(f"graves={peep} one {SERVE_B}-row request: the {LAYERS} LSTM launches take "
+                    f"{kms:.2f} ms of the {p50:.2f} ms p50 ({100 * kms / p50:.0f}%)")
 
     def gru_times(self):
         """The GRU kernels' time at B=64, T=256, H=512 bf16 (CUDA events,
@@ -2899,6 +3013,23 @@ def main() -> int:
         smoke.phase("ops", smoke.ops_phase)
         smoke.phase("times flash", smoke.flash_times)
         smoke.phase("times short attention", smoke.short_times)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--recurrent"]:
+        smoke.phase("kernels recurrent", smoke.recurrent_checks)
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            for cell in ("graves", "lstm", "gru"):
+                smoke.phase(f"slice {CHAR_RNN_TAGS[cell]}",
+                            lambda cell=cell: smoke.slice_phase(cell, workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for cell in ("graves", "lstm", "gru"):
+            smoke.phase(f"train {CHAR_RNN_TAGS[cell]}", lambda cell=cell: smoke.train_phase(cell))
+        smoke.phase("times LSTM", smoke.lstm_times)
+        smoke.phase("times GRU", smoke.gru_times)
         log(f"total {time.perf_counter() - t0:.1f} s")
         for f in smoke.failures:
             log("FAIL " + f)

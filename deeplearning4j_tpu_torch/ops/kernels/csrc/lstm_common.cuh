@@ -2,12 +2,14 @@
 // lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): storage-type conversions, loads that
 // bypass L1, row staging with 16-byte loads, the shared-memory dot product,
 // and the launch plan that makes every block of a cooperative grid
-// co-resident.
+// co-resident; for the LSTM's row-group kernels, the barrier of one row
+// group and their launch plan.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace dl4j_lstm {
 
@@ -138,6 +140,86 @@ cudaError_t launch_cooperative(Kernel kern, Args a, Smem smem, size_t row_bytes,
     if (blocks > per_sm * sms) continue;
     a.units = units;
     a.chunk = chunk;
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks), dim3(kThreads), params,
+                                      bytes, stream);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// Batch rows of a row group: one mma M tile. The row-group kernels give each
+// block up to kGroupRows rows and a few hidden units; rows never interact, so
+// a block waits only for the blocks of its own row group at each step.
+constexpr int kGroupRows = 16;
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The barrier of one row group, in two halves, on one monotonic int32
+// counter of the group in global memory (zeroed by the wrapper before the
+// launch). group_arrive: once every thread of the block is here (so its
+// stores of the step are ordered before), thread 0 adds 1 with release
+// semantics at .gpu scope. group_wait: thread 0 spins with acquire loads
+// until the counter reaches `target` (the group's blocks times the number of
+// barriers passed), then the block goes on; readers of what the other blocks
+// wrote then load it through L2 (cp.async.cg). A wait still open after 10 s
+// traps, so that a fault fails the launch instead of holding the card.
+// Between the halves a block may issue stores that nobody waits for.
+__device__ __forceinline__ void group_arrive(int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(counter), "r"(1) : "memory");
+}
+
+__device__ __forceinline__ void group_wait(const int* counter, int target) {
+  if (threadIdx.x == 0 && load_acquire(counter) < target) {
+    const uint64_t t0 = global_ns();
+    while (load_acquire(counter) < target)
+      if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+  __syncthreads();
+}
+
+// Plan and make one cooperative launch of a row-group kernel over the
+// launch's rows: ceil(rows / kGroupRows) row groups times ceil(H / U) unit
+// groups of U hidden units, with the least U of `units` (ascending) whose
+// blocks fit one to an SM: every block has an SM to itself, and all are
+// co-resident, as the barriers need. `smem(U)` is one block's dynamic shared
+// memory. Sets a.units. cudaErrorInvalidConfiguration when no plan fits:
+// the caller then takes the CUDA-core kernel.
+template <typename Kernel, typename Args, typename Smem>
+cudaError_t launch_row_groups(Kernel kern, Args a, const int* units, int n_units, Smem smem,
+                              cudaStream_t stream) {
+  int dev = 0, sms = 0, optin = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  const int groups = (a.rows + kGroupRows - 1) / kGroupRows;
+  for (int i = 0; i < n_units; ++i) {
+    const int blocks = groups * ((a.H + units[i] - 1) / units[i]);
+    const size_t bytes = smem(units[i]);
+    if (blocks > sms || bytes > (size_t)optin) continue;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) continue;
+    a.units = units[i];
     void* params[] = {&a};
     err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks), dim3(kThreads), params,
                                       bytes, stream);

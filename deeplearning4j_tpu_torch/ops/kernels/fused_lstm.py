@@ -5,16 +5,21 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas/fused_lstm.py``: ``_lstm_fwd``
 (the ``pallas_call`` at :162) and ``_lstm_bwd_kernel_call`` (:242). The input
 projection ``x @ W + b`` for the whole sequence stays outside the kernels
 (one ``torch.matmul``, as the JAX package leaves it to XLA). The forward
-kernel, ``csrc/lstm_fwd.cu``, runs the sequential recurrence with the gate
+source, ``csrc/lstm_fwd.cu``, runs the sequential recurrence with the gate
 columns of ``W_rec`` pinned in shared memory for all steps and the h/c
 carries in fp32; its training instance also saves the residuals the
 backward reads: the activated gates (T, B, 4H) and the carried cell
-sequence (T, B, H). The backward kernel, ``csrc/lstm_bwd.cu``, runs the
+sequence (T, B, H). The backward source, ``csrc/lstm_bwd.cu``, runs the
 reverse-time recurrence and writes ``ds`` (the pre-activation gradients,
 which are also ``dzx``), ``dh0`` and ``dc0``; ``dW_rec = h_prev^T @ ds`` and
 the peephole gradients are large products outside it, as at JAX
 ``fused_lstm.py:297-304``. Both sources also serve the peephole/mask cell of
-:mod:`.fused_lstm_graves` and state their bounds.
+:mod:`.fused_lstm_graves` and state their bounds. Each holds two kernels,
+and its C entry point picks one: bf16 with H % 8 == 0 and 16-byte aligned
+operands takes the row-group kernel (tensor-core step products, a barrier
+per group of 16 batch rows, whose counters the wrapper hands it zeroed);
+float32, the other bf16 shapes, and a shape whose row-group plan does not
+fit take the CUDA-core kernel (a grid barrier a step).
 
 Gate order [i, f, g, o]. Rounding points: the carries and the gate math are
 fp32; h (forward) and ds (backward) are rounded to the input dtype before
@@ -55,7 +60,7 @@ bwd_counter = LaunchCounter("fused_lstm_bwd")
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_lstm_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dl4j_lstm_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dl4j_lstm_fwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -63,7 +68,7 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_lstm_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dl4j_lstm_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dl4j_lstm_bwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -264,6 +269,13 @@ def _launch_by_rows(lib, fn, args, b: int, launches: LaunchCounter, what: str,
             launches.add()
 
 
+def _counters(b: int, like: torch.Tensor) -> torch.Tensor:
+    """The barrier scratch of the row-group kernels for one call: one zeroed
+    int32 per batch row; the row group that starts at batch row r counts at
+    ``counters[r]``, so no two groups of the call's launches share one."""
+    return torch.zeros(b, dtype=torch.int32, device=like.device)
+
+
 def launch_lstm_fwd(zx, w_rec, peep, h0, c0, mask, launches: LaunchCounter,
                     save: bool = False):
     """Launch the forward kernel on CUDA tensors already checked by
@@ -275,9 +287,10 @@ def launch_lstm_fwd(zx, w_rec, peep, h0, c0, mask, launches: LaunchCounter,
     new = lambda *shape: torch.empty(shape, dtype=zx.dtype, device=zx.device)  # noqa: E731
     ys, h_t, c_t = new(t_len, b, hid), new(b, hid), new(b, hid)
     gates, cseq = (new(t_len, b, h4), new(t_len, b, hid)) if save else (None, None)
+    counters = _counters(b, zx)
     args = (_DTYPE_CODES[zx.dtype], zx.data_ptr(), w_rec.data_ptr(), _ptr(peep),
             h0.data_ptr(), c0.data_ptr(), _ptr(mask), ys.data_ptr(), h_t.data_ptr(),
-            c_t.data_ptr(), _ptr(gates), _ptr(cseq), t_len, b, hid)
+            c_t.data_ptr(), _ptr(gates), _ptr(cseq), counters.data_ptr(), t_len, b, hid)
     _launch_by_rows(lib, lib.dl4j_lstm_fwd, args, b, launches, "LSTM forward", zx)
     return (ys, h_t, c_t, gates, cseq) if save else (ys, h_t, c_t)
 
@@ -290,9 +303,11 @@ def launch_lstm_bwd(dys, dhT, dcT, gates, cseq, c0, w_rec, peep, mask,
     t_len, b, h4 = gates.shape
     ds = torch.empty_like(gates)
     dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+    counters = _counters(b, gates)
     args = (_DTYPE_CODES[gates.dtype], dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
             gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), w_rec.data_ptr(), _ptr(peep),
-            _ptr(mask), ds.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t_len, b, h4 // 4)
+            _ptr(mask), ds.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), counters.data_ptr(),
+            t_len, b, h4 // 4)
     _launch_by_rows(lib, lib.dl4j_lstm_bwd, args, b, launches, "LSTM backward", gates)
     return ds, dh0, dc0
 

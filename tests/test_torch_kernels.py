@@ -110,10 +110,14 @@ def test_explicit_zero_peepholes_and_ones_mask_equal_none():
         torch.testing.assert_close(x, z, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(5, 3, 200), (1, 64, 16), (7, 130, 8)],
-                         ids=["ragged", "one_step", "over_one_launch"])
+@pytest.mark.parametrize("shape", [(5, 3, 200), (1, 64, 16), (7, 130, 8), (6, 17, 8),
+                                   (4, 17, 512)],
+                         ids=["ragged", "one_step", "over_one_launch",
+                              "ragged_row_group_one_k_tile", "ragged_row_group"])
 def test_plain_versions_match_a_float64_loop(shape):
-    """Shapes the TPU kernels refused (B % 8, H % 128, T < 32) are taken."""
+    """Shapes the TPU kernels refused (B % 8, H % 128, T < 32) are taken;
+    B = 17 and H = 8 are the edges of the card's row-group kernels (a row
+    group of 16 and one of 1; one zero-padded k tile)."""
     t_len, b, hid = shape
     rng = np.random.default_rng(3)
     zx = rng.normal(0, 1, (t_len, b, 4 * hid))

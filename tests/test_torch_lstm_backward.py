@@ -164,11 +164,15 @@ def test_saved_residuals_match_the_pallas_forward(with_mask):
     _close(out[4], cseq, "cseq (carried cell)")
 
 
-@pytest.mark.parametrize("shape", [(5, 3, 200), (3, 70, 16), (1, 4, 8)],
-                         ids=["ragged", "over_one_launch", "one_step"])
+@pytest.mark.parametrize("shape", [(5, 3, 200), (3, 70, 16), (1, 4, 8), (6, 17, 8),
+                                   (3, 17, 512)],
+                         ids=["ragged", "over_one_launch", "one_step",
+                              "ragged_row_group_h8", "ragged_row_group"])
 @pytest.mark.parametrize("cell", ["plain", "graves_masked", "graves"])
 def test_plain_backward_matches_float64_autograd(shape, cell):
-    """Shapes the TPU kernels refused (B % 8, H % 128, T < 32, B > 64)."""
+    """Shapes the TPU kernels refused (B % 8, H % 128, T < 32, B > 64); B =
+    17 and H = 8 are the edges of the card's row-group kernels (a row group
+    of 16 and one of 1; a K of 4H = 32, one pair of k tiles)."""
     t_len, b, hid = shape
     t = {k: torch.from_numpy(v)
          for k, v in _inputs(3, cell == "graves_masked", t_len, b, hid, np.float64).items()}
