@@ -14,7 +14,7 @@ the card and exits nonzero if any phase fails:
 2. kernels: every kernel against its plain PyTorch version on the card, in
             float32 and bfloat16, at the serving/training shape (B=64,
             T=256, H=512), at ragged shapes and B > 64 (two launches), and
-            at the edges of the LSTM's row-group kernels (B = 16, 17, 33;
+            at the edges of the recurrent row-group kernels (B = 16, 17, 33;
             H = 8, 1024; H = 100 for the CUDA-core kernels in bf16), with a
             random mask holding all-zero rows for the peephole/mask cell:
             the inference forward, the saving forward (ys, hT, cT and the
@@ -44,7 +44,13 @@ the card and exits nonzero if any phase fails:
             GRU kernels (inference forward; saving forward: ys, hT, gates,
             zh_n; backward: dzx, dh0 on the same residuals) against
             ``gru_reference``/``gru_bwd_reference`` in float32 and bfloat16
-            at the same shapes, ``FusedGRUFunction``'s float32 gradients
+            at the same shapes and at two more edges of the GRU's row-group
+            plan (H = 1024 with 32 and 64 rows), each with four more
+            launches bit for bit and the kernels the profiler names
+            (``gru_fwd_mma_kernel``/``gru_bwd_mma_kernel`` for bf16 with
+            H % 8 == 0 where a plan fits, the CUDA-core
+            ``gru_fwd_kernel``/``gru_bwd_kernel`` otherwise),
+            ``FusedGRUFunction``'s float32 gradients
             (dzx, dW_rec, dh0) against ``torch.autograd`` of
             ``gru_reference``, and one ``Bidirectional(GRU)`` forward against
             the plain loop (2 launches). The dropout kernel against its plain
@@ -80,7 +86,7 @@ the card and exits nonzero if any phase fails:
             of the run must show the inference kernels ran; ``rnn_time_step``
             over 4 chunks of 64 steps must equal the whole-sequence output;
             the profiler must name the forward kernel of one 64-row request,
-            2 launches (``lstm_fwd_mma_kernel``, ``gru_fwd_kernel``).
+            2 launches (``lstm_fwd_mma_kernel``, ``gru_fwd_mma_kernel``).
             Once with ``graves=True`` (GravesLSTM, kernels of
             ``fused_lstm_graves``) and once with ``graves=False`` (LSTM,
             kernels of ``fused_lstm``). Then ``slice bert``: ``Bert.base()``
@@ -154,9 +160,8 @@ the card and exits nonzero if any phase fails:
             the plain cell, ``torch.nn.LSTM`` (cuDNN) inference, training
             forward and backward as a yardstick the port never calls; the
             kernels' share of a training step and of a serving request. The
-            GRU kernels by CUDA events,
-            beside ``torch.nn.GRU`` (cuDNN), with their share of a serving
-            request and of a training step. The flash kernel in bf16 at
+            GRU kernels likewise, beside ``torch.nn.GRU`` (cuDNN), with their
+            share of a serving request and of a training step. The flash kernel in bf16 at
             BERT-base serving's shape (unmasked as served, and masked) and
             at T=4096 causal, by its own device time (``torch.profiler``;
             back-to-back CUDA events beside it), beside its bound and the
@@ -212,8 +217,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVE_T, SERVE_B, HIDDEN, VOCAB, LAYERS = 256, 64, 512, 96, 2
 # (T, B, H): the serving shape first, then the 1-row bucket, ragged widths, one
 # step (rnn_time_step), and more rows than one launch takes; then the edges of
-# the LSTM's row-group kernels (bf16, H % 8 == 0): one whole row group of 16,
-# a ragged one (17), three groups with a ragged third (33), the narrowest
+# the row-group kernels of both cells (bf16, H % 8 == 0): one whole row group
+# of 16, a ragged one (17), three groups with a ragged third (33), the narrowest
 # width (H = 8: one k tile, zero-padded), the backward's shared-memory edge
 # (H = 1024: 8 units a block), and H = 100, whose bf16 rows are not whole
 # 16-byte chunks (the CUDA-core kernels). H = 200 is a multiple of 8 and takes
@@ -221,11 +226,19 @@ SERVE_T, SERVE_B, HIDDEN, VOCAB, LAYERS = 256, 64, 512, 96, 2
 KERNEL_SHAPES = [(SERVE_T, SERVE_B, HIDDEN), (SERVE_T, 1, HIDDEN), (5, 3, 200),
                  (1, 64, 512), (3, 130, 64),
                  (8, 16, 512), (8, 17, 512), (8, 33, 512), (8, 5, 8), (8, 16, 1024), (5, 3, 100)]
-# The LSTM kernels' names (the profiler's), by design: the row-group kernels
-# for bf16 with H % 8 == 0 (and aligned operands, as every check's are), the
-# CUDA-core kernels otherwise.
+# The recurrent kernels' names (the profiler's), by design: the row-group
+# kernels for bf16 with H % 8 == 0 (and aligned operands, as every check's
+# are), the CUDA-core kernels otherwise.
 LSTM_ROW_GROUP = ("lstm_fwd_mma_kernel", "lstm_bwd_mma_kernel")
 LSTM_CUDA_CORE = ("lstm_fwd_kernel", "lstm_bwd_kernel")
+GRU_ROW_GROUP = ("gru_fwd_mma_kernel", "gru_bwd_mma_kernel")
+GRU_CUDA_CORE = ("gru_fwd_kernel", "gru_bwd_kernel")
+# The GRU's checks run at KERNEL_SHAPES and at two more edges of its
+# row-group plan (bf16, H = 1024), each with the pair it must take: 32 rows
+# take U = 16 in both kernels (2 x 64 blocks; the backward's 209 KB of
+# shared memory, near the 227 KB a block may hold), and 64 rows have no plan
+# (256 blocks at U = 16), so both take the CUDA-core kernels.
+GRU_EDGE_SHAPES = {(8, 32, 1024): GRU_ROW_GROUP, (4, 64, 1024): GRU_CUDA_CORE}
 RECURRENT_KERNEL = re.compile(r"((?:lstm|gru)_(?:fwd|bwd)(?:_mma)?_kernel)")
 # Kernel vs plain version, max abs error over ys/hT/cT. float32: the two sum
 # h @ W_rec in different orders. bfloat16: both round h to bf16 at every
@@ -256,8 +269,7 @@ CHAR_RNN_KERNELS = {"graves": "fused_graves_lstm", "lstm": "fused_lstm", "gru": 
 CHAR_RNN_SEEDS = {"graves": 1, "lstm": 0, "gru": 2}
 # The kernels (profiler's names) a bf16 serving request and a training step of
 # each char-RNN run: the forward's, and the backward's.
-CHAR_RNN_RAN = {"graves": LSTM_ROW_GROUP, "lstm": LSTM_ROW_GROUP,
-                "gru": ("gru_fwd_kernel", "gru_bwd_kernel")}
+CHAR_RNN_RAN = {"graves": LSTM_ROW_GROUP, "lstm": LSTM_ROW_GROUP, "gru": GRU_ROW_GROUP}
 # One Bidirectional(GRU) forward against the plain loop: (T, B, n_in), H = HIDDEN
 BIDI_SHAPE = (64, 16, VOCAB)
 # Served softmax probabilities vs the plain forward (bf16 compute).
@@ -900,6 +912,9 @@ class Smoke:
                     if m:
                         args = ([m[2]] if m[2] else []) + re.findall(r"L[ib](\d+)E", m[3])
                         kernel = f"{m[1]}<{', '.join(args)}>"
+                    else:  # no template: gru_bwd_mma_kernel
+                        m = re.search(r"\d+([a-z_]+_kernel)E", kernel)
+                        kernel = m[1] if m else kernel
                 elif "Used" in line and "registers" in line:
                     log(f"  {lib.source.name} {kernel}: {line.split(':', 1)[1].strip()}")
                 elif "spill" in line and " 0 bytes spill stores" not in line:
@@ -955,6 +970,8 @@ class Smoke:
         for dtype in (torch.float32, torch.bfloat16):
             for T, B, H in KERNEL_SHAPES:
                 self.check_gru(T, B, H, dtype)
+        for (T, B, H), pair in GRU_EDGE_SHAPES.items():
+            self.check_gru(T, B, H, torch.bfloat16, pair)
         for T, B, H in GRAD_SHAPES:
             self.check_gru_autograd(T, B, H)
         self.check_bidirectional_gru()
@@ -1468,35 +1485,48 @@ class Smoke:
             want_bwd = fl.lstm_bwd_reference(*bwd)
         torch.cuda.synchronize()
         tag = f"{dname:8s} T={T:3d} B={B:3d} H={H:3d} mask={'yes' if mask else 'no '}"
-        # the three launches again (a warm-up and the profiled calls): their
-        # kernels' names, and every repeat bit for bit the first launches
-        n = -(-B // 64)  # one launch per group of at most 64 rows
-        fwd_k, bwd_k = LSTM_ROW_GROUP if dtype == torch.bfloat16 and H % 8 == 0 else \
-            LSTM_CUDA_CORE
-        expect = {fwd_k: 2 * n, bwd_k: n}
-        again = []
-        with torch.no_grad():
-            ran = self.recurrent_kernels(lambda: again.append((
-                fl.launch_lstm_fwd(*fwd, mod.counter),
-                fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True),
-                fl.launch_lstm_bwd(*bwd, mod.bwd_counter))), expect)
-        for i, (name, got_, want_, tol, rel, kern) in enumerate((
-                (mod.counter.name, got, want_save[:3], KERNEL_TOL[dname], False, fwd_k),
-                (mod.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False, fwd_k),
-                (mod.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True, bwd_k))):
-            err = max_err(got_, want_, relative=rel)
-            finite = all(bool(torch.isfinite(x.float()).all()) for x in got_)
-            same = all(bits_equal(x, y) for run in again for x, y in zip(got_, run[i]))
-            self.check(finite and err <= tol and same and ran == expect,
-                       f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
-                       f"tol={tol:g}; {len(again)} more launches bit for bit: {same}; ran "
-                       f"{kern} (the three launches: {ran}, expected {expect})")
-            if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16 and not mask:
+        pair = LSTM_ROW_GROUP if dtype == torch.bfloat16 and H % 8 == 0 else LSTM_CUDA_CORE
+        errs = self.hold_recurrent(tag, pair, B, lambda: (
+            fl.launch_lstm_fwd(*fwd, mod.counter),
+            fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True),
+            fl.launch_lstm_bwd(*bwd, mod.bwd_counter)), (
+            (mod.counter.name, got, want_save[:3], KERNEL_TOL[dname], False),
+            (mod.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
+            (mod.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)))
+        if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16 and not mask:
+            for name, err in errs.items():
                 self.kernels.setdefault(name, {})["max_abs_err"] = err
         if mask:  # an all-masked row: no gradient reaches its inputs
             zero = float(got_bwd[0][:, 0].float().abs().max())
             self.check(zero == 0.0, f"{mod.bwd_counter.name:22s} {tag} all-masked row: "
                                     f"max |ds| = {zero:g} (expected 0)")
+
+    def hold_recurrent(self, tag, pair, B, launch, cases):
+        """The three launches of a recurrent check (inference forward,
+        saving forward, backward: ``launch()`` returns their outputs) again,
+        a warm-up and the profiled calls: the kernels the profiler names
+        against ``pair`` (forward, backward; one launch per group of at most
+        64 rows), and every repeat bit for bit the first launches. ``cases``
+        holds (counter name, first outputs, plain outputs, tolerance,
+        relative) for the three in order; each error must be within its
+        tolerance. Returns ``{counter name: error}``."""
+        torch = self.torch
+        n = -(-B // 64)
+        fwd_k, bwd_k = pair
+        expect = {fwd_k: 2 * n, bwd_k: n}
+        again = []
+        with torch.no_grad():
+            ran = self.recurrent_kernels(lambda: again.append(launch()), expect)
+        errs = {}
+        for i, ((name, got, want, tol, rel), kern) in enumerate(zip(cases, (fwd_k, fwd_k, bwd_k))):
+            err = errs[name] = max_err(got, want, relative=rel)
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+            same = all(bits_equal(x, y) for run in again for x, y in zip(got, run[i]))
+            self.check(finite and err <= tol and same and ran == expect,
+                       f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
+                       f"tol={tol:g}; {len(again)} more launches bit for bit: {same}; ran "
+                       f"{kern} (the three launches: {ran}, expected {expect})")
+        return errs
 
     def check_autograd(self, cell, T, B, H, peep, mask):
         """The whole autograd wrapper in float32: gradients of every
@@ -1532,11 +1562,14 @@ class Smoke:
         from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves as fg
         return {"fused_lstm": fl, "fused_graves_lstm": fg, "fused_gru": fused_gru}[cell]
 
-    def check_gru(self, T, B, H, dtype):
+    def check_gru(self, T, B, H, dtype, pair=None):
         """The GRU's inference forward, saving forward (ys, hT, gates, zh_n)
         and backward (dzx, dh0) kernels against their plain versions on the
         same inputs; the backward of both sides reads the plain forward's
-        residuals and ys."""
+        residuals and ys. The three launches again: the kernels the profiler
+        names (``pair``, else by design: the row-group pair for bf16 with
+        H % 8 == 0, the CUDA-core pair otherwise), and every repeat bit for
+        bit the first launches."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
         dname = str(dtype).replace("torch.", "")
@@ -1556,16 +1589,17 @@ class Smoke:
             want_bwd = fgru.gru_bwd_reference(*bwd)
         torch.cuda.synchronize()
         tag = f"{dname:8s} T={T:3d} B={B:3d} H={H:3d}"
-        for name, got_, want_, tol, rel in (
-                (fgru.counter.name, got, want_save[:2], KERNEL_TOL[dname], False),
-                (fgru.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
-                (fgru.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)):
-            err = max_err(got_, want_, relative=rel)
-            finite = all(bool(torch.isfinite(x.float()).all()) for x in got_)
-            self.check(finite and err <= tol,
-                       f"{name:22s} {tag} max_{'rel' if rel else 'abs'}_err={err:.3g} "
-                       f"tol={tol:g}")
-            if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16:
+        if pair is None:
+            pair = GRU_ROW_GROUP if dtype == torch.bfloat16 and H % 8 == 0 else GRU_CUDA_CORE
+        errs = self.hold_recurrent(tag, pair, B, lambda: (
+            fgru.launch_gru_fwd(*fwd, fgru.counter),
+            fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True),
+            fgru.launch_gru_bwd(*bwd, fgru.bwd_counter)), (
+            (fgru.counter.name, got, want_save[:2], KERNEL_TOL[dname], False),
+            (fgru.save_counter.name, got_save, want_save, KERNEL_TOL[dname], False),
+            (fgru.bwd_counter.name, got_bwd, want_bwd, BWD_TOL[dname], True)))
+        if (T, B, H) == KERNEL_SHAPES[0] and dtype == torch.bfloat16:
+            for name, err in errs.items():
                 self.kernels.setdefault(name, {})["max_abs_err"] = err
 
     def check_gru_autograd(self, T, B, H):
@@ -2439,7 +2473,6 @@ class Smoke:
         specs = [("fused_graves_lstm", True, pallas + "fused_lstm_graves.py:146",
                   pallas + "fused_lstm_graves.py:241"),
                  ("fused_lstm", False, pallas + "fused_lstm.py:162", pallas + "fused_lstm.py:242")]
-        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
         log_clocks("LSTM times")
         for cell, peep, fwd_line, bwd_line in specs:
             mod = self.cell_module(cell)
@@ -2451,54 +2484,72 @@ class Smoke:
                    for s_ in ((T, B, H), (B, H), (B, H))]
             bwd = (*cot, outs[3], outs[4], a["c0"], a["w_rec"], a["peep"], None)
             grads = fl.launch_lstm_bwd(*bwd, mod.bwd_counter)
-            rows = [
-                (mod.counter.name, "lstm_fwd.cu", fwd_line, fwd, outs[:3],
+            lib = {} if peep else cudnn  # PyTorch has no peephole LSTM
+            self.time_recurrent("graves" if peep else "lstm", mod, LSTM_ROW_GROUP, 4, [
+                ("lstm_fwd.cu", fwd_line, fwd, outs[:3],
                  lambda: fl.launch_lstm_fwd(*fwd, mod.counter),
-                 lambda: fl.lstm_reference(*fwd), cudnn["infer"]),
-                (mod.save_counter.name, "lstm_fwd.cu", fwd_line, fwd, outs,
+                 lambda: fl.lstm_reference(*fwd), lib.get("infer")),
+                ("lstm_fwd.cu", fwd_line, fwd, outs,
                  lambda: fl.launch_lstm_fwd(*fwd, mod.save_counter, save=True),
-                 lambda: fl.lstm_reference(*fwd, save=True), cudnn["fwd"]),
-                (mod.bwd_counter.name, "lstm_bwd.cu", bwd_line, bwd, grads,
+                 lambda: fl.lstm_reference(*fwd, save=True), lib.get("fwd")),
+                ("lstm_bwd.cu", bwd_line, bwd, grads,
                  lambda: fl.launch_lstm_bwd(*bwd, mod.bwd_counter),
-                 lambda: fl.lstm_bwd_reference(*bwd), cudnn["bwd"]),
-            ]
-            for name, src, replaces, ins, outs_, kern, plain, lib in rows:
-                ms = self.device_ms(kern, ("lstm_fwd", "lstm_bwd"))
-                events_ms = cuda_ms(kern, reps=10)
-                ran = self.recurrent_kernels(kern, {LSTM_ROW_GROUP["bwd" in name]: 1})
-                plain_ms = cuda_ms(plain, reps=3, warmup=1)
-                bound_ms, bound_by = bound(list(ins) + list(outs_), 2.0 * T * B * H * 4 * H, dt)
-                library_ms = None if peep else lib
-                self.kernels.setdefault(name, {}).update({
-                    "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms})
-                vs = "" if library_ms is None else \
-                    f"; cuDNN {library_ms:.3f} ms ({ms / library_ms:.2f}x it)"
-                log(f"{name}: {ms:.4f} ms per launch by device time (CUDA events "
-                    f"{events_ms:.4f}), {1e3 * ms / T:.2f} us a step at T={T} B={B} H={H} bf16, "
-                    f"{' + '.join(ran)}; bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{100 * bound_ms / ms:.1f}% of it reached; plain version "
-                    f"{plain_ms:.3f} ms{vs}")
-            step = self.train_step_ms.get("graves" if peep else "lstm")
-            if step is not None:
-                kms = LAYERS * (self.kernels[mod.save_counter.name]["ms"]
-                                + self.kernels[mod.bwd_counter.name]["ms"])
-                log(f"graves={peep} training step: the recurrent kernels take {LAYERS} x "
-                    f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
-                    f"({100 * kms / step:.0f}%)")
-            p50 = self.serve_p50_ms.get("graves" if peep else "lstm")
-            if p50 is not None:
-                kms = LAYERS * self.kernels[mod.counter.name]["ms"]
-                log(f"graves={peep} one {SERVE_B}-row request: the {LAYERS} LSTM launches take "
-                    f"{kms:.2f} ms of the {p50:.2f} ms p50 ({100 * kms / p50:.0f}%)")
+                 lambda: fl.lstm_bwd_reference(*bwd), lib.get("bwd"))])
+
+    def time_recurrent(self, cell, mod, pair, gates, rows):
+        """The times of one cell's three kernels (inference forward, saving
+        forward, backward of ``mod``; ``rows``: source, the TPU kernel it
+        replaces, inputs, outputs, the launch, the plain version, cuDNN's ms
+        or None) at KERNEL_SHAPES[0] in bf16: device time
+        (``torch.profiler``) with back-to-back CUDA events beside it, the
+        time per step, the kernel the profiler names (``pair``), the bound
+        of the recurrent product (``gates`` gate columns per unit) and the
+        share of it reached; then the kernels' share of the cell's training
+        step and serving request."""
+        T, B, H = KERNEL_SHAPES[0]
+        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
+        prefix = pair[0].split("_")[0]  # lstm or gru: either design's kernels
+        names = (mod.counter.name, mod.save_counter.name, mod.bwd_counter.name)
+        for name, (src, replaces, ins, outs, kern, plain, lib) in zip(names, rows):
+            ms = self.device_ms(kern, (f"{prefix}_fwd", f"{prefix}_bwd"))
+            events_ms = cuda_ms(kern, reps=10)
+            ran = self.recurrent_kernels(kern, {pair[name == mod.bwd_counter.name]: 1})
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            bound_ms, bound_by = bound(list(ins) + list(outs), 2.0 * T * B * H * gates * H,
+                                       self.torch.bfloat16)
+            self.kernels.setdefault(name, {}).update({
+                "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib})
+            vs = "" if lib is None else f"; cuDNN {lib:.3f} ms ({ms / lib:.2f}x it)"
+            log(f"{name}: {ms:.4f} ms per launch by device time (CUDA events "
+                f"{events_ms:.4f}), {1e3 * ms / T:.2f} us a step at T={T} B={B} H={H} bf16, "
+                f"{' + '.join(ran)}; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of it reached; plain version "
+                f"{plain_ms:.3f} ms{vs}")
+        ms = {name: self.kernels[name]["ms"] for name in names}
+        tag = CHAR_RNN_TAGS[cell]
+        step = self.train_step_ms.get(cell)
+        if step is not None:
+            kms = LAYERS * (ms[names[1]] + ms[names[2]])
+            log(f"{tag} training step: the recurrent kernels take {LAYERS} x "
+                f"(forward + backward) = {kms:.2f} ms of the {step:.2f} ms median step "
+                f"({100 * kms / step:.0f}%)")
+        p50 = self.serve_p50_ms.get(cell)
+        if p50 is not None:
+            kms = LAYERS * ms[names[0]]
+            log(f"{tag} one {SERVE_B}-row request: the {LAYERS} recurrent launches take "
+                f"{kms:.2f} ms of the {p50:.2f} ms p50 ({100 * kms / p50:.0f}%)")
 
     def gru_times(self):
-        """The GRU kernels' time at B=64, T=256, H=512 bf16 (CUDA events,
-        after warm-up) beside the bound, the plain versions and
-        ``torch.nn.GRU`` (cuDNN, the same reset-after cell; a yardstick the
-        port never calls); their share of a serving request and of a
-        training step."""
+        """Each GRU kernel's time at B=64, T=256, H=512 bf16 with the main
+        path's arguments: its own device time (``torch.profiler``) with
+        back-to-back CUDA events beside it, the time per step, the kernel
+        the profiler names, beside its bound and the share of it reached,
+        its plain version's time and ``torch.nn.GRU``'s (cuDNN, the same
+        reset-after cell; a yardstick the port never calls: inference,
+        training forward, backward); their share of a serving request and
+        of a training step."""
         torch = self.torch
         from deeplearning4j_tpu_torch.ops.kernels import fused_gru as fgru
         T, B, H = KERNEL_SHAPES[0]
@@ -2516,38 +2567,17 @@ class Smoke:
         bwd = (*cot, outs[2], outs[3], outs[0], a["h0"], a["w_rec"])
         grads = fgru.launch_gru_bwd(*bwd, fgru.bwd_counter)
         pallas = "deeplearning4j_tpu/ops/pallas/fused_gru.py"
-        csrc = "deeplearning4j_tpu_torch/ops/kernels/csrc/"
-        rows = [(fgru.counter.name, "gru_fwd.cu", f"{pallas}:147", fwd, outs[:2],
-                 lambda: fgru.launch_gru_fwd(*fwd, fgru.counter),
-                 lambda: fgru.gru_reference(*fwd), cudnn["infer"]),
-                (fgru.save_counter.name, "gru_fwd.cu", f"{pallas}:147", fwd, outs,
-                 lambda: fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True),
-                 lambda: fgru.gru_reference(*fwd, save=True), cudnn["fwd"]),
-                (fgru.bwd_counter.name, "gru_bwd.cu", f"{pallas}:224", bwd, grads,
-                 lambda: fgru.launch_gru_bwd(*bwd, fgru.bwd_counter),
-                 lambda: fgru.gru_bwd_reference(*bwd), cudnn["bwd"])]
-        for name, src, replaces, ins, outs_, kern, plain, lib in rows:
-            ms = cuda_ms(kern, reps=10)
-            plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            bound_ms, bound_by = bound(list(ins) + list(outs_), 2.0 * T * B * H * 3 * H, dt)
-            self.kernels.setdefault(name, {}).update({
-                "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib})
-            log(f"{name}: {ms:.3f} ms per launch at T={T} B={B} H={H} bf16; bound "
-                f"{bound_ms:.4f} ms ({bound_by}); plain version {plain_ms:.3f} ms; "
-                f"torch.nn.GRU {lib:.3f} ms")
-        infer = LAYERS * self.kernels[fgru.counter.name]["ms"]
-        if "gru" in self.serve_p50_ms:
-            p50 = self.serve_p50_ms["gru"]
-            log(f"gru one {SERVE_B}-row request: the {LAYERS} GRU launches take {infer:.2f} ms "
-                f"of the {p50:.2f} ms p50 ({100 * infer / p50:.0f}%)")
-        if "gru" in self.train_step_ms:
-            step = self.train_step_ms["gru"]
-            kms = LAYERS * (self.kernels[fgru.save_counter.name]["ms"]
-                            + self.kernels[fgru.bwd_counter.name]["ms"])
-            log(f"gru training step: the GRU kernels take {LAYERS} x (forward + backward) = "
-                f"{kms:.2f} ms of the {step:.2f} ms median step ({100 * kms / step:.0f}%)")
+        log_clocks("GRU times")
+        self.time_recurrent("gru", fgru, GRU_ROW_GROUP, 3, [
+            ("gru_fwd.cu", f"{pallas}:147", fwd, outs[:2],
+             lambda: fgru.launch_gru_fwd(*fwd, fgru.counter),
+             lambda: fgru.gru_reference(*fwd), cudnn["infer"]),
+            ("gru_fwd.cu", f"{pallas}:147", fwd, outs,
+             lambda: fgru.launch_gru_fwd(*fwd, fgru.save_counter, save=True),
+             lambda: fgru.gru_reference(*fwd, save=True), cudnn["fwd"]),
+            ("gru_bwd.cu", f"{pallas}:224", bwd, grads,
+             lambda: fgru.launch_gru_bwd(*bwd, fgru.bwd_counter),
+             lambda: fgru.gru_bwd_reference(*bwd), cudnn["bwd"])])
 
     def flash_times(self):
         """The flash kernel's time in bf16 at BERT-base serving's shape

@@ -321,15 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_mma_kernel(Args a) {
     group_arrive(counter);
     group_wait(counter, (a.T - t) * ugroups);
 
-    const bf16* src = ds + ((size_t)t * B + b0) * K;
-    for (int idx = tid; idx < kGroupRows * chunks; idx += kThreads) {
-      const int rr = idx / chunks, k = (idx % chunks) * 8;
-      const bool in = rr < nr;
-      attn_mma::cp_async16(dss + rr * LD + k, in ? src + (size_t)rr * K + k : src, in ? 16 : 0);
-    }
-    attn_mma::cp_async_commit();
-    attn_mma::cp_async_wait<0>();
-    __syncthreads();
+    stage_group_rows(dss, LD, ds + ((size_t)t * B + b0) * K, K, nr, K, chunks);
 
     // dh for step t-1: this block's units of ds[t] @ W_rec^T; this warp's
     // share of K: pairs of k tiles warp, warp + 8, ...
@@ -347,21 +339,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_mma_kernel(Args a) {
         attn_mma::mma_bf16(acc[nt], a1, bfr[2], bfr[3]);
       }
     }
-    {
-      float* pw = part + (size_t)warp * kGroupRows * PS + (lane >> 2) * PS + 2 * (lane & 3);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt * 8 >= U) break;
-        *reinterpret_cast<float2*>(pw + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(pw + 8 * PS + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
-      }
-    }
+    store_partials(part, PS, acc, U);
     __syncthreads();
     if (cell) {
-      const float* pc = part + (size_t)r * PS + u;
-      float prod = pc[0];
-#pragma unroll
-      for (int wi = 1; wi < kWarps; ++wi) prod += pc[(size_t)wi * kGroupRows * PS];
+      const float prod = sum_partials(part, PS, r, u);
       dh = MASK ? prod + pass : prod;
     }
   }

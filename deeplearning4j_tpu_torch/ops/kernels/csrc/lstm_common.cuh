@@ -2,14 +2,17 @@
 // lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): storage-type conversions, loads that
 // bypass L1, row staging with 16-byte loads, the shared-memory dot product,
 // and the launch plan that makes every block of a cooperative grid
-// co-resident; for the LSTM's row-group kernels, the barrier of one row
-// group and their launch plan.
+// co-resident; for the row-group kernels of both cells (lstm_fwd_mma_kernel,
+// lstm_bwd_mma_kernel, gru_fwd_mma_kernel, gru_bwd_mma_kernel), the barrier
+// of one row group and their launch plan.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace dl4j_lstm {
 
@@ -189,6 +192,50 @@ __device__ __forceinline__ void group_wait(const int* counter, int target) {
       if (global_ns() - t0 > 10000000000ull) __trap();
   }
   __syncthreads();
+}
+
+// Rows [0, nr) of a bf16 matrix (row stride ld, 16-byte aligned rows of
+// whole 16-byte chunks) to the kGroupRows staged rows of a row-group block
+// (row stride LD), `chunks` 16-byte chunks a row, by cp.async.cg (through
+// L2: other blocks wrote them); rows past nr and columns past n zero. Waits
+// for the copies and for the block.
+__device__ __forceinline__ void stage_group_rows(attn_mma::bf16* dst, int LD,
+                                                 const attn_mma::bf16* src, int ld, int nr, int n,
+                                                 int chunks) {
+  for (int idx = threadIdx.x; idx < kGroupRows * chunks; idx += kThreads) {
+    const int rr = idx / chunks, k = (idx % chunks) * 8;
+    const bool in = rr < nr && k < n;
+    attn_mma::cp_async16(dst + rr * LD + k, in ? src + (size_t)rr * ld + k : src, in ? 16 : 0);
+  }
+  attn_mma::cp_async_commit();
+  attn_mma::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A warp's m16n8 C fragments of a row-group product (fragment nt: columns
+// 8 nt .. 8 nt + 7, those below ncols) into its slice of `part`, the 8
+// warps' partial products (8 x kGroupRows x PS fp32).
+template <int NT>
+__device__ __forceinline__ void store_partials(float* part, int PS, const float (&acc)[NT][4],
+                                               int ncols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* pw = part + (size_t)warp * kGroupRows * PS + (lane >> 2) * PS + 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt * 8 >= ncols) break;
+    *reinterpret_cast<float2*>(pw + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(pw + 8 * PS + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// Row r, column col of the product: the 8 warps' partials summed in warp
+// order, so that a second launch gives the same bits.
+__device__ __forceinline__ float sum_partials(const float* part, int PS, int r, int col) {
+  const float* pc = part + (size_t)r * PS + col;
+  float s = pc[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) s += pc[(size_t)w * kGroupRows * PS];
+  return s;
 }
 
 // Plan and make one cooperative launch of a row-group kernel over the

@@ -293,15 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_mma_kernel(Args a) {
 
   for (int t = 0; t < a.T; ++t) {
     const bf16* hprev = t == 0 ? h0 : ys + (size_t)(t - 1) * B * H;
-    for (int idx = tid; idx < kGroupRows * chunks; idx += kThreads) {
-      const int rr = idx / chunks, k = (idx % chunks) * 8;
-      const bool in = rr < nr && k < H;
-      attn_mma::cp_async16(hs + rr * LD + k, in ? hprev + (size_t)(b0 + rr) * H + k : hprev,
-                           in ? 16 : 0);
-    }
-    attn_mma::cp_async_commit();
-    attn_mma::cp_async_wait<0>();
-    __syncthreads();
+    stage_group_rows(hs, LD, hprev + (size_t)b0 * H, H, nr, H, chunks);
 
     // this warp's share of K: k tiles warp, warp + 8, ...
     float acc[8][4] = {};
@@ -317,27 +309,13 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_mma_kernel(Args a) {
         attn_mma::mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
       }
     }
-    {
-      float* pw = part + (size_t)warp * kGroupRows * PS + (lane >> 2) * PS + 2 * (lane & 3);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt * 8 >= NC) break;
-        *reinterpret_cast<float2*>(pw + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(pw + 8 * PS + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
-      }
-    }
+    store_partials(part, PS, acc, NC);
     __syncthreads();
 
     if (cell) {
       float z[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float* pc = part + (size_t)r * PS + g * U + u;
-        float prod = pc[0];
-#pragma unroll
-        for (int wi = 1; wi < kWarps; ++wi) prod += pc[(size_t)wi * kGroupRows * PS];
-        z[g] = zn[g] + prod;
-      }
+      for (int g = 0; g < 4; ++g) z[g] = zn[g] + sum_partials(part, PS, r, g * U + u);
       if (PEEP) {
         z[0] += c * p_i;
         z[1] += c * p_f;

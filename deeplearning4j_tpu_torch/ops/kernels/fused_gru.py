@@ -4,14 +4,20 @@ and backward.
 Counterpart of ``deeplearning4j_tpu/ops/pallas/fused_gru.py``: ``_gru_fwd``
 (the ``pallas_call`` at :147) and ``_gru_bwd_kernel_call`` (:224). The input
 projection ``x @ W + b`` for the whole sequence stays outside the kernels
-(one ``torch.matmul``). The forward kernel, ``csrc/gru_fwd.cu``, runs the
+(one ``torch.matmul``). The forward source, ``csrc/gru_fwd.cu``, runs the
 sequential recurrence with the gate columns of ``W_rec`` pinned in shared
 memory for all steps and the h carry in fp32; its training instance also
 saves the residuals the backward reads: the activated gates (T, B, 3H) and
-the recurrent n pre-activation ``zh_n`` (T, B, H). The backward kernel,
+the recurrent n pre-activation ``zh_n`` (T, B, H). The backward source,
 ``csrc/gru_bwd.cu``, runs the reverse-time recurrence and writes ``dzx`` and
 ``dh0``; ``dW_rec = h_prev^T @ ds_rec`` is a large product outside it, as at
 JAX ``fused_gru.py:272-283``. Both sources state their bounds and designs.
+Each holds two kernels, and its C entry point picks one, as the LSTM's do
+(:mod:`.fused_lstm`): bf16 with H % 8 == 0 and 16-byte aligned operands
+takes the row-group kernel (tensor-core step products, a barrier per group
+of 16 batch rows, whose counters the wrapper hands it zeroed); float32, the
+other bf16 shapes, and a shape whose row-group plan does not fit take the
+CUDA-core kernel (a grid barrier a step).
 
 Gate order [r, u, n] (reset, update, new)::
 
@@ -51,6 +57,7 @@ from deeplearning4j_tpu_torch.ops.kernels._native import (LaunchCounter,
                                                           register_library)
 from deeplearning4j_tpu_torch.ops.kernels.fused_lstm import (_DTYPE_CODES,
                                                              _check_same,
+                                                             _counters,
                                                              _launch_by_rows,
                                                              _math_dtype,
                                                              needs_grad)
@@ -62,7 +69,7 @@ bwd_counter = LaunchCounter("fused_gru_bwd")
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_gru_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dl4j_gru_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dl4j_gru_fwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -70,7 +77,7 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_gru_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dl4j_gru_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dl4j_gru_bwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -192,9 +199,10 @@ def launch_gru_fwd(zx, w_rec, h0, launches: LaunchCounter, save: bool = False):
     new = lambda *shape: torch.empty(shape, dtype=zx.dtype, device=zx.device)  # noqa: E731
     ys, h_t = new(t_len, b, hid), new(b, hid)
     gates, zhn = (new(t_len, b, h3), new(t_len, b, hid)) if save else (None, None)
+    counters = _counters(b, zx)
     args = (_DTYPE_CODES[zx.dtype], zx.data_ptr(), w_rec.data_ptr(), h0.data_ptr(),
             ys.data_ptr(), h_t.data_ptr(), None if gates is None else gates.data_ptr(),
-            None if zhn is None else zhn.data_ptr(), t_len, b, hid)
+            None if zhn is None else zhn.data_ptr(), counters.data_ptr(), t_len, b, hid)
     _launch_by_rows(lib, lib.dl4j_gru_fwd, args, b, launches, "GRU forward", zx)
     return (ys, h_t, gates, zhn) if save else (ys, h_t)
 
@@ -207,9 +215,10 @@ def launch_gru_bwd(dys, dhT, gates, zhn, ys, h0, w_rec, launches: LaunchCounter)
     dzx = torch.empty_like(gates)
     dh0 = torch.empty_like(h0)
     scratch = torch.empty((2, b, h3 // 3), dtype=gates.dtype, device=gates.device)
+    counters = _counters(b, gates)
     args = (_DTYPE_CODES[gates.dtype], dys.data_ptr(), dhT.data_ptr(), gates.data_ptr(),
             zhn.data_ptr(), ys.data_ptr(), h0.data_ptr(), w_rec.data_ptr(), dzx.data_ptr(),
-            dh0.data_ptr(), scratch.data_ptr(), t_len, b, h3 // 3)
+            dh0.data_ptr(), scratch.data_ptr(), counters.data_ptr(), t_len, b, h3 // 3)
     _launch_by_rows(lib, lib.dl4j_gru_bwd, args, b, launches, "GRU backward", gates)
     return dzx, dh0
 
