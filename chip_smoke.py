@@ -139,7 +139,26 @@ the card and exits nonzero if any phase fails:
             64-row requests, answers against the net's own output); the
             first 3 losses against the same net with conv_stats' plain
             version. ``--resnet`` runs the build, the conv_stats checks,
-            this phase and conv_stats' times only. ``--recurrent`` runs the
+            this phase and conv_stats' times only. Then ``lenet``
+            (BASELINE config #1): the zoo ``LeNet()`` at full width (28x28x1,
+            conv 20 and 50 5x5 same, dense 500, softmax 10, Adam(1e-3),
+            seed 123), fp32 with TF32 off, trained by ``fit`` for one epoch
+            of ``MnistDataSetIterator(64, train=True)`` (the 60000
+            synthetic images: 938 steps), no kernel of the port launched
+            (cuDNN and cuBLAS only); step ms, img/s, peak memory, a
+            device-busy breakdown of one step and PerformanceListener's
+            reports; ``evaluate`` on the 10000 test images (accuracy >=
+            0.95, ``stats()`` printed); the first 3 losses against the same
+            net on the CPU from the same archive and batches (<= 1e-4),
+            and 3 steps likewise under AdaMax, AMSGrad, Nadam, AdaGrad,
+            AdaDelta, Sgd under a StepSchedule and Adam with
+            ClipL2PerLayer, l2 and weight decay; the trained net with an
+            ``ImagePreProcessingScaler`` through an archive
+            (``restore_normalizer`` gives it back) and ``ModelRegistry``: 8
+            clients x 3 requests of 1-64 rows of 784 floats, each answer
+            against ``net.output`` (<= 1e-4), the p50 of 20 sequential 64-row
+            requests and samples/s. ``--lenet`` runs the build and this
+            phase only. ``--recurrent`` runs the
             build, the LSTM and GRU checks, the slice and train phases of
             the three char-RNNs and the times of rows 1-6 only.
             ``--attention`` runs the
@@ -479,6 +498,23 @@ CONV_STATS_SUM_TOL = 1e-4
 RESNET_B, RESNET_HW, RESNET_CLASSES, RESNET_PAIRS = 256, 224, 1000, 36
 RESNET_STEPS, RESNET_CMP_STEPS, RESNET_TOL = 20, 3, 2e-2
 RESNET_SERVE_B, RESNET_SERVE_TOL = 64, 1e-3
+# LeNet, BASELINE config #1: the zoo LeNet() at full width (28x28x1, conv 20
+# and 50 5x5 same, dense 500, softmax 10, Adam(1e-3), seed 123), float32 with
+# TF32 off, trained by fit for one epoch on MnistDataSetIterator(64,
+# train=True): the dl4j-examples LeNetMNIST shape, 938 steps of the 60000
+# synthetic images (the real IDX files are not in the repository). Test
+# accuracy on the 10000 synthetic test images must reach LENET_MIN_ACC.
+# PerformanceListener reports every LENET_PERF_FREQ iterations.
+LENET_B, LENET_STEPS, LENET_MIN_ACC, LENET_PERF_FREQ = 64, 938, 0.95, 100
+# The first LENET_CMP_STEPS losses on the card against the same net on the
+# CPU from the same archive and batches, fp32: cuDNN and the CPU sum the
+# convolutions' and products' terms in other orders, a few 1e-7 of a loss
+# near 2.3; the same for 3 steps under each updater option of lenet_options.
+LENET_CMP_STEPS, LENET_TOL = 3, 1e-4
+# Served answers (8 clients x 3 requests of 1-64 rows of 784 floats) against
+# net.output of the same rows on the card: the same program, in a bucket of
+# another size; probabilities within 1e-4.
+LENET_SERVE_TOL = 1e-4
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2443,6 +2479,222 @@ class Smoke:
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         get_environment().allow_bfloat16()
 
+    def lenet_phase(self, workdir):
+        """BASELINE config #1 on the card: the zoo LeNet trained by ``fit``
+        for one epoch of synthetic MNIST (the main path, counted: it runs no
+        kernel of the port, only cuDNN and cuBLAS); step ms, img/s, peak
+        memory, a device-busy breakdown of one step and PerformanceListener's
+        reading; ``evaluate`` on the test set; the first losses against the
+        same net on the CPU; 3 steps under each updater option, card against
+        CPU; the trained net with its normalizer through an archive and
+        ``ModelRegistry``."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        saved_dtype = env.compute_dtype
+        env.set_compute_dtype("float32")
+        try:
+            self._lenet(workdir)
+        finally:
+            env.set_compute_dtype(saved_dtype)
+
+    def _lenet(self, workdir):
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import (ImagePreProcessingScaler, ListDataSetIterator,
+                                                   MnistDataSetIterator, NumpyDataSetIterator)
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.train.listeners import (CollectScoresListener,
+                                                              PerformanceListener)
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        t0 = time.perf_counter()
+        train = MnistDataSetIterator(LENET_B, train=True)
+        test = MnistDataSetIterator(LENET_B, train=False)
+        net = LeNet().init(device=self.device)
+        init_path = os.path.join(workdir, "lenet-init.zip")
+        net.save(init_path)
+        log(f"lenet: synthetic={train.synthetic} MNIST, {len(train.features)} training and "
+            f"{len(test.features)} test images, {time.perf_counter() - t0:.1f} s with the init; "
+            f"{net.num_params()} parameters\n{net.summary()}")
+        self.check(train.synthetic and len(train.features) == 60000,
+                   "lenet trains on the 60000 synthetic MNIST images")
+        # the batches fit sees first: the same arrays and shuffle seed, reset
+        # as fit resets
+        first = NumpyDataSetIterator(train.features, train.labels, LENET_B, shuffle=True,
+                                     seed=6)
+        first.reset()
+        first = [b for _, b in zip(range(LENET_CMP_STEPS), first)]
+        scores, stamps = CollectScoresListener(), []
+        perf = PerformanceListener(frequency=LENET_PERF_FREQ)
+        net.set_listeners(scores, StepStamps(stamps), perf)
+        counters = all_counters()
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        net.fit(train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        self.check(all(v == 0 for v in counts.values()),
+                   f"lenet fit launches no kernel of the port (cuDNN and cuBLAS only): {counts}")
+        losses = [v for _, v in scores.scores]
+        self.check(len(losses) == LENET_STEPS and all(np.isfinite(v) for v in losses)
+                   and losses[-1] < losses[0],
+                   f"lenet fit: {len(losses)} steps (expected {LENET_STEPS}), loss first "
+                   f"{losses[0]:.5f}, at 100 {losses[min(99, len(losses) - 1)]:.5f}, last "
+                   f"{losses[-1]:.3g}")
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        log(f"lenet train: {len(losses)} steps of batch {LENET_B} (one epoch) fp32 in {wall:.3f} s "
+            f"({len(train.features) / wall:.0f} img/s over the epoch); step ms after the first: "
+            f"median {med:.3f} (min {step_ms[0]:.3f}, p90 {step_ms[int(0.9 * len(step_ms))]:.3f}, "
+            f"max {step_ms[-1]:.3f}); {LENET_B / med * 1e3:.0f} img/s at the median; first step "
+            f"{1e3 * (stamps[0] - t0):.1f} ms; peak memory {peak:.1f} MiB")
+        log("lenet PerformanceListener (host clock, the loss read at each report): " + "; ".join(
+            f"it {it} {its:.1f} it/s {sps:.0f} samples/s" for it, its, sps, _ in perf.reports))
+        net.set_listeners()
+        x, y = train.features[:LENET_B], train.labels[:LENET_B]
+        self.device_breakdown(lambda: net.fit(x, y), f"lenet fit step (batch {LENET_B})",
+                              reps=10, step_ms=med)
+
+        # ---- evaluation on the test set
+        t0 = time.perf_counter()
+        ev = net.evaluate(test)
+        log(f"lenet evaluate: {ev.total} test images in {time.perf_counter() - t0:.2f} s\n"
+            + ev.stats())
+        self.check(ev.total == len(test.features) and ev.accuracy() >= LENET_MIN_ACC,
+                   f"lenet test accuracy {ev.accuracy():.4f} (must be >= {LENET_MIN_ACC})")
+
+        # ---- the card against the CPU: the first losses of the main path
+        cpu = MultiLayerNetwork.load(init_path, device="cpu")
+        cpu_scores = CollectScoresListener()
+        cpu.set_listeners(cpu_scores)
+        cpu.fit(ListDataSetIterator(first))
+        want = [v for _, v in cpu_scores.scores]
+        err = max(abs(a - b) for a, b in zip(losses[:LENET_CMP_STEPS], want))
+        self.check(err <= LENET_TOL,
+                   f"lenet fp32 losses of the first {LENET_CMP_STEPS} steps, card "
+                   f"{' '.join(f'{v:.6f}' for v in losses[:LENET_CMP_STEPS])} vs CPU from the "
+                   f"same archive {' '.join(f'{v:.6f}' for v in want)}: max_abs_err={err:.3g} "
+                   f"tol={LENET_TOL:g}")
+        self.lenet_options(first, workdir)
+
+        # ---- serving: the trained net and its normalizer through an archive
+        scaler = ImagePreProcessingScaler(0.0, 1.0, max_pixel=255.0)
+        path = os.path.join(workdir, "lenet.zip")
+        ModelSerializer.write_model(net, path, normalizer=scaler)
+        back = ModelSerializer.restore_normalizer(path)
+        self.check(type(back) is ImagePreProcessingScaler and
+                   (float(back.min_range), float(back.max_range), float(back.max_pixel)) ==
+                   (0.0, 1.0, 255.0),
+                   f"lenet restore_normalizer gives back the scaler: {type(back).__name__} "
+                   f"{getattr(back, 'min_range', None)}..{getattr(back, 'max_range', None)} "
+                   f"of {getattr(back, 'max_pixel', None)}")
+        reg = ModelRegistry()
+        served = reg.load("lenet", path, device=self.device, max_batch_size=LENET_B)
+        rng = np.random.default_rng(15)
+        rows = rng.integers(1, LENET_B + 1, (CLIENTS, REQUESTS_PER_CLIENT))
+        rows[0, 0], rows[1, 0] = 1, LENET_B
+        images = test.features
+        reqs = [[images[rng.integers(0, len(images), int(n))] for n in r] for r in rows]
+        answers = [[None] * REQUESTS_PER_CLIENT for _ in range(CLIENTS)]
+        errors = []
+
+        def client(c):
+            try:
+                for k, r in enumerate(reqs[c]):
+                    answers[c][k] = reg.predict("lenet", r)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,), name=f"smoke-lenet-{c}")
+                   for c in range(CLIENTS)]
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        self.check(not errors and all(v == 0 for v in counts.values()),
+                   f"lenet serving: {CLIENTS * REQUESTS_PER_CLIENT} requests in {wall:.3f} s over "
+                   f"{served.batcher.batches} batches (buckets {served.batcher.bucket_counts}), "
+                   f"errors={errors}, port kernel launches {counts}")
+        worst = 0.0
+        for c in range(CLIENTS):
+            for k, r in enumerate(reqs[c]):
+                got = answers[c][k]
+                own = net.output(r).cpu().numpy()
+                ok = got is not None and got.shape == (len(r), 10)
+                worst = max(worst, float(np.abs(got - own).max()) if ok else float("inf"))
+        self.check(worst <= LENET_SERVE_TOL,
+                   f"lenet {CLIENTS * REQUESTS_PER_CLIENT} served answers vs net.output on the "
+                   f"same rows: max_abs_err={worst:.3g} tol={LENET_SERVE_TOL:g}")
+        x = images[:LENET_B]
+        reg.predict("lenet", x)  # warm-up
+        ms = []
+        for _ in range(20):
+            t_req = time.perf_counter()
+            reg.predict("lenet", x)
+            ms.append(1e3 * (time.perf_counter() - t_req))
+        ms.sort()
+        p50 = ms[len(ms) // 2]
+        log(f"lenet serving (fp32): 20 sequential {LENET_B}-row requests: p50 {p50:.3f} ms "
+            f"(min {ms[0]:.3f}, max {ms[-1]:.3f}), {LENET_B / p50 * 1e3:.0f} samples/s at p50")
+        self.device_breakdown(lambda: net.output(x), f"lenet {LENET_B}-row output")
+        reg.shutdown()
+        self.check(not served.batcher._worker.is_alive(), "lenet registry shut down")
+        del net, served, reg
+        torch.cuda.empty_cache()
+
+    def lenet_options(self, batches, workdir):
+        """3 steps of the zoo LeNet under each updater option the port
+        gained with it, card against CPU from one archive: AdaMax, AMSGrad,
+        Nadam, AdaGrad, AdaDelta, Sgd under a StepSchedule, and Adam with
+        ClipL2PerLayer gradient normalization, l2 and weight decay."""
+        from deeplearning4j_tpu_torch.data import ListDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.train import updaters as upd
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.train.schedules import StepSchedule
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        options = [("AdaMax", upd.AdaMax(1e-3), {}), ("AMSGrad", upd.AMSGrad(1e-3), {}),
+                   ("Nadam", upd.Nadam(1e-3), {}), ("AdaGrad", upd.AdaGrad(1e-2), {}),
+                   ("AdaDelta", upd.AdaDelta(), {}),
+                   ("Sgd(StepSchedule)", upd.Sgd(StepSchedule(initial_value=0.05, decay_rate=0.5,
+                                                              step_size=1)), {}),
+                   ("Adam+ClipL2PerLayer+l2+weight_decay", upd.Adam(1e-3),
+                    {"gradient_normalization": "ClipL2PerLayer",
+                     "gradient_normalization_threshold": 1.0, "l2": 1e-4,
+                     "weight_decay": 1e-4})]
+        for name, updater, extra in options:
+            conf = LeNet(updater=updater).conf()
+            for k, v in extra.items():
+                setattr(conf.global_conf, k, v)
+            card = MultiLayerNetwork(conf, device=self.device).init()
+            path = os.path.join(workdir, "lenet-option.zip")
+            card.save(path)
+            cpu = MultiLayerNetwork.load(path, device="cpu")
+            got, want = CollectScoresListener(), CollectScoresListener()
+            card.set_listeners(got)
+            cpu.set_listeners(want)
+            card.fit(ListDataSetIterator(batches))
+            cpu.fit(ListDataSetIterator(batches))
+            g, w = [v for _, v in got.scores], [v for _, v in want.scores]
+            err = max(abs(a - b) for a, b in zip(g, w))
+            self.check(len(g) == LENET_CMP_STEPS and err <= LENET_TOL,
+                       f"lenet {name}: {len(g)} losses, card {' '.join(f'{v:.6f}' for v in g)} "
+                       f"vs CPU {' '.join(f'{v:.6f}' for v in w)}: max_abs_err={err:.3g} "
+                       f"tol={LENET_TOL:g}")
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -3064,6 +3316,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--lenet"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -3088,6 +3350,7 @@ def main() -> int:
         smoke.phase("train bert", smoke.bert_train_phase)
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
         smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
+        smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

@@ -1,6 +1,16 @@
-"""Datasets and iterators (counterpart of ``deeplearning4j_tpu.data``)."""
+"""Datasets, iterators and normalizers (counterpart of
+``deeplearning4j_tpu.data``)."""
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
-from deeplearning4j_tpu_torch.data.iterators import DataSetIterator, ListDataSetIterator
+from deeplearning4j_tpu_torch.data.iterators import (DataSetIterator, ExistingDataSetIterator,
+                                                     ListDataSetIterator, NumpyDataSetIterator)
+from deeplearning4j_tpu_torch.data.mnist import MnistDataSetIterator
+from deeplearning4j_tpu_torch.data.normalizers import (ImagePreProcessingScaler, Normalizer,
+                                                       NormalizerMinMaxScaler,
+                                                       NormalizerStandardize,
+                                                       VGG16ImagePreProcessor)
 
-__all__ = ["DataSet", "DataSetIterator", "ListDataSetIterator"]
+__all__ = ["DataSet", "DataSetIterator", "ExistingDataSetIterator", "ImagePreProcessingScaler",
+           "ListDataSetIterator", "MnistDataSetIterator", "Normalizer",
+           "NormalizerMinMaxScaler", "NormalizerStandardize", "NumpyDataSetIterator",
+           "VGG16ImagePreProcessor"]

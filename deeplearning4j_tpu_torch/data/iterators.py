@@ -1,15 +1,23 @@
 """Dataset iterators (counterpart of ``deeplearning4j_tpu/data/iterators.py``):
-the ``DataSetIterator`` interface and ``ListDataSetIterator``."""
+the ``DataSetIterator`` interface with its preprocessor hook,
+``ListDataSetIterator``, ``NumpyDataSetIterator`` and
+``ExistingDataSetIterator``. Host numpy, as in the JAX package: the same
+arrays and seed give the same batches in the same order in both packages."""
 
 from __future__ import annotations
 
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 
 
 class DataSetIterator:
-    """An iterable of DataSet minibatches with ``reset``."""
+    """An iterable of DataSet minibatches with ``reset``; a preprocessor (a
+    normalizer, :meth:`set_pre_processor`) transforms each batch."""
+
+    pre_processor = None
 
     def __iter__(self) -> Iterator[DataSet]:
         self.reset()
@@ -18,7 +26,10 @@ class DataSetIterator:
     def __next__(self) -> DataSet:
         if not self.has_next():
             raise StopIteration
-        return self.next()
+        ds = self.next()
+        if self.pre_processor is not None:
+            ds = self.pre_processor.transform_dataset(ds)
+        return ds
 
     def has_next(self) -> bool:
         raise NotImplementedError
@@ -31,6 +42,9 @@ class DataSetIterator:
 
     def batch(self) -> int:
         raise NotImplementedError
+
+    def set_pre_processor(self, p) -> None:
+        self.pre_processor = p
 
 
 class ListDataSetIterator(DataSetIterator):
@@ -59,3 +73,80 @@ class ListDataSetIterator(DataSetIterator):
 
     def batch(self) -> int:
         return self._batch_size
+
+
+class NumpyDataSetIterator(DataSetIterator):
+    """Batches over in-memory arrays. With ``shuffle`` the order is drawn by
+    ``np.random.default_rng(seed).shuffle`` at construction and again at
+    every ``reset`` (so at every pass, which starts with one), as the JAX
+    package draws it."""
+
+    def __init__(self, features: np.ndarray, labels: np.ndarray, batch_size: int,
+                 shuffle: bool = False, seed: int = 0, drop_last: bool = False,
+                 features_mask: Optional[np.ndarray] = None,
+                 labels_mask: Optional[np.ndarray] = None):
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.features_mask = features_mask
+        self.labels_mask = labels_mask
+        self._batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+        self._order = np.arange(len(self.features))
+        self._pos = 0
+        if shuffle:
+            self._rng.shuffle(self._order)
+
+    def has_next(self) -> bool:
+        remaining = len(self._order) - self._pos
+        return remaining >= (self._batch_size if self.drop_last else 1)
+
+    def next(self) -> DataSet:
+        idx = self._order[self._pos:self._pos + self._batch_size]
+        self._pos += len(idx)
+        return DataSet(
+            self.features[idx], self.labels[idx],
+            None if self.features_mask is None else self.features_mask[idx],
+            None if self.labels_mask is None else self.labels_mask[idx])
+
+    def reset(self) -> None:
+        self._pos = 0
+        if self.shuffle:
+            self._rng.shuffle(self._order)
+
+    def batch(self) -> int:
+        return self._batch_size
+
+
+class ExistingDataSetIterator(DataSetIterator):
+    """Wrap any Python iterable of DataSets (reference
+    ``ExistingDataSetIterator``); ``reset`` starts it again."""
+
+    def __init__(self, iterable):
+        self._iterable = iterable
+        self._iter = None
+        self._peek = None
+
+    def reset(self) -> None:
+        self._iter = iter(self._iterable)
+        self._peek = None
+
+    def has_next(self) -> bool:
+        if self._iter is None:
+            self.reset()
+        if self._peek is None:
+            try:
+                self._peek = next(self._iter)
+            except StopIteration:
+                return False
+        return True
+
+    def next(self) -> DataSet:
+        if not self.has_next():
+            raise StopIteration
+        ds, self._peek = self._peek, None
+        return ds
+
+    def batch(self) -> int:
+        return -1

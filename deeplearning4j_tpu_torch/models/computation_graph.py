@@ -29,9 +29,14 @@ normalization from its running statistics). Which pairs fuse is fixed by
 the graph at ``init``: ResNet-50 has 36. Parameters live on one device,
 ``cuda`` unless the caller asks for the CPU.
 
+A layer whose input needs a preprocessor (an image into a dense layer)
+gets one at build time, as in the JAX package (``:146-170``); a
+``PreprocessorVertex`` applies one explicitly. The l1/l2 penalties of the
+layers are added to the loss (JAX ``_reg_score``).
+
 Not ported yet, and raising by name: rematerialized segments, packed and
 unrolled steps, ``fit_external``, ``backprop_gradient``, truncated BPTT and
-``rnn_time_step`` on a graph, input preprocessors.
+``rnn_time_step`` on a graph.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import torch
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.models._tbptt import is_sequence_array
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, cast_floating
-from deeplearning4j_tpu_torch.nn.config import check_input
+from deeplearning4j_tpu_torch.nn.config import auto_preprocessor
 from deeplearning4j_tpu_torch.nn.conv_layers import BatchNormalization, ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.graph_vertices import GraphVertex
 from deeplearning4j_tpu_torch.nn.inputs import InputType
@@ -58,7 +63,7 @@ from deeplearning4j_tpu_torch.runtime.environment import (coerce_dtype, dtype_na
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
 from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
 from deeplearning4j_tpu_torch.train.listeners import TrainingListener
-from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer
+from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
 
 
 @dataclasses.dataclass
@@ -67,6 +72,8 @@ class GraphNode:
     kind: str  # "layer" | "vertex"
     obj: Any  # Layer or GraphVertex
     inputs: List[str]
+    # set at build time where a layer's input needs reshaping (not serialized)
+    inputs_preprocessor: Any = None
 
 
 class GraphBuilder:
@@ -133,8 +140,8 @@ class ComputationGraphConfiguration:
 
     def _toposort_and_infer(self) -> None:
         """Depth-first order from the outputs, then any node they do not
-        reach (JAX ``:117-172``); then each node's input type. A layer that
-        would need an input preprocessor is refused by name."""
+        reach (JAX ``:117-172``); then each node's input type, with a
+        preprocessor inserted before a layer that needs one."""
         by_name = {n.name: n for n in self.nodes}
         if len(by_name) != len(self.nodes):
             raise ValueError("Duplicate node names in graph")
@@ -172,11 +179,15 @@ class ComputationGraphConfiguration:
                 self.node_input_types[name] = None
                 types[name] = None
                 continue
-            self.node_input_types[name] = in_types[0]
             if node.kind == "layer":
-                check_input(node.obj, in_types[0])
+                pp = auto_preprocessor(in_types[0], node.obj)
+                if pp is not None:
+                    node.inputs_preprocessor = pp
+                    in_types[0] = pp.output_type(in_types[0])
+                self.node_input_types[name] = in_types[0]
                 types[name] = node.obj.output_type(in_types[0])
             else:
+                self.node_input_types[name] = in_types[0]
                 types[name] = node.obj.output_type(*in_types)
         self.output_types = [types.get(o) for o in self.outputs]
 
@@ -343,6 +354,8 @@ class ComputationGraph:
             acts[name] = node.obj.forward(*ins)
             return
         layer, x = node.obj, ins[0]
+        if node.inputs_preprocessor is not None:
+            x = node.inputs_preprocessor.pre_process(x)
         p = params.get(name, {})
         if name in output_set and hasattr(layer, "compute_loss"):
             # input dropout once; the loss and the output share the result
@@ -408,6 +421,10 @@ class ComputationGraph:
                                       last_inputs[out_name], y, mask=mask,
                                       state=model_state.get(out_name, {}))
             total = loss if total is None else total + loss
+        reg = reg_score([(n.name, n.obj) for n in self.conf.nodes if n.kind == "layer"],
+                        params, self.conf.global_conf)
+        if reg is not None:
+            total = total + reg
         return total, new_state
 
     # ------------------------------------------------------------------- fit
@@ -450,6 +467,8 @@ class ComputationGraph:
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
+            if hasattr(iterator, "reset"):
+                iterator.reset()  # and again as iteration starts, as JAX's fit does
             for batch in iterator:
                 inputs, labels, masks = self._coerce_batch(batch)
                 if self.conf.tbptt_fwd_length and any(

@@ -1,15 +1,19 @@
 """MultiLayerNetwork: linear layer stack, training and inference.
 
 Counterpart of ``deeplearning4j_tpu/models/multi_layer_network.py``:
-``init``, ``fit`` (with truncated BPTT), ``score``, ``output``, listeners,
-the stateful RNN API (``rnn_time_step``, ``rnn_time_step_external``,
-``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
-``rnn_clear_previous_state``) and ``save``/``load``. ``_forward`` keeps the
-JAX semantics of ``:156-215``: the input and the parameters are cast to
-``compute_dtype`` (the parameters stay ``default_dtype`` masters, and their
-gradients come back through the cast); layers apply their input dropout in
-training; the output layer runs through ``activate`` (a softmax at every
-timestep for ``RnnOutputLayer``); carries start in ``carry_dtype``.
+``init``, ``fit`` (with truncated BPTT), ``score``, ``output``,
+``feed_forward``, ``evaluate`` (and its regression and ROC forms),
+listeners, the stateful RNN API (``rnn_time_step``,
+``rnn_time_step_external``, ``rnn_get_state``/``rnn_set_state``/
+``rnn_zero_state``/``rnn_clear_previous_state``), ``summary``, ``clone`` and
+``save``/``load``. ``_forward`` keeps the JAX semantics of ``:156-215``: a
+layer's input preprocessor (``conf.preprocessors``) reshapes its input
+first; the input and the parameters are cast to ``compute_dtype`` (the
+parameters stay ``default_dtype`` masters, and their gradients come back
+through the cast); layers apply their input dropout in training; the output
+layer runs through ``activate`` (a softmax at every timestep for
+``RnnOutputLayer``); carries start in ``carry_dtype``. The loss adds the
+layers' l1/l2 penalties (JAX ``_reg_score``).
 
 PyTorch runs eagerly, so there is no jit cache and no packed, grouped or
 prefetched step: ``fit`` is a plain loop of ``_loss`` -> ``torch.autograd``
@@ -42,8 +46,8 @@ from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
 from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
-from deeplearning4j_tpu_torch.train.listeners import TrainingListener
-from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer
+from deeplearning4j_tpu_torch.train.listeners import PerformanceListener, TrainingListener
+from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
 
 
 def _layer_key(i: int, layer: Layer) -> str:
@@ -131,6 +135,8 @@ class MultiLayerNetwork:
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             k = _layer_key(i, layer)
+            if i in self.conf.preprocessors:
+                x = self.conf.preprocessors[i].pre_process(x, fmask)
             p = params.get(k, {})
             if i == n - 1 and hasattr(layer, "compute_loss"):
                 x = layer._apply_input_dropout(x, layer._g, training, generator)
@@ -150,17 +156,22 @@ class MultiLayerNetwork:
 
     def _loss(self, params, model_state, x, y, generator=None, fmask=None, lmask=None,
               carries=None, training: bool = True):
-        """The output layer's loss on ``(x, y)`` (JAX ``:217-251``); returns
-        ``(loss, new_state, new_carries)``."""
+        """The output layer's loss on ``(x, y)`` plus the l1/l2 penalty of
+        the (uncast) parameters (JAX ``:217-275``); returns ``(loss,
+        new_state, new_carries)``."""
         final = self.layers[-1]
         if not hasattr(final, "compute_loss"):
             raise ValueError("Last layer must be an output/loss layer to compute loss")
+        reg = reg_score([(_layer_key(i, l), l) for i, l in enumerate(self.layers)], params,
+                        self.conf.global_conf)
         params = cast_floating(params, get_environment().compute_dtype)
         _, last_in, new_state, new_carries = self._forward(
             params, model_state, x, training=training, generator=generator, fmask=fmask,
             carries=carries)
         k = _layer_key(len(self.layers) - 1, final)
         loss = final.compute_loss(params.get(k, {}), last_in, y, mask=lmask)
+        if reg is not None:
+            loss = loss + reg
         return loss, new_state, new_carries
 
     def _zero_carries(self, batch: int, dtype) -> Dict[str, Any]:
@@ -272,13 +283,14 @@ class MultiLayerNetwork:
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
+            iterator.reset()  # and again as iteration starts, as JAX's fit does
             for ds in iterator:
                 x, y, fm, lm = self._coerce_batch(ds)
                 if self.conf.tbptt_fwd_length and is_sequence_array(x):
                     self._fit_tbptt(x, y, fm, lm)
                 else:
                     loss, _ = self._train_step(x, y, fm, lm)
-                    self._iteration_done(loss)
+                    self._iteration_done(loss, x.shape[0])
             for lst in self._listeners:
                 lst.on_epoch_end(self, self._epoch)
             self._epoch += 1
@@ -326,10 +338,15 @@ class MultiLayerNetwork:
         self._model_state = tree_map(lambda t: t.detach(), new_state)
         return loss.detach(), new_carries
 
-    def _iteration_done(self, loss) -> None:
+    def _iteration_done(self, loss, batch_size: Optional[int] = None) -> None:
+        """Listener bookkeeping after one iteration; a
+        ``PerformanceListener`` first counts the batch's examples (JAX
+        ``:417-423``; the truncated-BPTT chunks count none)."""
         self._score = loss
         self._iteration += 1
         for lst in self._listeners:
+            if batch_size is not None and isinstance(lst, PerformanceListener):
+                lst.record_batch(batch_size)
             lst.iteration_done(self, self._iteration, self._epoch, loss)
 
     def score(self, dataset=None) -> float:
@@ -376,15 +393,137 @@ class MultiLayerNetwork:
         self._ensure_init()
         return self._ensure_optimizer().state
 
+    # ------------------------------------------------------------ inspection
+    def feed_forward(self, x, num_layers: Optional[int] = None) -> List[torch.Tensor]:
+        """The input and every layer's activation (reference
+        ``feedForward``, JAX ``:627-642``): each layer's inference forward
+        on the uncast parameters, after its preprocessor; ``num_layers``
+        stops after that many layers."""
+        self._ensure_init()
+        with torch.inference_mode():
+            cur = self._as_input(x)
+            acts = [cur]
+            stop = len(self.layers) if num_layers is None else int(num_layers)
+            for i, layer in enumerate(self.layers[:stop]):
+                if i in self.conf.preprocessors:
+                    cur = self.conf.preprocessors[i].pre_process(cur)
+                k = _layer_key(i, layer)
+                cur, _ = layer.forward(self._params.get(k, {}), self._model_state.get(k, {}),
+                                       cur, training=False)
+                acts.append(cur)
+        return acts
+
+    def feed_forward_to_layer(self, layer_num: int, x) -> List[torch.Tensor]:
+        """Reference ``feedForwardToLayer(layerNum, input)``: the input and
+        the activations of layers ``0..layer_num`` inclusive."""
+        return self.feed_forward(x, num_layers=layer_num + 1)
+
+    def _predictions(self, batch, mask=None) -> np.ndarray:
+        out = self.output(batch.features, mask=mask)
+        return (out.float() if out.dtype == torch.bfloat16 else out).cpu().numpy()
+
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator (reference
+        ``evaluate(DataSetIterator)``, JAX ``:762-775``): the labels mask, or
+        else the features mask, selects the timesteps of sequence output."""
+        from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
+        ev = Evaluation()
+        iterator.reset()
+        for batch in iterator:
+            m = batch.labels_mask if batch.labels_mask is not None else batch.features_mask
+            ev.eval(np.asarray(batch.labels), self._predictions(batch, batch.features_mask),
+                    mask=None if m is None else np.asarray(m))
+        return ev
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation.regression import RegressionEvaluation
+        ev = RegressionEvaluation()
+        iterator.reset()
+        for batch in iterator:
+            ev.eval(np.asarray(batch.labels), self._predictions(batch))
+        return ev
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        from deeplearning4j_tpu_torch.evaluation.roc import ROC
+        roc = ROC(threshold_steps)
+        iterator.reset()
+        for batch in iterator:
+            roc.eval(np.asarray(batch.labels), self._predictions(batch))
+        return roc
+
     # -------------------------------------------------------------- plumbing
     def params(self):
         return self._params
 
-    def save(self, path: str) -> None:
+    def set_params(self, params) -> None:
+        """Replace the parameters (nested as :meth:`params`; tensors or
+        numpy arrays), copied onto the network's device."""
+        copied = tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor)
+                          else torch.from_numpy(np.array(t)), params)
+        if self._params is None:
+            self.init(params=copied)
+        else:
+            self._params = tree_map(lambda t: t.to(self.device), copied)
+
+    def num_params(self) -> int:
+        if self._params is None:
+            return 0
+        return int(sum(t.numel() for t in tree_leaves(self._params)))
+
+    def get_layer(self, key) -> Layer:
+        """Layer by index or name (reference ``getLayer``)."""
+        if isinstance(key, int):
+            return self.layers[key]
+        for i, l in enumerate(self.layers):
+            if _layer_key(i, l) == key or l.name == key:
+                return l
+        raise KeyError(key)
+
+    def summary(self) -> str:
+        """Layer table: index, name, type, shape, parameter count (reference
+        ``MultiLayerNetwork.summary()``), the JAX package's text for the same
+        configuration. Its shape column is empty there (the JAX
+        ``InputType`` has no ``describe``), and so here."""
+        self._ensure_init()
+        rows = [("idx", "name", "type", "nIn -> nOut", "params")]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            k = _layer_key(i, layer)
+            n = sum(t.numel() for t in tree_leaves(self._params.get(k, {})))
+            total += n
+            rows.append((str(i), k, type(layer).__name__, "", f"{n:,}"))
+        widths = [max(len(r[c]) for r in rows) for c in range(5)]
+        lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths)) for r in rows]
+        lines.insert(1, "-" * len(lines[0]))
+        lines.append(f"Total parameters: {total:,}")
+        return "\n".join(lines)
+
+    @property
+    def iteration(self) -> int:
+        return self._iteration
+
+    @property
+    def epoch(self) -> int:
+        return self._epoch
+
+    def save(self, path: str, save_updater: bool = True, normalizer=None) -> None:
         from deeplearning4j_tpu_torch.models.serializer import ModelSerializer
-        ModelSerializer.write_model(self, path)
+        ModelSerializer.write_model(self, path, save_updater=save_updater,
+                                    normalizer=normalizer)
 
     @staticmethod
-    def load(path: str, device=None) -> "MultiLayerNetwork":
+    def load(path: str, device=None, load_updater: bool = True) -> "MultiLayerNetwork":
         from deeplearning4j_tpu_torch.models.serializer import ModelSerializer
-        return ModelSerializer.restore_multi_layer_network(path, device=device)
+        return ModelSerializer.restore_multi_layer_network(path, device=device,
+                                                           load_updater=load_updater)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same configuration with copies of the
+        parameters and the layers' state, on the same device, and a fresh
+        optimizer (JAX ``:936-942``)."""
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(self.conf.to_dict()),
+                                device=self.device or self._requested_device)
+        if self._params is not None:
+            net.init(params=tree_map(torch.clone, self._params))
+            net._model_state = tree_map(torch.clone, self._model_state)
+        return net

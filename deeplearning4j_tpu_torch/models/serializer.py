@@ -3,7 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/models/serializer.py`` and the function
 that carries weights between the two packages. The zip is the same:
 ``configuration.json`` (the config tree), ``coefficients.npz`` (the
-parameters), ``metadata.json`` and, optionally, ``updaterState.npz``.
+parameters), ``metadata.json`` and, optionally, ``updaterState.npz`` and
+``normalizer.npz`` (a data normalizer's ``kind`` and arrays under the JAX
+package's keys, :mod:`~..data.normalizers`).
 
 A ``ComputationGraph`` archive is keyed by node name where a network's is
 keyed by ``layer_<i>``; everything else is the same.
@@ -23,10 +25,12 @@ sorted, nested parameter order (``"attn"/...``, ``"stack"/...``). For
 ``RmsProp`` each layer's ``nu``; for ``Nesterovs`` each layer's ``trace``;
 for ``Adam`` each layer's 0-d int32
 ``count``, then its ``mu`` leaves, then its ``nu`` leaves; nothing for
-``Sgd``. So an archive written by either package resumes training in the
-other with its optimizer state. The
-port writes the file once its network has an optimizer (after ``fit``, or
-after restoring one), and reads it into the optimizer when that is built.
+``Sgd``; a schedule's and a weight decay's int32 ``count`` after the
+updater's leaves (:mod:`~..train.updaters`). So an archive written by
+either package resumes training in the other with its optimizer state.
+The port writes the file once its network has an optimizer (after ``fit``,
+or after restoring one) unless ``save_updater=False``, and reads it into
+the optimizer when that is built unless ``load_updater=False``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ _CONF = "configuration.json"
 _COEFF = "coefficients.npz"
 _UPDATER = "updaterState.npz"
 _META = "metadata.json"
+_NORM = "normalizer.npz"
 
 
 def params_from_numpy(tree, device=None, dtype=None):
@@ -109,7 +114,7 @@ def load_leaves_like(leaves: List[np.ndarray], like):
 
 class ModelSerializer:
     @staticmethod
-    def write_model(net, path: str) -> None:
+    def write_model(net, path: str, save_updater: bool = True, normalizer=None) -> None:
         net._ensure_init()
         rng_state = net.rng.get_state()
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -124,13 +129,17 @@ class ModelSerializer:
             }))
             zf.writestr(_COEFF, _save_leaves({"params": net.params(),
                                               "model_state": net._model_state}))
-            if net._optimizer is not None:
+            if save_updater and net._optimizer is not None:
                 zf.writestr(_UPDATER, _save_leaves(net._optimizer.state))
-            elif net._restored_updater_leaves is not None:
+            elif save_updater and net._restored_updater_leaves is not None:
                 zf.writestr(_UPDATER, _save_leaves(net._restored_updater_leaves))
+            if normalizer is not None:
+                buf = io.BytesIO()
+                np.savez(buf, kind=type(normalizer).__name__, **normalizer._state())
+                zf.writestr(_NORM, buf.getvalue())
 
     @staticmethod
-    def restore_model(path: str, device=None):
+    def restore_model(path: str, device=None, load_updater: bool = True):
         """Type-dispatching restore on the archive's ``model_type``: a
         ``MultiLayerNetwork`` or a ``ComputationGraph``."""
         with zipfile.ZipFile(path) as zf:
@@ -143,36 +152,36 @@ class ModelSerializer:
             raise NotImplementedError(f"restoring a {kind} archive is not ported to "
                                       "deeplearning4j_tpu_torch yet")
         if kind == "ComputationGraph":
-            return ModelSerializer.restore_computation_graph(path, device=device)
-        return ModelSerializer.restore_multi_layer_network(path, device=device)
+            return ModelSerializer.restore_computation_graph(path, device, load_updater)
+        return ModelSerializer.restore_multi_layer_network(path, device, load_updater)
 
     @staticmethod
-    def restore_multi_layer_network(path: str, device=None):
+    def restore_multi_layer_network(path: str, device=None, load_updater: bool = True):
         """Restore on ``device`` (``cuda`` unless the caller or the
         environment asks for the CPU)."""
         from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
         from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
         return ModelSerializer._restore(path, lambda js: MultiLayerNetwork(
-            MultiLayerConfiguration.from_json(js), device=device))
+            MultiLayerConfiguration.from_json(js), device=device), load_updater)
 
     @staticmethod
-    def restore_computation_graph(path: str, device=None):
+    def restore_computation_graph(path: str, device=None, load_updater: bool = True):
         """Restore a graph on ``device``: its leaves are keyed by node name
         in the JAX package's order, so a JAX archive (ResNet-50's, say)
         loads here."""
         from deeplearning4j_tpu_torch.models.computation_graph import (
             ComputationGraph, ComputationGraphConfiguration)
         return ModelSerializer._restore(path, lambda js: ComputationGraph(
-            ComputationGraphConfiguration.from_json(js), device=device))
+            ComputationGraphConfiguration.from_json(js), device=device), load_updater)
 
     @staticmethod
-    def _restore(path: str, build):
+    def _restore(path: str, build, load_updater: bool = True):
         with zipfile.ZipFile(path) as zf:
             net = build(zf.read(_CONF).decode()).init()
             coeff = _load_leaves(zf.read(_COEFF), {"params": net.params(),
                                                    "model_state": net._model_state})
             meta = json.loads(zf.read(_META).decode()) if _META in zf.namelist() else {}
-            if _UPDATER in zf.namelist():
+            if load_updater and _UPDATER in zf.namelist():
                 net._restored_updater_leaves = _read_leaves(zf.read(_UPDATER))
         net._params = coeff["params"]
         net._model_state = coeff["model_state"]
@@ -181,3 +190,13 @@ class ModelSerializer:
         if meta.get("rng_seed") is not None:
             net.rng.set_state({"seed": meta["rng_seed"], "key": meta.get("rng_key")})
         return net
+
+    @staticmethod
+    def restore_normalizer(path: str):
+        """The data normalizer stored in the archive (``normalizer.npz``,
+        written by either package), or None."""
+        from deeplearning4j_tpu_torch.data.normalizers import Normalizer
+        with zipfile.ZipFile(path) as zf:
+            if _NORM not in zf.namelist():
+                return None
+            return Normalizer.load(io.BytesIO(zf.read(_NORM)))

@@ -132,6 +132,11 @@ class Layer:
                 generator: Optional[torch.Generator] = None, mask=None) -> Tuple[Any, Dict]:
         raise NotImplementedError
 
+    def regularizable_params(self) -> Tuple[str, ...]:
+        """Param keys subject to l1/l2 and weight decay (weights, not
+        biases), matched against every key on a parameter's path."""
+        return ("W", "W_rec", "W_point", "W_depth", "W_q", "W_k", "W_v", "W_o")
+
     def _act(self, g: GlobalConfig):
         return self.activation if self.activation is not None else g.activation
 

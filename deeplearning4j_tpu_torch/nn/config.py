@@ -14,7 +14,9 @@ builds either package's network. Usage::
             .set_input_type(InputType.recurrent(96))
             .build())
 
-A layer type or input preprocessor that is not ported yet raises an error
+Shape inference and the automatic insertion of input preprocessors happen
+at ``build()``, as in the JAX package (``_infer_shapes``,
+``_auto_preprocessor``). A layer type that is not ported yet raises an error
 that names it.
 """
 
@@ -22,33 +24,63 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer
 from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, ConvolutionLayer,
                                                      GlobalPoolingLayer, SubsamplingLayer)
-from deeplearning4j_tpu_torch.nn.core_layers import ActivationLayer, DropoutLayer
+from deeplearning4j_tpu_torch.nn.core_layers import (ActivationLayer, DenseLayer, DropoutLayer,
+                                                     EmbeddingLayer, EmbeddingSequenceLayer)
 from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.preprocessors import (CnnToFeedForwardPreProcessor,
+                                                       FeedForwardToCnnPreProcessor,
+                                                       InputPreProcessor)
+from deeplearning4j_tpu_torch.nn.recurrent_layers import (BaseRecurrentLayer, Bidirectional,
+                                                          RnnOutputLayer)
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.runtime.environment import coerce_dtype, dtype_name
 
 
-def check_input(layer: Layer, cur: Optional[InputType]) -> None:
-    """Raise by name where ``layer`` would need an input preprocessor on an
-    input of type ``cur`` (JAX ``_auto_preprocessor``): the preprocessors
-    are not ported yet. Images go as they are into the ported convolution,
-    pooling and normalization layers and into the layers that take any
-    input."""
-    if cur is None or cur.kind in ("feedforward", "recurrent"):
-        return
-    if cur.kind == "convolutional" and isinstance(
-            layer, (ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-                    GlobalPoolingLayer, ActivationLayer, DropoutLayer)):
-        return
-    raise NotImplementedError(
-        f"{type(layer).__name__} after a {cur.kind!r} input needs an input "
-        "preprocessor, which is not ported to deeplearning4j_tpu_torch yet")
+_CONV_LAYERS = (ConvolutionLayer, SubsamplingLayer)
+_ANY_LAYERS = (BatchNormalization, ActivationLayer, DropoutLayer, GlobalPoolingLayer)
+
+
+def _expects(layer: Layer) -> Optional[str]:
+    """The input kind a layer needs (JAX ``config.py:64-81``, over the
+    ported layers); None: it takes any input as it is."""
+    if isinstance(layer, _CONV_LAYERS):
+        return "convolutional"
+    if isinstance(layer, _ANY_LAYERS):
+        return None
+    if isinstance(layer, (BaseRecurrentLayer, Bidirectional, RnnOutputLayer)):
+        return "recurrent"
+    if isinstance(layer, (EmbeddingLayer, EmbeddingSequenceLayer)):
+        return None  # integer index inputs; no reshape applies
+    if isinstance(layer, DenseLayer):
+        return "feedforward_or_recurrent"
+    return None
+
+
+def auto_preprocessor(cur: InputType, layer: Layer) -> Optional[InputPreProcessor]:
+    """The preprocessor an input of type ``cur`` needs before ``layer``
+    (JAX ``MultiLayerConfiguration._auto_preprocessor``): an image into a
+    dense layer is flattened, a flattened image into a convolution is
+    reshaped. A flat feed-forward input into a convolution has no image
+    shape to infer: ``ValueError``."""
+    need = _expects(layer)
+    if need is None:
+        return None
+    if need == "convolutional" and cur.kind == "convolutional_flat":
+        return FeedForwardToCnnPreProcessor(cur.height, cur.width, cur.channels)
+    if need == "feedforward_or_recurrent" and cur.kind in ("convolutional",
+                                                           "convolutional3d"):
+        return CnnToFeedForwardPreProcessor(cur.height, cur.width, cur.channels)
+    if need == "convolutional" and cur.kind == "feedforward":
+        raise ValueError(
+            "Cannot infer image shape for conv layer from flat feed-forward input; "
+            "use InputType.convolutional_flat(h, w, c)")
+    return None
 
 
 class NeuralNetConfiguration:
@@ -133,6 +165,7 @@ class ListBuilder:
         self._g = g
         self._layers: List[Optional[Layer]] = []
         self._input_type: Optional[InputType] = None
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._tbptt_fwd: Optional[int] = None
         self._tbptt_back: Optional[int] = None
 
@@ -151,6 +184,10 @@ class ListBuilder:
         self._input_type = it
         return self
 
+    def input_pre_processor(self, index: int, pp: InputPreProcessor) -> "ListBuilder":
+        self._preprocessors[int(index)] = pp
+        return self
+
     def tbptt_fwd_length(self, n: int) -> "ListBuilder":
         self._tbptt_fwd = int(n)
         return self
@@ -165,6 +202,7 @@ class ListBuilder:
             raise ValueError("No layers configured")
         conf = MultiLayerConfiguration(
             global_conf=self._g, layers=layers, input_type=self._input_type,
+            preprocessors=dict(self._preprocessors),
             tbptt_fwd_length=self._tbptt_fwd, tbptt_back_length=self._tbptt_back)
         conf._infer_shapes()
         return conf
@@ -175,19 +213,26 @@ class MultiLayerConfiguration:
     global_conf: GlobalConfig
     layers: List[Layer]
     input_type: Optional[InputType] = None
+    preprocessors: Dict[int, InputPreProcessor] = dataclasses.field(default_factory=dict)
     tbptt_fwd_length: Optional[int] = None
     tbptt_back_length: Optional[int] = None
-    # computed by _infer_shapes: the input type fed to each layer
+    # computed by _infer_shapes: the input type fed to each layer, after its
+    # preprocessor
     layer_input_types: List[Optional[InputType]] = dataclasses.field(default_factory=list)
 
     def _infer_shapes(self) -> None:
-        """Record each layer's input type. The ported layers need no input
-        preprocessor; an input that would need one (an image into a dense
-        layer) is refused by name (:func:`check_input`)."""
+        """Walk the stack once: insert a preprocessor where a layer needs
+        one (:func:`auto_preprocessor`) and record each layer's input type
+        (JAX ``:211-227``)."""
         self.layer_input_types = []
         cur = self.input_type
-        for layer in self.layers:
-            check_input(layer, cur)
+        for i, layer in enumerate(self.layers):
+            if cur is not None and i not in self.preprocessors:
+                pp = auto_preprocessor(cur, layer)
+                if pp is not None:
+                    self.preprocessors[i] = pp
+            if i in self.preprocessors and cur is not None:
+                cur = self.preprocessors[i].output_type(cur)
             self.layer_input_types.append(cur)
             if cur is not None:
                 cur = layer.output_type(cur)
@@ -207,7 +252,7 @@ class MultiLayerConfiguration:
             "global_conf": g,
             "layers": [l.to_dict() for l in self.layers],
             "input_type": self.input_type.to_dict() if self.input_type else None,
-            "preprocessors": {},
+            "preprocessors": {str(k): v.to_dict() for k, v in self.preprocessors.items()},
             "tbptt_fwd_length": self.tbptt_fwd_length,
             "tbptt_back_length": self.tbptt_back_length,
         }
@@ -217,12 +262,6 @@ class MultiLayerConfiguration:
 
     @staticmethod
     def from_dict(d: dict) -> "MultiLayerConfiguration":
-        pps = d.get("preprocessors") or {}
-        if pps:
-            names = sorted({v.get("@type", "?") for v in pps.values()})
-            raise NotImplementedError(
-                f"input preprocessors {names} are not ported to "
-                "deeplearning4j_tpu_torch yet")
         g_d = dict(d["global_conf"])
         if isinstance(g_d.get("updater"), dict):
             from deeplearning4j_tpu_torch.train.updaters import Updater
@@ -236,6 +275,8 @@ class MultiLayerConfiguration:
             global_conf=GlobalConfig(**{k: v for k, v in g_d.items() if k in names}),
             layers=[Layer.from_dict(ld) for ld in d["layers"]],
             input_type=InputType.from_dict(d["input_type"]) if d.get("input_type") else None,
+            preprocessors={int(k): InputPreProcessor.from_dict(v)
+                           for k, v in (d.get("preprocessors") or {}).items()},
             tbptt_fwd_length=d.get("tbptt_fwd_length"),
             tbptt_back_length=d.get("tbptt_back_length"),
         )

@@ -5,9 +5,9 @@ Counterpart of ``deeplearning4j_tpu/nn/graph_vertices.py`` (reference
 ``ElementWiseVertex`` (add / product / subtract / average / max / min /
 dot), ``SubsetVertex``, ``StackVertex``/``UnstackVertex``,
 ``ScaleVertex``/``ShiftVertex``, ``L2NormalizeVertex``, ``ReshapeVertex``,
-with the same JSON (``to_dict``/``from_dict`` through a name registry).
-Pure functions of their inputs. ``PreprocessorVertex`` wraps an input
-preprocessor, which is not ported yet: reading one raises by name.
+``PreprocessorVertex`` (an input preprocessor as a vertex), with the same
+JSON (``to_dict``/``from_dict`` through a name registry). Pure functions of
+their inputs.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Dict, Tuple, Type
 import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.preprocessors import InputPreProcessor
 
 _VERTEX_REGISTRY: Dict[str, Type["GraphVertex"]] = {}
 
@@ -47,7 +48,10 @@ class GraphVertex:
         if name not in _VERTEX_REGISTRY:
             raise KeyError(f"Graph vertex type {name!r} is not ported to "
                            f"deeplearning4j_tpu_torch yet; ported: {sorted(_VERTEX_REGISTRY)}")
-        return _VERTEX_REGISTRY[name](**d)
+        cls = _VERTEX_REGISTRY[name]
+        if cls is PreprocessorVertex and isinstance(d.get("preprocessor"), dict):
+            d["preprocessor"] = InputPreProcessor.from_dict(d["preprocessor"])
+        return cls(**d)
 
 
 @register_vertex
@@ -183,16 +187,18 @@ class L2NormalizeVertex(GraphVertex):
 @register_vertex
 @dataclasses.dataclass
 class PreprocessorVertex(GraphVertex):
-    """An input preprocessor as a vertex. The preprocessors are not ported
-    yet, so building one from its JSON raises by name."""
+    """An input preprocessor (:mod:`~.preprocessors`) as a vertex."""
 
-    preprocessor: dict = None
+    preprocessor: InputPreProcessor = None
 
-    def __post_init__(self):
-        name = (self.preprocessor or {}).get("@type", "?") \
-            if isinstance(self.preprocessor, dict) else type(self.preprocessor).__name__
-        raise NotImplementedError(f"PreprocessorVertex({name}): input preprocessors are not "
-                                  "ported to deeplearning4j_tpu_torch yet")
+    def forward(self, *inputs):
+        return self.preprocessor.pre_process(inputs[0])
+
+    def output_type(self, *its: InputType) -> InputType:
+        return self.preprocessor.output_type(its[0])
+
+    def to_dict(self) -> dict:
+        return {"@type": "PreprocessorVertex", "preprocessor": self.preprocessor.to_dict()}
 
 
 @register_vertex

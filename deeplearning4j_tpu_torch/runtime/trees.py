@@ -44,3 +44,13 @@ def tree_map(fn: Callable[[Any], Any], tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_paths(tree, prefix=()) -> List[tuple]:
+    """The key path of each leaf (dict keys and sequence indices), in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, prefix + (i,))]
+    return [] if tree is None else [prefix]

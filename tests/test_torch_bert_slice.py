@@ -210,15 +210,36 @@ def test_embedding_refuses_what_it_cannot_look_up(jax_archive, bad):
 
 
 def test_fit_raises_by_name_on_the_unported_adam_math(jax_archive):
-    """Adam is ported; its variants are not: a BERT configured with
-    ``AdaMax`` raises by name at its first ``fit``."""
+    """AdaMax, once refused by name here, now trains the BERT from the JAX
+    archive: after one ``fit`` step under AdaMax(2e-5) the port's state has
+    the leaves of the JAX network's AdaMax ``opt_state`` (order, shapes,
+    dtypes), and the step is optax's ``adamax`` on the same gradients (read
+    back from the first moment, mu = (1 - b1) g; dropout makes them the
+    port's own, not the JAX package's)."""
+    import optax
+
+    from deeplearning4j_tpu.models import MultiLayerNetwork as JNet
     from deeplearning4j_tpu_torch.train.updaters import AdaMax
     _, path, _ = jax_archive
     net = MultiLayerNetwork.load(path, device="cpu")
     net.conf.global_conf.updater = AdaMax(2e-5)
+    before = {k: [t.numpy().copy() for t in tree_leaves(v)] for k, v in net.params().items()}
     y = np.eye(2, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="AdaMax"):
-        net.fit(_ids(2, 5), y)
+    net.fit(_ids(2, 5), y)
+    jstate = JNet(JConf.from_json(net.conf.to_json())).init().train_state.opt_state
+    tstate = net.updater_state()
+    assert [(tuple(a.shape), np.asarray(a).dtype.name) for a in jax.tree.leaves(jstate)] == \
+        [(tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in tree_leaves(tstate)]
+    tx = optax.adamax(2e-5, b1=0.9, b2=0.999, eps=1e-8)
+    for k, st in tstate.items():
+        assert int(st["count"]) == 1
+        grads = [jnp.asarray(m.numpy()) / (1.0 - 0.9) for m in tree_leaves(st["mu"])]
+        params = [jnp.asarray(a) for a in before[k]]
+        want, _ = tx.update(grads, tx.init(params))
+        want = optax.apply_updates(params, want)
+        for i, (w, p1) in enumerate(zip(want, tree_leaves(net.params()[k]), strict=True)):
+            np.testing.assert_allclose(p1.numpy(), np.asarray(w), rtol=1e-6, atol=1e-9,
+                                       err_msg=f"{k} leaf {i}")
 
 
 # -------------------------------------------------------------- each layer

@@ -261,12 +261,31 @@ def test_conv_configuration_json_both_ways():
 
 
 def test_images_into_a_layer_that_needs_a_preprocessor_are_refused_by_name():
+    """Once refused by name, now the JAX package's automatic preprocessors:
+    an image into a dense layer is flattened, a flattened image into a
+    convolution reshaped, a flat input into a convolution refused with JAX's
+    ``ValueError``, and layers that take images as they are get none."""
+    from deeplearning4j_tpu.nn import DenseLayer as JDense
+    from deeplearning4j_tpu.nn.config import MultiLayerConfiguration as JConf
+    from deeplearning4j_tpu.nn.inputs import InputType as JInputType
     from deeplearning4j_tpu_torch.nn import DenseLayer
-    with pytest.raises(NotImplementedError, match="DenseLayer.*preprocessor"):
-        tconfig.check_input(DenseLayer(n_out=3), TInputType.convolutional(4, 4, 1))
-    with pytest.raises(NotImplementedError, match="ConvolutionLayer.*preprocessor"):
-        tconfig.check_input(tconv.ConvolutionLayer(n_out=3),
-                            TInputType.convolutional_flat(4, 4, 1))
+    cases = [(DenseLayer(n_out=3), JDense(n_out=3), (4, 5, 3), "convolutional"),
+             (tconv.ConvolutionLayer(n_out=3), jconv.ConvolutionLayer(n_out=3), (4, 5, 3),
+              "convolutional_flat"),
+             (tconv.SubsamplingLayer(), jconv.SubsamplingLayer(), (4, 4, 1), "convolutional"),
+             (tconv.BatchNormalization(), jconv.BatchNormalization(), (4, 4, 1),
+              "convolutional")]
+    for tl, jl, hwc, kind in cases:
+        it = getattr(TInputType, kind)(*hwc)
+        got = tconfig.auto_preprocessor(it, tl)
+        want = JConf._auto_preprocessor(getattr(JInputType, kind)(*hwc), jl)
+        assert (got is None) == (want is None), (tl, kind)
+        if got is not None:
+            assert got.to_dict() == want.to_dict()
+            assert got.output_type(it).to_dict() == \
+                want.output_type(getattr(JInputType, kind)(*hwc)).to_dict()
+    with pytest.raises(ValueError, match="convolutional_flat"):
+        tconfig.auto_preprocessor(TInputType.feed_forward(16), tconv.ConvolutionLayer(n_out=3))
 
 
 def test_multilayer_network_carries_batchnorm_state_out_of_fit():

@@ -169,9 +169,13 @@ def test_vertex_output_types_match_jax():
 
 
 def test_unported_parts_raise_by_name():
-    with pytest.raises(NotImplementedError, match="CnnToFeedForwardPreProcessor"):
-        tv.GraphVertex.from_dict({"@type": "PreprocessorVertex",
-                                  "preprocessor": {"@type": "CnnToFeedForwardPreProcessor"}})
+    # PreprocessorVertex, once refused here, now reads as the JAX package's
+    d = {"@type": "PreprocessorVertex",
+         "preprocessor": {"@type": "CnnToFeedForwardPreProcessor", "height": 2, "width": 3,
+                          "channels": 4}}
+    vert = tv.GraphVertex.from_dict(d)
+    assert vert.to_dict() == jv.GraphVertex.from_dict(d).to_dict() == d
+    assert tuple(vert.forward(torch.zeros(5, 2, 3, 4)).shape) == (5, 24)
     with pytest.raises(KeyError, match="FrozenVertex"):
         tv.GraphVertex.from_dict({"@type": "FrozenVertex"})
     net = ComputationGraph(ComputationGraphConfiguration.from_json(_jax_conf().to_json()),

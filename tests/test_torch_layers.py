@@ -237,10 +237,14 @@ def test_unported_layer_and_preprocessor_are_named():
             .build())
     with pytest.raises(KeyError, match="LocalResponseNormalization"):
         tconfig.MultiLayerConfiguration.from_json(conf.to_json())
+    # the preprocessor half, once refused by name: an image into an output
+    # layer now gets the JAX package's flattening preprocessor
     conf = (JNN.builder().list().layer(JOut(n_out=3))
-            .set_input_type(JInputType.convolutional(4, 4, 1)).build())
-    with pytest.raises(NotImplementedError, match="preprocessor"):
-        tconfig.MultiLayerConfiguration.from_json(conf.to_json())
+            .set_input_type(JInputType.convolutional(4, 5, 2)).build())
+    tconf = tconfig.MultiLayerConfiguration.from_json(conf.to_json())
+    assert json.loads(tconf.to_json()) == json.loads(conf.to_json())
+    assert type(tconf.preprocessors[0]).__name__ == "CnnToFeedForwardPreProcessor"
+    assert tconf.layer_input_types[0] == TInputType.feed_forward(40)
 
 
 def test_tree_leaves_order_matches_jax():
