@@ -121,7 +121,24 @@ the card and exits nonzero if any phase fails:
             20 steps on balanced labels with each row made of its label's
             token, where the loss must fall below the first step's and
             chance and the trained net must label a fresh batch; and the
-            statistics of the dropout masks drawn on the card. Then ``train
+            statistics of the dropout masks drawn on the card. Then
+            ``samediff bert`` (BASELINE config #4 as ``bench_imported_bert``
+            runs it): BERT-base built through the port's SameDiff as the JAX
+            package's TF import yields it (``build_bert_samediff``, seed 0),
+            ``optimize()`` (25 LayerNorm, 12 gelu and 12 attention fusions,
+            every padding bias proven), ``graft_classifier``,
+            ``convert_to_variable`` and ``fit`` over ``ExistingDataSetIterator``
+            of 20 MultiDataSets of ``bert_synthetic_batch(64, 128, 30522,
+            seed=1)`` under Adam(2e-5), bf16 over fp32 masters: 12 saving
+            forwards, 12 dq and 12 dk/dv flash launches a step and nothing
+            else; step ms, samples/s, peak memory and a device-busy breakdown
+            beside the zoo ``train bert`` step of the same run, and the
+            FFN-wide elementwise ops' share of a step; the first 3 losses in
+            fp32 and bf16 against the same fit with the plain attention;
+            ``sd.output(pooled_output)`` (fp32) against the plain attention
+            and its p50; 20 steps on every_token's labels, where the loss
+            must fall and a fresh batch be labelled. ``--samediff`` runs the
+            build, ``train bert`` and this phase only. Then ``train
             gru``: the GRU char-RNN as the LSTM cells are trained (1 saving
             forward and 1 backward GRU launch per layer per step, nothing
             else launched).
@@ -453,6 +470,28 @@ BERT_LOSS_FALL, BERT_MIN_ACC = 0.95, 0.9
 # the two sides round differently placed values to bf16 (attention outputs
 # one ulp apart, see FLASH_TOL), and those pass through 12 layers.
 BERT_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# samediff bert (BASELINE config #4 as bench.py:782-838 bench_imported_bert
+# measures it): BERT-base built as the JAX package's TF import of its GraphDef
+# yields it (imports/tf_oracles.build_bert_samediff, seed 0, vocab 30522),
+# optimize()d, a 2-class head grafted, every weight made trainable, fit at
+# B=64, T=128 under Adam(2e-5), bf16 compute over fp32 masters, over one epoch
+# of SD_STEPS copies of bert_synthetic_batch(64, 128, 30522, seed=1) (the
+# benchmark takes 48 per fit; 20 keep the phase short). The first
+# BERT_CMP_STEPS losses in fp32 and bf16 against the same fit with the plain
+# attention are held to BERT_TRAIN_TOL.
+SD_HIDDEN, SD_HEADS, SD_FF, SD_STEPS = 768, 12, 3072, 20
+# sd.output(feeds, "pooled_output") computes in the arrays' dtype, float32
+# (no cast, as the JAX package's output), through 12 layers: the flash
+# kernel's fp32 output sits within 2e-5 of its plain version (FLASH_TOL) and
+# LayerNorm and the residuals carry that to the tanh pooler, whose values lie
+# in (-1, 1).
+SD_OUTPUT_TOL = 1e-4
+# The learning check: a second fit from the same weights, on every_token's
+# balanced labels (each row all its label's marker id, an all-ones mask),
+# SD_STEPS steps at the main path's learning rate, 2e-5: the rule and the
+# rate with which the zoo bert phase learns in 20 steps; the same
+# BERT_LOSS_FALL and BERT_MIN_ACC limits.
+SD_LEARN_LR = 2e-5
 # conv_stats (TPU row 13): row 13's own shape (s3b1_c1, s3b2_c1), one shape
 # of each other ResNet-50 stage at batch 256 (s0b1_c3 at K = 64 is the widest
 # M; s1b1_c1; s2b1_c3), the widest M at N = 64 (s0b1_c1: the wgmma kernel's
@@ -2261,6 +2300,30 @@ class Smoke:
             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, (ms, n) in top))
         return per
 
+    def ffn_elementwise_ms(self, fn, width):
+        """Device ms of one call of ``fn`` spent in aten ops other than
+        products whose inputs include a tensor ``width`` wide in its last
+        dimension, and the device ms of all its ops (``torch.profiler`` with
+        input shapes, each op's own kernels)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wide = busy = 0.0
+        for e in prof.key_averages(group_by_input_shape=True):
+            if str(e.device_type).endswith("CUDA"):
+                continue
+            dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+            busy += dev
+            product = any(k in e.key for k in ("mm", "matmul", "linear", "einsum"))
+            if not product and any(s and s[-1] == width for s in (e.input_shapes or [])):
+                wide += dev
+        return wide, busy
+
     def train_phase(self, cell):
         """``fit`` of the full-width char-RNN of ``cell`` in bf16 through the
         kernels (the main path, counted), then the first steps again in
@@ -2478,6 +2541,181 @@ class Smoke:
             self.torch.cuda.empty_cache()
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         get_environment().allow_bfloat16()
+
+    def samediff_phase(self):
+        """BASELINE config #4 as ``bench_imported_bert`` measures it:
+        BERT-base built as the JAX package's TF import yields it, through
+        ``optimize()`` (25 LayerNorm, 12 gelu and 12 attention fusions, every
+        attention with the proven padding bias), ``graft_classifier``,
+        ``convert_to_variable`` and ``fit`` over ``ExistingDataSetIterator``
+        of MultiDataSets at B=64, T=128, Adam(2e-5), bf16 over fp32 masters:
+        the main path, counted (12 saving forwards, 12 dq and 12 dk/dv flash
+        launches a step, nothing else). Then step times, a device-busy
+        breakdown, the first losses in fp32 and bf16 against the same fit
+        with the plain attention, ``sd.output`` against the plain attention
+        and its p50, and a fit on labels the net can learn."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.autodiff.graph_optimizer import optimize
+        from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+        from deeplearning4j_tpu_torch.data import ExistingDataSetIterator, MultiDataSet
+        from deeplearning4j_tpu_torch.imports.tf_oracles import (bert_synthetic_batch,
+                                                                 build_bert_samediff,
+                                                                 graft_classifier)
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.updaters import Adam
+        env = get_environment()
+        t0 = time.perf_counter()
+        sd, inputs, _, _ = build_bert_samediff(
+            batch=BERT_B, seq_len=BERT_T, hidden=SD_HIDDEN, layers=BERT_LAYERS, heads=SD_HEADS,
+            intermediate=SD_FF, vocab=BERT_VOCAB, seed=0, device=self.device)
+        n_before = len(sd.ops)
+        t1 = time.perf_counter()
+        stats = optimize(sd)
+        t2 = time.perf_counter()
+        want = {"layer_norm": 2 * BERT_LAYERS + 1, "gelu_erf": BERT_LAYERS,
+                "attention": BERT_LAYERS}
+        got = {k: stats.get(k) for k in want}
+        sdpa = [n for n in sd.ops if n.op == "scaled_dot_product_attention"]
+        self.check(got == want and all(n.attrs.get("boolean_bias") for n in sdpa),
+                   f"samediff bert: build {t1 - t0:.1f} s ({n_before} ops), optimize() "
+                   f"{t2 - t1:.1f} s -> {len(sd.ops)} ops, {stats} (expected {want}, every "
+                   f"attention with the padding bias proven: "
+                   f"{[bool(n.attrs.get('boolean_bias')) for n in sdpa]})")
+        graft_classifier(sd, "pooled_output", hidden=SD_HIDDEN)
+        sd.convert_to_variable(*sd.trainable_float_constants())
+        sd.set_loss_variables("finetune_loss")
+        init = {n: t.detach().clone() for n, t in sd._trainable().items()}
+        log(f"samediff bert: {len(init)} trainable arrays, "
+            f"{sum(t.numel() for t in init.values()):,} weights; ops after the graft: "
+            f"{sorted({n.op for n in sd.ops})}")
+        ids, types, mask, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
+        mds = MultiDataSet(features=[ids, types, mask], labels=[labels])
+
+        def fit(batches, dtype, lr=2e-5):
+            """One epoch over ``batches`` from the initial weights and a
+            fresh Adam: the per-step losses and the host clock at each
+            step's end."""
+            with torch.no_grad():
+                for n, t in init.items():
+                    sd.arrays[n].copy_(t)
+            sd.set_training_config(TrainingConfig(
+                updater=Adam(lr), data_set_feature_mapping=list(inputs),
+                data_set_label_mapping=["labels"]))
+            sd._train_iter = 0
+            env.set_compute_dtype(dtype)
+            stamps = []
+            sd.set_listeners(StepStamps(stamps))
+            return list(sd.fit(ExistingDataSetIterator(batches))), stamps
+
+        counters = all_counters()
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        losses, stamps = fit([mds] * SD_STEPS, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
+            want[c.name] = BERT_LAYERS * SD_STEPS
+            row = self.kernels.setdefault(c.name, {})
+            row["launches"] = row.get("launches", 0) + counts[c.name]
+        self.check(counts == want, f"samediff bert launch counts over {SD_STEPS} steps: "
+                                   f"{counts} (expected {want})")
+        finite = len(losses) == SD_STEPS and all(np.isfinite(v) for v in losses)
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        zoo = "not run" if self.bert_train_step_ms is None else \
+            f"{self.bert_train_step_ms:.2f} ms"
+        log(f"samediff bert train: {SD_STEPS} steps of B={BERT_B} T={BERT_T} in {wall:.3f} s; "
+            f"losses first {losses[0]:.4f}, last {losses[-1]:.4f}: "
+            + " ".join(f"{v:.4f}" for v in losses) + "; "
+            f"step ms after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
+            f"{step_ms[-1]:.2f}); {BERT_B / med * 1e3:.0f} samples/s at the median; first step "
+            f"{1e3 * (stamps[0] - t0):.1f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; the zoo bert train "
+            f"phase's median step in this run: {zoo}")
+        self.device_breakdown(lambda: sd.fit(ExistingDataSetIterator([mds])),
+                              "samediff bert train step", reps=3, step_ms=med)
+        wide, busy = self.ffn_elementwise_ms(lambda: sd.fit(ExistingDataSetIterator([mds])),
+                                             SD_FF)
+        log(f"samediff bert train step: elementwise and reduction ops on (..., {SD_FF}) "
+            f"tensors (the FFN's activation; products excluded) {wide:.3f} ms of the "
+            f"{busy:.3f} ms its ops launched (torch.profiler, one step, by aten op and "
+            f"input shape)")
+
+        # ---- kernels vs the plain attention, the first BERT_CMP_STEPS steps
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            got = losses[:BERT_CMP_STEPS] if dtype == torch.bfloat16 else \
+                fit([mds] * BERT_CMP_STEPS, dtype)[0]
+            with plain_attention():
+                want_l = fit([mds] * BERT_CMP_STEPS, dtype)[0]
+            err = max(abs(a - b) for a, b in zip(got, want_l))
+            self.check(err <= BERT_TRAIN_TOL[dname],
+                       f"samediff bert {dname} first {BERT_CMP_STEPS} losses, kernels "
+                       f"{' '.join(f'{v:.5f}' for v in got)} vs plain "
+                       f"{' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
+                       f"tol={BERT_TRAIN_TOL[dname]:g}")
+
+        # ---- sd.output against the plain attention (fp32), and its p50
+        with torch.no_grad():
+            for n, t in init.items():
+                sd.arrays[n].copy_(t)
+        feeds = dict(zip(inputs, [ids, types, mask]))
+        before = fa.counter.value
+        out = sd.output(feeds, "pooled_output").float()
+        launched = fa.counter.value - before
+        with plain_attention():
+            ref = sd.output(feeds, "pooled_output").float()
+        err = float((out - ref).abs().max())
+        self.check(tuple(out.shape) == (BERT_B, SD_HIDDEN) and bool(torch.isfinite(out).all())
+                   and err <= SD_OUTPUT_TOL and launched == BERT_LAYERS,
+                   f"samediff bert sd.output(pooled_output) {tuple(out.shape)} fp32 vs plain "
+                   f"attention: max_abs_err={err:.3g} tol={SD_OUTPUT_TOL:g}; {launched} "
+                   f"inference launches (expected {BERT_LAYERS})")
+        ms = []
+        for _ in range(21):
+            t_req = time.perf_counter()
+            sd.output(feeds, "pooled_output").cpu()
+            ms.append(1e3 * (time.perf_counter() - t_req))
+        ms = sorted(ms[1:])
+        log(f"samediff bert one {BERT_B}-row T={BERT_T} sd.output request at a time (fp32), "
+            f"{len(ms)} requests: p50 {ms[len(ms) // 2]:.2f} ms (min {ms[0]:.2f}, max "
+            f"{ms[-1]:.2f}), {BERT_B / ms[len(ms) // 2] * 1e3:.0f} samples/s at p50")
+        self.device_breakdown(lambda: sd.output(feeds, "pooled_output"),
+                              f"samediff bert {BERT_B}-row output")
+
+        # ---- learning: a second fit, on every_token's labels
+        def learn_batch(x, y):
+            x = x.astype(np.int32)
+            return MultiDataSet(features=[x, np.zeros_like(x), np.ones_like(x)], labels=[y])
+
+        losses_l, _ = fit([learn_batch(x, y) for x, y in
+                           label_batches(SD_STEPS, 99, every_token)], torch.bfloat16,
+                          lr=SD_LEARN_LR)
+        x, y = label_batches(1, 7, every_token)[0]
+        fresh = learn_batch(x, y)
+        logits = sd.output(dict(zip(inputs, fresh.features)), "cls_logits").float()
+        acc = float((logits.argmax(1).cpu().numpy() == y.argmax(1)).mean())
+        tail = sum(losses_l[-3:]) / 3
+        limit = BERT_LOSS_FALL * min(losses_l[0], math.log(2))
+        self.check(finite and all(np.isfinite(v) for v in losses_l) and tail < limit
+                   and acc >= BERT_MIN_ACC,
+                   f"samediff bert bf16 loss (main path finite over {len(losses)} steps): "
+                   f"every_token's first {losses_l[0]:.4f} -> mean of the last 3 {tail:.4f} "
+                   f"at lr {SD_LEARN_LR:g} (must fall below {BERT_LOSS_FALL} x min(first, "
+                   f"ln 2) = {limit:.4f}); accuracy on a fresh batch {acc:.3f} (must be >= "
+                   f"{BERT_MIN_ACC}): " + " ".join(f"{v:.4f}" for v in losses_l))
+        del sd, init
+        torch.cuda.empty_cache()
+        env.allow_bfloat16()
 
     def lenet_phase(self, workdir):
         """BASELINE config #1 on the card: the zoo LeNet trained by ``fit``
@@ -3316,6 +3554,13 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--samediff"]:
+        smoke.phase("train bert", smoke.bert_train_phase)
+        smoke.phase("samediff bert", smoke.samediff_phase)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--lenet"]:
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
         try:
@@ -3348,6 +3593,7 @@ def main() -> int:
         smoke.phase("train graves=True", lambda: smoke.train_phase("graves"))
         smoke.phase("train graves=False", lambda: smoke.train_phase("lstm"))
         smoke.phase("train bert", smoke.bert_train_phase)
+        smoke.phase("samediff bert", smoke.samediff_phase)
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
         smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
         smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))

@@ -32,11 +32,16 @@ the graph at ``init``: ResNet-50 has 36. Parameters live on one device,
 A layer whose input needs a preprocessor (an image into a dense layer)
 gets one at build time, as in the JAX package (``:146-170``); a
 ``PreprocessorVertex`` applies one explicitly. The l1/l2 penalties of the
-layers are added to the loss (JAX ``_reg_score``).
+layers are added to the loss (JAX ``_reg_score``). In training a layer with
+``weight_noise`` sees its perturbed weights (the loss too), and after each
+update the layers' constraints project the parameters (JAX ``:356``,
+``:566``). ``fit`` takes ``DataSet``s and ``MultiDataSet``s.
 
 Not ported yet, and raising by name: rematerialized segments, packed and
 unrolled steps, ``fit_external``, ``backprop_gradient``, truncated BPTT and
-``rnn_time_step`` on a graph.
+the stateful RNN API (``rnn_time_step``, ``rnn_time_step_external``,
+``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
+``rnn_clear_previous_state``) on a graph.
 """
 
 from __future__ import annotations
@@ -48,10 +53,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.models._tbptt import is_sequence_array
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, cast_floating
 from deeplearning4j_tpu_torch.nn.config import auto_preprocessor
+from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conv_layers import BatchNormalization, ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.graph_vertices import GraphVertex
 from deeplearning4j_tpu_torch.nn.inputs import InputType
@@ -406,8 +412,11 @@ class ComputationGraph:
 
     def _loss(self, params, model_state, inputs, labels, generator=None, masks=None,
               training: bool = True):
-        """The sum of the output layers' losses (JAX ``:468-511``); returns
-        ``(loss, new_state)``."""
+        """The sum of the output layers' losses (JAX ``:500-543``); returns
+        ``(loss, new_state)``. In training the forward and the losses see
+        the weights perturbed by the layers' weight noise."""
+        if training:
+            params = self._perturbed(params, generator)
         acts, last_inputs, new_state = self._forward_all(
             params, model_state, inputs, training=training, generator=generator, masks=masks)
         cdt = get_environment().compute_dtype
@@ -430,7 +439,7 @@ class ComputationGraph:
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
         """``fit(iterator)``, ``fit(iterator, epochs=N)`` or ``fit(x, y)``
-        (JAX ``:258-323``): ``x``/``y`` one array or tensor each, or lists of
+        (JAX ``:677-742``): ``x``/``y`` one array or tensor each, or lists of
         them for several inputs/outputs, taken as one batch. Tensors already
         on the graph's device are used where they lie."""
         self._ensure_init()
@@ -446,10 +455,18 @@ class ComputationGraph:
         return self
 
     def _coerce_batch(self, batch):
-        """A DataSet minibatch, or an already coerced ``(inputs, labels,
-        masks)``, as tensors on the device (JAX ``:240-256``)."""
+        """A DataSet or MultiDataSet minibatch, or an already coerced
+        ``(inputs, labels, masks)``, as tensors on the device (JAX
+        ``:659-675``)."""
         if isinstance(batch, tuple):
             return batch
+        if isinstance(batch, MultiDataSet):
+            masks = None
+            if batch.labels_masks is not None:
+                masks = {o: (None if m is None else self._as_input(m))
+                         for o, m in zip(self.conf.outputs, batch.labels_masks)}
+            return ({n: self._as_input(f) for n, f in zip(self.conf.inputs, batch.features)},
+                    [self._as_input(y) for y in batch.labels], masks)
         if not isinstance(batch, DataSet):
             raise NotImplementedError(f"fitting a ComputationGraph on {type(batch).__name__} "
                                       "is not ported to deeplearning4j_tpu_torch yet")
@@ -500,8 +517,34 @@ class ComputationGraph:
             g = next(grads) if t.is_floating_point() else None
             per_leaf.append(torch.zeros_like(t) if g is None else g)
         optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
+        self._apply_constraints()
         self._model_state = tree_map(lambda t: t.detach(), new_state)
         return loss.detach()
+
+    def _perturbed(self, params, generator):
+        """``params`` cast to ``compute_dtype``, each layer node that has
+        ``weight_noise`` seeing its perturbed weights (JAX ``_exec_node``
+        ``:355-359``), drawn from ``generator``; unchanged without one."""
+        noisy = [n for n in self.conf.nodes
+                 if n.kind == "layer" and n.obj.weight_noise is not None]
+        if generator is None or not noisy:
+            return params
+        out = dict(cast_floating(params, get_environment().compute_dtype))
+        for n in noisy:
+            if n.name in out:
+                out[n.name] = apply_weight_noise(n.obj, out[n.name], generator)
+        return out
+
+    def _apply_constraints(self) -> None:
+        """Project the parameters by the layers' constraints, in place
+        (JAX ``_apply_constraints``, after each update)."""
+        with torch.no_grad():
+            for n in self.conf.nodes:
+                if n.kind != "layer" or n.name not in self._params:
+                    continue
+                for k, t in apply_layer_constraints(n.obj, self._params[n.name]).items():
+                    if t is not self._params[n.name][k]:
+                        self._params[n.name][k].copy_(t)
 
     def _iteration_done(self, loss) -> None:
         self._score = loss
@@ -533,7 +576,7 @@ class ComputationGraph:
 
     # ------------------------------------------------------------- inference
     def output(self, *xs):
-        """Forward pass in inference mode (JAX ``:400-413``): the output for
+        """Forward pass in inference mode (JAX ``:819-832``): the output for
         one output node, else a list in ``conf.outputs`` order."""
         self._ensure_init()
         with torch.inference_mode():
@@ -567,6 +610,33 @@ class ComputationGraph:
     def rnn_time_step_external(self, *xs, state):
         raise _unported("rnn_time_step_external")
 
+    def rnn_clear_previous_state(self) -> None:
+        raise _unported("rnn_clear_previous_state")
+
+    def rnn_get_state(self):
+        raise _unported("rnn_get_state")
+
+    def rnn_set_state(self, state) -> None:
+        raise _unported("rnn_set_state")
+
+    def rnn_zero_state(self, batch: int, like=None):
+        raise _unported("rnn_zero_state")
+
+    def evaluate(self, iterator, output_index: int = 0):
+        """Classification evaluation of one output over an iterator of
+        DataSets or MultiDataSets (reference ``evaluate(DataSetIterator)``,
+        JAX ``:1003-1016``)."""
+        from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
+        ev = Evaluation()
+        iterator.reset()
+        for batch in iterator:
+            inputs, labels, _ = self._coerce_batch(batch)
+            outs = self.output(*[inputs[n] for n in self.conf.inputs])
+            if isinstance(outs, list):
+                outs = outs[output_index]
+            ev.eval(labels[output_index].float().cpu().numpy(), outs.float().cpu().numpy())
+        return ev
+
     # -------------------------------------------------------------- plumbing
     def set_listeners(self, *listeners: TrainingListener) -> None:
         self._listeners = list(listeners)
@@ -592,6 +662,17 @@ class ComputationGraph:
         if self._params is None:
             return 0
         return int(sum(t.numel() for t in tree_leaves(self._params)))
+
+    def clone(self) -> "ComputationGraph":
+        """A graph of the same configuration with copies of the parameters
+        and the layers' state, on the same device, and a fresh optimizer
+        (JAX ``:1027-1036``)."""
+        net = ComputationGraph(ComputationGraphConfiguration.from_dict(self.conf.to_dict()),
+                               device=self.device or self._requested_device)
+        if self._params is not None:
+            net.init(params=tree_map(torch.clone, self._params))
+            net._model_state = tree_map(torch.clone, self._model_state)
+        return net
 
     def save(self, path: str) -> None:
         from deeplearning4j_tpu_torch.models.serializer import ModelSerializer

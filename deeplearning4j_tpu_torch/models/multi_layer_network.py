@@ -4,8 +4,10 @@ Counterpart of ``deeplearning4j_tpu/models/multi_layer_network.py``:
 ``init``, ``fit`` (with truncated BPTT), ``score``, ``output``,
 ``feed_forward``, ``evaluate`` (and its regression and ROC forms),
 listeners, the stateful RNN API (``rnn_time_step``,
-``rnn_time_step_external``, ``rnn_get_state``/``rnn_set_state``/
-``rnn_zero_state``/``rnn_clear_previous_state``), ``summary``, ``clone`` and
+``rnn_time_step_external``, ``rnn_activate_using_stored_state``,
+``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
+``rnn_clear_previous_state``), the external-errors mode
+(``backprop_gradient``, ``fit_external``), ``summary``, ``clone`` and
 ``save``/``load``. ``_forward`` keeps the JAX semantics of ``:156-215``: a
 layer's input preprocessor (``conf.preprocessors``) reshapes its input
 first; the input and the parameters are cast to ``compute_dtype`` (the
@@ -13,7 +15,10 @@ parameters stay ``default_dtype`` masters, and their gradients come back
 through the cast); layers apply their input dropout in training; the output
 layer runs through ``activate`` (a softmax at every timestep for
 ``RnnOutputLayer``); carries start in ``carry_dtype``. The loss adds the
-layers' l1/l2 penalties (JAX ``_reg_score``).
+layers' l1/l2 penalties (JAX ``_reg_score``). In training a layer with
+``weight_noise`` sees its perturbed weights (the loss too), and after each
+update the layers' ``constraints``/``bias_constraints`` project the
+parameters (JAX ``:187``, ``:232``, ``:278``).
 
 PyTorch runs eagerly, so there is no jit cache and no packed, grouped or
 prefetched step: ``fit`` is a plain loop of ``_loss`` -> ``torch.autograd``
@@ -42,6 +47,7 @@ from deeplearning4j_tpu_torch.models._tbptt import (carry_dtype, is_sequence_arr
                                                     slice_time)
 from deeplearning4j_tpu_torch.nn.base import Layer, cast_floating
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
@@ -154,17 +160,46 @@ class MultiLayerNetwork:
                     new_state[k] = s_new
         return x, last_in, new_state, new_carries
 
+    def _perturbed(self, params, generator):
+        """``params`` cast to ``compute_dtype``, with each layer that has
+        ``weight_noise`` seeing its perturbed weights (JAX ``_forward``
+        ``:187``), drawn from ``generator``; unchanged without one."""
+        if generator is None or not any(l.weight_noise is not None for l in self.layers):
+            return params
+        params = cast_floating(params, get_environment().compute_dtype)
+        out = dict(params)
+        for i, layer in enumerate(self.layers):
+            k = _layer_key(i, layer)
+            if layer.weight_noise is not None and k in out:
+                out[k] = apply_weight_noise(layer, out[k], generator)
+        return out
+
+    def _apply_constraints(self) -> None:
+        """Project the parameters by the layers' constraints, in place
+        (JAX ``_apply_constraints``, after each update)."""
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                k = _layer_key(i, layer)
+                if k not in self._params:
+                    continue
+                for name, t in apply_layer_constraints(layer, self._params[k]).items():
+                    if t is not self._params[k][name]:
+                        self._params[k][name].copy_(t)
+
     def _loss(self, params, model_state, x, y, generator=None, fmask=None, lmask=None,
               carries=None, training: bool = True):
         """The output layer's loss on ``(x, y)`` plus the l1/l2 penalty of
         the (uncast) parameters (JAX ``:217-275``); returns ``(loss,
-        new_state, new_carries)``."""
+        new_state, new_carries)``. In training the forward and the loss see
+        the weights perturbed by the layers' weight noise."""
         final = self.layers[-1]
         if not hasattr(final, "compute_loss"):
             raise ValueError("Last layer must be an output/loss layer to compute loss")
         reg = reg_score([(_layer_key(i, l), l) for i, l in enumerate(self.layers)], params,
                         self.conf.global_conf)
         params = cast_floating(params, get_environment().compute_dtype)
+        if training:
+            params = self._perturbed(params, generator)
         _, last_in, new_state, new_carries = self._forward(
             params, model_state, x, training=training, generator=generator, fmask=fmask,
             carries=carries)
@@ -191,10 +226,19 @@ class MultiLayerNetwork:
                                          self._as_input(x), fmask=m)
         return out
 
-    def _rnn_step(self, carries, x):
-        with torch.inference_mode():
-            out, _, _, new_carries = self._forward(self._params, self._model_state, x,
-                                                   carries=carries)
+    def _rnn_step(self, carries, x, training: bool = False):
+        """One chunk from ``carries``: ``(out, new_carries)``; in training
+        with dropout and weight noise, without a gradient."""
+        if not training:
+            with torch.inference_mode():
+                out, _, _, new_carries = self._forward(self._params, self._model_state, x,
+                                                       carries=carries)
+            return out, new_carries
+        generator = self.rng.next_generator()
+        with torch.no_grad():
+            out, _, _, new_carries = self._forward(
+                self._perturbed(self._params, generator), self._model_state, x,
+                training=True, generator=generator, carries=carries)
         return out, new_carries
 
     def rnn_time_step(self, x) -> torch.Tensor:
@@ -207,6 +251,22 @@ class MultiLayerNetwork:
             self._rnn_carries = self._zero_carries(
                 x.shape[0], carry_dtype(x, get_environment().compute_dtype))
         out, self._rnn_carries = self._rnn_step(self._rnn_carries, x)
+        return out
+
+    def rnn_activate_using_stored_state(self, x, training: bool = False,
+                                        store_last_for_tbptt: bool = False) -> torch.Tensor:
+        """Reference ``rnnActivateUsingStoredState`` (JAX ``:722-735``):
+        forward a sequence from the STORED recurrent state (zeros when none
+        is stored); with ``store_last_for_tbptt`` the final state replaces
+        it. Returns the output activations."""
+        self._ensure_init()
+        x = self._as_input(x)
+        if self._rnn_carries is None:
+            self._rnn_carries = self._zero_carries(
+                x.shape[0], carry_dtype(x, get_environment().compute_dtype))
+        out, new_carries = self._rnn_step(self._rnn_carries, x, training)
+        if store_last_for_tbptt:
+            self._rnn_carries = new_carries
         return out
 
     def rnn_clear_previous_state(self) -> None:
@@ -335,8 +395,63 @@ class MultiLayerNetwork:
             g = next(grads) if t.is_floating_point() else None
             per_leaf.append(torch.zeros_like(t) if g is None else g)
         optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
+        self._apply_constraints()
         self._model_state = tree_map(lambda t: t.detach(), new_state)
         return loss.detach(), new_carries
+
+    # ------------------------------------------------------ external errors
+    def _external_vjp(self, x, epsilon, generator):
+        """The training forward of ``x`` (dropout and weight noise from
+        ``generator``, none without one) and its vjp with ``epsilon`` =
+        dL/dOutput: ``(param_grads, dL/dInput, new_state)``, the gradients
+        nested as the parameters."""
+        x = self._as_input(x).detach()
+        leaves = tree_leaves(self._params)
+        trained = [t for t in leaves if t.is_floating_point()]
+        for t in trained:
+            t.requires_grad_(True)
+        x.requires_grad_(x.is_floating_point())
+        try:
+            out, _, new_state, _ = self._forward(
+                self._perturbed(self._params, generator), self._model_state, x,
+                training=True, generator=generator)
+            eps = self._as_input(epsilon).to(out.dtype)
+            wrt = trained + ([x] if x.requires_grad else [])
+            grads = list(torch.autograd.grad(out, wrt, grad_outputs=eps, allow_unused=True))
+        finally:
+            for t in trained:
+                t.requires_grad_(False)
+        gx = grads.pop() if x.requires_grad else None
+        if gx is None and x.requires_grad:
+            gx = torch.zeros_like(x)
+        it = iter(grads)
+        per_leaf = []
+        for t in leaves:
+            g = next(it) if t.is_floating_point() else None
+            per_leaf.append(torch.zeros_like(t) if g is None else g)
+        return tree_unflatten_like(self._params, per_leaf), gx, new_state
+
+    def backprop_gradient(self, x, epsilon):
+        """Reference external-errors mode (``backpropGradient(epsilon)``,
+        JAX ``:650-671``): given dL/dOutput computed outside this network,
+        ``(param_gradients, dL/dInput)`` of a training forward without
+        dropout. No update."""
+        self._ensure_init()
+        gp, gx, _ = self._external_vjp(x, epsilon, None)
+        return gp, gx
+
+    def fit_external(self, x, epsilon):
+        """An external-errors training step (JAX ``:673-704``): backprop
+        ``epsilon`` (dL/dOutput) through a training forward (dropout, weight
+        noise) and apply the configured updater; the layers' new state
+        replaces the old. Returns dL/dInput."""
+        self._ensure_init()
+        optimizer = self._ensure_optimizer()
+        gp, gx, new_state = self._external_vjp(x, epsilon, self.rng.next_generator())
+        optimizer.step(self._params, gp)
+        self._model_state = tree_map(lambda t: t.detach(), new_state)
+        self._iteration += 1
+        return gx
 
     def _iteration_done(self, loss, batch_size: Optional[int] = None) -> None:
         """Listener bookkeeping after one iteration; a

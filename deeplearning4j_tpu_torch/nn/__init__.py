@@ -11,6 +11,10 @@ from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, Convolu
                                                      SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.config import (MultiLayerConfiguration,
                                                 NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.constraints import (DropConnect, MaxNormConstraint,
+                                                     MinMaxNormConstraint,
+                                                     NonNegativeConstraint,
+                                                     UnitNormConstraint, WeightNoise)
 from deeplearning4j_tpu_torch.nn.core_layers import (ActivationLayer, DenseLayer,
                                                      DropoutLayer, EmbeddingLayer,
                                                      EmbeddingSequenceLayer,
@@ -23,11 +27,12 @@ from deeplearning4j_tpu_torch.nn.recurrent_layers import (GRU, LSTM, BaseRecurre
 
 __all__ = [
     "ActivationLayer", "BaseRecurrentLayer", "BatchNormalization", "BertEmbeddingLayer",
-    "Bidirectional", "ClsPoolingLayer", "ConvolutionLayer", "DenseLayer", "DropoutLayer",
-    "EmbeddingLayer", "EmbeddingSequenceLayer", "GRU", "GlobalConfig", "GlobalPoolingLayer",
-    "GravesLSTM", "InputType", "LSTM", "LastTimeStep", "Layer",
-    "LearnedPositionalEmbeddingLayer", "LossLayer", "MultiLayerConfiguration",
-    "NeuralNetConfiguration", "OutputLayer", "PoolingType", "RnnOutputLayer",
+    "Bidirectional", "ClsPoolingLayer", "ConvolutionLayer", "DenseLayer", "DropConnect",
+    "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer", "GRU", "GlobalConfig",
+    "GlobalPoolingLayer", "GravesLSTM", "InputType", "LSTM", "LastTimeStep", "Layer",
+    "LearnedPositionalEmbeddingLayer", "LossLayer", "MaxNormConstraint",
+    "MinMaxNormConstraint", "MultiLayerConfiguration", "NeuralNetConfiguration",
+    "NonNegativeConstraint", "OutputLayer", "PoolingType", "RnnOutputLayer",
     "SelfAttentionLayer", "SimpleRnn", "SubsamplingLayer", "TransformerEncoderBlock",
-    "TransformerEncoderStack", "register_layer",
+    "TransformerEncoderStack", "UnitNormConstraint", "WeightNoise", "register_layer",
 ]

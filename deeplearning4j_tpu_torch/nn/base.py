@@ -98,9 +98,11 @@ class GlobalConfig:
 @dataclasses.dataclass
 class Layer:
     """Base layer config. Fields that default to ``None`` inherit from
-    :class:`GlobalConfig`. ``constraints``, ``bias_constraints`` and
-    ``weight_noise`` act only in training and are kept as their JSON values
-    so a config round-trips."""
+    :class:`GlobalConfig`. ``constraints``/``bias_constraints`` (lists of
+    :class:`~.constraints.Constraint`) project the parameters after each
+    update, and ``weight_noise`` (:class:`~.constraints.DropConnect` or
+    :class:`~.constraints.WeightNoise`) perturbs the weights a training
+    forward sees."""
 
     name: Optional[str] = None
     activation: Any = None
@@ -169,6 +171,8 @@ class Layer:
                 v = v.value
             elif hasattr(v, "to_dict"):
                 v = v.to_dict()
+            elif isinstance(v, (list, tuple)) and v and hasattr(v[0], "to_dict"):
+                v = [e.to_dict() for e in v]
             d[f.name] = v
         return d
 
@@ -184,6 +188,12 @@ class Layer:
             if k == "updater" and isinstance(v, dict):
                 from deeplearning4j_tpu_torch.train.updaters import Updater
                 v = Updater.from_dict(v)
+            elif k in ("constraints", "bias_constraints") and v is not None:
+                from deeplearning4j_tpu_torch.nn.constraints import constraints_from_config
+                v = constraints_from_config(v)
+            elif k == "weight_noise":
+                from deeplearning4j_tpu_torch.nn.constraints import weight_noise_from_config
+                v = weight_noise_from_config(v)
             kwargs[k] = v
         return target(**kwargs)
 

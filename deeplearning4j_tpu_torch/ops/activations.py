@@ -3,9 +3,13 @@
 Counterpart of ``deeplearning4j_tpu/ops/activations.py``: the reference's
 activation set (``org.nd4j.linalg.activations.Activation``) as plain
 functions on tensors. Names match case-insensitively, so configs written
-with DL4J-style UPPERCASE names round-trip. The JAX package's recompute-
-in-backward gelu variants are a training-memory device; the values here are
-the same (tanh-approximate gelu, rational-erf free).
+with DL4J-style UPPERCASE names round-trip. The layers' ``gelu`` is the
+tanh-approximate form. :func:`gelu_tanh_recompute` and
+:func:`gelu_exact_recompute` (JAX ``:74-135``), which the op registry's
+``gelu`` runs, save only their input for the backward and recompute tanh
+or erf there; the exact form uses the JAX package's rational erf
+(:func:`_fusable_erf`, Abramowitz-Stegun 7.1.26), not ``torch.erf``, so the
+two packages agree to the last bits.
 """
 
 from __future__ import annotations
@@ -72,6 +76,81 @@ _FNS: dict[str, Callable] = {
     "rectifiedtanh": lambda x: torch.clamp(torch.tanh(x), min=0.0),
     "thresholdedrelu": lambda x: torch.where(x > 1.0, x, torch.zeros_like(x)),
 }
+
+
+_GELU_C = 0.7978845608028654  # sqrt(2/pi)
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    # float32 accumulation for low precision; float64 stays float64
+    return torch.promote_types(dt, torch.float32)
+
+
+def _gelu_tanh_value(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``'s formula, in its order."""
+    cdf = 0.5 * (1.0 + torch.tanh(_GELU_C * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
+def _fusable_erf(z: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 rational erf (absolute error below 1.5e-7)
+    in plain mul/add/div/exp ops (JAX ``:94``)."""
+    s = torch.sign(z)
+    a = torch.abs(z)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    return s * (1.0 - poly * torch.exp(-a * a))
+
+
+def _gelu_exact_value(af: torch.Tensor) -> torch.Tensor:
+    return 0.5 * af * (1.0 + _fusable_erf(af * 0.7071067811865476))
+
+
+class GeluTanhRecompute(torch.autograd.Function):
+    """Tanh-approximate gelu that saves only its input and recomputes tanh
+    in the backward (JAX ``gelu_tanh_recompute``)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return _gelu_tanh_value(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        af = a.to(_acc_dtype(a.dtype))
+        t = torch.tanh(_GELU_C * (af + 0.044715 * af ** 3))
+        d = 0.5 * (1.0 + t) + 0.5 * af * (1.0 - t * t) * _GELU_C * (
+            1.0 + 3 * 0.044715 * af * af)
+        return (g.to(af.dtype) * d).to(a.dtype)
+
+
+class GeluExactRecompute(torch.autograd.Function):
+    """Exact (erf) gelu with the rational erf, saving only its input (JAX
+    ``gelu_exact_recompute``): computed in float32 (float64 stays float64)
+    and rounded to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return _gelu_exact_value(a.to(_acc_dtype(a.dtype))).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        af = a.to(_acc_dtype(a.dtype))
+        cdf = 0.5 * (1.0 + _fusable_erf(af * 0.7071067811865476))
+        pdf = torch.exp(-0.5 * af * af) * 0.3989422804014327
+        return (g.to(af.dtype) * (cdf + af * pdf)).to(a.dtype)
+
+
+def gelu_tanh_recompute(a: torch.Tensor) -> torch.Tensor:
+    return GeluTanhRecompute.apply(a)
+
+
+def gelu_exact_recompute(a: torch.Tensor) -> torch.Tensor:
+    return GeluExactRecompute.apply(a)
 
 
 def get_activation(name: Union[str, Activation, Callable]) -> Callable:

@@ -456,12 +456,6 @@ def reg_score(named_layers, params, g) -> Optional[torch.Tensor]:
     return total
 
 
-def _unported(name: str, value) -> None:
-    if value:
-        raise NotImplementedError(f"{name}={value!r} is not ported to "
-                                  "deeplearning4j_tpu_torch yet")
-
-
 @dataclasses.dataclass
 class WeightDecay:
     """Decoupled (AdamW-style) weight decay after the updater (JAX
@@ -518,8 +512,9 @@ class NetworkOptimizer:
 
     @staticmethod
     def for_network(layers, layer_keys: List[str], global_conf, params) -> "NetworkOptimizer":
-        """The chains as ``_layer_transform`` builds them; raises by name on
-        what is not ported (constraints, weight noise)."""
+        """The chains as ``_layer_transform`` builds them. Constraints and
+        weight noise are not part of the chain: the networks apply them
+        around the step (:mod:`~..nn.constraints`)."""
         g = global_conf
         default = g.updater if g.updater is not None else Sgd(0.1)
         transforms: Dict[str, Updater] = {}
@@ -528,8 +523,6 @@ class NetworkOptimizer:
         for k, layer in zip(layer_keys, layers):
             if k not in params:
                 continue
-            for name in ("constraints", "bias_constraints", "weight_noise"):
-                _unported(name, getattr(layer, name))
             if layer.frozen:
                 transforms[k] = NoOp()
                 continue
