@@ -220,6 +220,31 @@ the card and exits nonzero if any phase fails:
             (device time), its plain version at row 13's shape, and the sum
             over the step's 36 launches beside the profiler's conv_stats
             total in the step.
+7. runtime: (after ``lenet``; ``--runtime`` runs the build and this phase
+            only) the training runtime under every fit loop, with captured
+            CUDA graphs (``runtime/compile_cache.AotCache``) replayed by the
+            fit loops. Config #4 as ``bench_imported_bert`` runs it, one
+            epoch of 48 repeated batches three ways: ``dispatch_unroll(4)``
+            (a 4-step graph), one-step graphs, and ``aot_dispatch`` off: each
+            one's steady step ms, samples/s, device busy and its share, peak
+            memory, 576 saving flash forwards, 576 dq and 576 dk/dv, and its
+            losses and final weights against the eager run's (1e-6
+            relative). LeNet one epoch fp32 with and without graphs: step ms,
+            busy share, test accuracy >= 0.95, the first 3 losses against
+            the CPU. ResNet-50 for 20 steps with ``prefetch_buffer=2`` and a
+            ``TrainingProfiler`` (data wait / dispatch / step) against
+            ``prefetch_buffer=0``: the same losses, 720 conv_stats launches.
+            The zoo BERT (dropout 0.1) with ``dispatch_unroll(4)``, 5 fits
+            of one group: the dropout masks a replayed graph wrote differ
+            from step to step and replay to replay, drop share in (0.08,
+            0.12), the first 3 losses against the plain attention, the loss
+            falling. A ``FaultTolerantTrainer`` on LeNet with a chaos fault
+            mid-epoch: restarted from the last checkpoint, the final weights
+            of an uninterrupted run, ``verify_checkpoint``. Early stopping
+            on LeNet (at most 3 epochs): the best epoch and score.
+            ``GradientCheckUtil`` in float64 on the card: conv +
+            BatchNormalization + dense passes, an LSTM net raises by the
+            kernels' dtype rule. Then the graphs captured and replayed.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -554,6 +579,25 @@ LENET_CMP_STEPS, LENET_TOL = 3, 1e-4
 # net.output of the same rows on the card: the same program, in a bucket of
 # another size; probabilities within 1e-4.
 LENET_SERVE_TOL = 1e-4
+# The runtime phase (the training runtime under every fit loop). Config #4 as
+# bench_imported_bert runs it: one epoch of RUNTIME_SD_STEPS repeated
+# batches, dispatch_unroll(RUNTIME_UNROLL) groups, one-step captured graphs
+# and the eager step; each one's losses and final weights against the eager
+# run's within RUNTIME_REL_TOL relative (to the largest |weight|), as the
+# JAX package holds its unrolled SameDiff program (~1e-7). The zoo BERT
+# with dropout 0.1 in RUNTIME_BERT_FITS fits of RUNTIME_UNROLL steps (one
+# group each): every recorded mask's zero share within RUNTIME_DROP_BAND.
+# ResNet-50 with prefetch_buffer=2 for RESNET_STEPS steps against
+# prefetch_buffer=0 from one init: the same losses, bit for bit. A
+# FaultTolerantTrainer on LeNet over RUNTIME_FT_BATCHES unshuffled batches,
+# a checkpoint every RUNTIME_FT_EVERY iterations and a chaos fault at the
+# RUNTIME_FT_FAULT-th fetch: its final weights against an uninterrupted
+# run's within RUNTIME_REL_TOL. Early stopping on LeNet: at most
+# RUNTIME_ES_EPOCHS epochs.
+RUNTIME_SD_STEPS, RUNTIME_UNROLL, RUNTIME_REL_TOL = 48, 4, 1e-6
+RUNTIME_BERT_FITS, RUNTIME_DROP_BAND = 5, (0.08, 0.12)
+RUNTIME_FT_BATCHES, RUNTIME_FT_EVERY, RUNTIME_FT_FAULT = 30, 10, 17
+RUNTIME_ES_EPOCHS = 3
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -839,6 +883,14 @@ class StepStamps:
 
     def on_epoch_end(self, model, epoch):
         pass
+
+
+class DoneStamps(StepStamps):
+    """StepStamps that reads no model state: ``fit`` keeps its state packed
+    and delivers to it from the completion thread, where reading the loss
+    waits for that step alone."""
+
+    needs_model_state = False
 
 
 class plain_recurrences:
@@ -2542,6 +2594,45 @@ class Smoke:
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         get_environment().allow_bfloat16()
 
+    def sd_bert(self, what):
+        """BERT-base as the JAX package's TF import yields it
+        (``build_bert_samediff``, seed 0), ``optimize()``d (its fusion
+        counts checked), a 2-class head grafted, every weight trainable:
+        ``(sd, inputs, initial weights, the MultiDataSet of
+        bert_synthetic_batch(64, 128, 30522, seed=1))``."""
+        from deeplearning4j_tpu_torch.autodiff.graph_optimizer import optimize
+        from deeplearning4j_tpu_torch.data import MultiDataSet
+        from deeplearning4j_tpu_torch.imports.tf_oracles import (bert_synthetic_batch,
+                                                                 build_bert_samediff,
+                                                                 graft_classifier)
+        t0 = time.perf_counter()
+        sd, inputs, _, _ = build_bert_samediff(
+            batch=BERT_B, seq_len=BERT_T, hidden=SD_HIDDEN, layers=BERT_LAYERS, heads=SD_HEADS,
+            intermediate=SD_FF, vocab=BERT_VOCAB, seed=0, device=self.device)
+        n_before = len(sd.ops)
+        t1 = time.perf_counter()
+        stats = optimize(sd)
+        t2 = time.perf_counter()
+        want = {"layer_norm": 2 * BERT_LAYERS + 1, "gelu_erf": BERT_LAYERS,
+                "attention": BERT_LAYERS}
+        got = {k: stats.get(k) for k in want}
+        sdpa = [n for n in sd.ops if n.op == "scaled_dot_product_attention"]
+        self.check(got == want and all(n.attrs.get("boolean_bias") for n in sdpa),
+                   f"{what}: build {t1 - t0:.1f} s ({n_before} ops), optimize() "
+                   f"{t2 - t1:.1f} s -> {len(sd.ops)} ops, {stats} (expected {want}, every "
+                   f"attention with the padding bias proven: "
+                   f"{[bool(n.attrs.get('boolean_bias')) for n in sdpa]})")
+        graft_classifier(sd, "pooled_output", hidden=SD_HIDDEN)
+        sd.convert_to_variable(*sd.trainable_float_constants())
+        sd.set_loss_variables("finetune_loss")
+        init = {n: t.detach().clone() for n, t in sd._trainable().items()}
+        log(f"{what}: {len(init)} trainable arrays, "
+            f"{sum(t.numel() for t in init.values()):,} weights; ops after the graft: "
+            f"{sorted({n.op for n in sd.ops})}")
+        ids, types, mask, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
+        mds = MultiDataSet(features=[ids, types, mask], labels=[labels])
+        return sd, inputs, init, mds
+
     def samediff_phase(self):
         """BASELINE config #4 as ``bench_imported_bert`` measures it:
         BERT-base built as the JAX package's TF import yields it, through
@@ -2556,42 +2647,14 @@ class Smoke:
         and its p50, and a fit on labels the net can learn."""
         import numpy as np
         torch = self.torch
-        from deeplearning4j_tpu_torch.autodiff.graph_optimizer import optimize
         from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
         from deeplearning4j_tpu_torch.data import ExistingDataSetIterator, MultiDataSet
-        from deeplearning4j_tpu_torch.imports.tf_oracles import (bert_synthetic_batch,
-                                                                 build_bert_samediff,
-                                                                 graft_classifier)
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.train.updaters import Adam
         env = get_environment()
-        t0 = time.perf_counter()
-        sd, inputs, _, _ = build_bert_samediff(
-            batch=BERT_B, seq_len=BERT_T, hidden=SD_HIDDEN, layers=BERT_LAYERS, heads=SD_HEADS,
-            intermediate=SD_FF, vocab=BERT_VOCAB, seed=0, device=self.device)
-        n_before = len(sd.ops)
-        t1 = time.perf_counter()
-        stats = optimize(sd)
-        t2 = time.perf_counter()
-        want = {"layer_norm": 2 * BERT_LAYERS + 1, "gelu_erf": BERT_LAYERS,
-                "attention": BERT_LAYERS}
-        got = {k: stats.get(k) for k in want}
-        sdpa = [n for n in sd.ops if n.op == "scaled_dot_product_attention"]
-        self.check(got == want and all(n.attrs.get("boolean_bias") for n in sdpa),
-                   f"samediff bert: build {t1 - t0:.1f} s ({n_before} ops), optimize() "
-                   f"{t2 - t1:.1f} s -> {len(sd.ops)} ops, {stats} (expected {want}, every "
-                   f"attention with the padding bias proven: "
-                   f"{[bool(n.attrs.get('boolean_bias')) for n in sdpa]})")
-        graft_classifier(sd, "pooled_output", hidden=SD_HIDDEN)
-        sd.convert_to_variable(*sd.trainable_float_constants())
-        sd.set_loss_variables("finetune_loss")
-        init = {n: t.detach().clone() for n, t in sd._trainable().items()}
-        log(f"samediff bert: {len(init)} trainable arrays, "
-            f"{sum(t.numel() for t in init.values()):,} weights; ops after the graft: "
-            f"{sorted({n.op for n in sd.ops})}")
-        ids, types, mask, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
-        mds = MultiDataSet(features=[ids, types, mask], labels=[labels])
+        sd, inputs, init, mds = self.sd_bert("samediff bert")
+        ids, types, mask = mds.features
 
         def fit(batches, dtype, lr=2e-5):
             """One epoch over ``batches`` from the initial weights and a
@@ -2716,6 +2779,458 @@ class Smoke:
         del sd, init
         torch.cuda.empty_cache()
         env.allow_bfloat16()
+
+    # ------------------------------------------------------------- runtime
+    def runtime_phase(self, workdir):
+        """The training runtime under every fit loop: grouped and captured
+        dispatch of config #4, LeNet with and without captured graphs,
+        ResNet-50 through the prefetcher and the TrainingProfiler, fresh
+        dropout masks in replayed zoo-BERT groups, a fault-tolerant restart,
+        early stopping and gradient checks on the card; then the captured
+        graphs' counters."""
+        from deeplearning4j_tpu_torch.runtime import compile_cache
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        compile_cache.reset_stats()
+        try:
+            for name, part in (("config #4", self.runtime_sd_bert),
+                               ("lenet", lambda: self.runtime_lenet(workdir)),
+                               ("resnet", self.runtime_resnet),
+                               ("zoo bert", self.runtime_zoo_bert),
+                               ("fault tolerance", lambda: self.runtime_fault_tolerance(workdir)),
+                               ("early stopping", self.runtime_early_stopping),
+                               ("gradient check", self.runtime_gradient_check)):
+                self.phase(f"runtime {name}", part)
+        finally:
+            env.set_dispatch_unroll(1).set_aot_dispatch(True).set_packed_state(True)
+            self.torch.backends.cudnn.deterministic = False
+            env.allow_bfloat16()
+        s = compile_cache.stats()
+        log(f"runtime: captured graphs {s['aot_compiles']} ({s['aot_compile_seconds']:.2f} s of "
+            f"capture), replays {s['aot_replays']}, signature drifts {s['aot_fallbacks']}; kernel "
+            f"build cache: {s['hits']} loaded, {s['misses']} built, {s['corrupt_entries']} corrupt")
+        self.check(s["aot_compiles"] > 0 and s["aot_replays"] > 0,
+                   f"runtime: captured graphs replayed ({s['aot_compiles']} captured, "
+                   f"{s['aot_replays']} replays)")
+
+    def runtime_sd_bert(self):
+        """Config #4 as ``bench_imported_bert`` runs it: one epoch of 48
+        repeated batches at B=64, T=128, bf16, Adam(2e-5), three ways:
+        ``dispatch_unroll(4)`` (a 4-step captured graph), one-step captured
+        graphs, and ``aot_dispatch`` off (the eager step). Each: step ms,
+        samples/s, device busy and its share, peak memory, the flash
+        launches, and its losses and final weights against the eager run."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+        from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime import compile_cache
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.updaters import Adam
+        env = get_environment()
+        env.allow_bfloat16()
+        sd, inputs, init, mds = self.sd_bert("runtime config #4")
+        names = sorted(init)
+        counters = all_counters()
+        flash = (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter)
+        runs = {}
+        for mode, aot, unroll in (("eager", False, 1), ("unroll 4", True, RUNTIME_UNROLL),
+                                  ("aot 1", True, 1)):
+            with torch.no_grad():
+                for n, t in init.items():
+                    sd.arrays[n].copy_(t)
+            sd.set_training_config(TrainingConfig(
+                updater=Adam(2e-5), data_set_feature_mapping=list(inputs),
+                data_set_label_mapping=["labels"]))
+            sd._train_iter = 0
+            sd.set_listeners()
+            env.set_aot_dispatch(aot).set_dispatch_unroll(unroll)
+            compile_cache.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            # ---- the main path: counts from 0 just before, read just after
+            losses = list(sd.fit(ExistingDataSetIterator([mds] * RUNTIME_SD_STEPS)))
+            torch.cuda.synchronize()
+            first_wall = time.perf_counter() - t0
+            counts = {c.name: c.value for c in counters}
+            # ----
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            stats = compile_cache.stats()
+            weights = [sd.arrays[n].detach().float().clone() for n in names]
+            # the steady state: the same fit again, every graph captured
+            t0 = time.perf_counter()
+            sd.fit(ExistingDataSetIterator([mds] * RUNTIME_SD_STEPS))
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / RUNTIME_SD_STEPS
+            runs[mode] = (losses, weights)
+            want = {c.name: (BERT_LAYERS * RUNTIME_SD_STEPS if c in flash else 0)
+                    for c in counters}
+            for c in flash:
+                row = self.kernels.setdefault(c.name, {})
+                row["launches"] = row.get("launches", 0) + counts[c.name]
+            self.check(counts == want and len(losses) == RUNTIME_SD_STEPS
+                       and all(np.isfinite(v) for v in losses),
+                       f"runtime config #4 {mode}: {RUNTIME_SD_STEPS} finite losses, launch "
+                       f"counts {counts} (expected {want})")
+            log(f"runtime config #4 {mode}: first fit {first_wall:.3f} s ({stats['aot_compiles']} "
+                f"graphs captured in {stats['aot_compile_seconds']:.3f} s, {stats['aot_replays']} "
+                f"replays); steady fit {step_ms:.2f} ms a step (mean of {RUNTIME_SD_STEPS}), "
+                f"{BERT_B / step_ms * 1e3:.0f} samples/s; peak device memory {peak:.2f} GiB; "
+                f"losses first {losses[0]:.5f} last {losses[-1]:.5f}")
+            k = unroll
+            self.device_breakdown(
+                lambda k=k: sd.fit(ExistingDataSetIterator([mds] * k)),
+                f"runtime config #4 {mode}: one dispatch of {k} step(s)", reps=3,
+                step_ms=step_ms * k)
+            if mode != "eager":
+                ref_l, ref_w = runs["eager"]
+                dl = max(abs(a - b) for a, b in zip(losses, ref_l))
+                top = max(float(w.abs().max()) for w in ref_w)
+                dw = max(float((a - b).abs().max()) for a, b in zip(weights, ref_w))
+                self.check(dl <= RUNTIME_REL_TOL * max(abs(v) for v in ref_l)
+                           and dw <= RUNTIME_REL_TOL * top,
+                           f"runtime config #4 {mode} against the eager step: losses max abs "
+                           f"diff {dl:.3g}, final weights max abs diff {dw:.3g} (largest |w| "
+                           f"{top:.3g}; limit {RUNTIME_REL_TOL:g} relative)")
+        del sd, init
+        torch.cuda.empty_cache()
+
+    def runtime_lenet(self, workdir):
+        """LeNet one epoch, fp32, TF32 off, packed with one-step captured
+        graphs and with ``aot_dispatch`` off: step ms, the busy share,
+        test accuracy, and the first losses against the CPU."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import (ListDataSetIterator, MnistDataSetIterator,
+                                                   NumpyDataSetIterator)
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.runtime import compile_cache
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        env = get_environment()
+        env.set_compute_dtype(torch.float32)
+        train = MnistDataSetIterator(LENET_B, train=True)
+        test = MnistDataSetIterator(LENET_B, train=False)
+        init_path = os.path.join(workdir, "runtime-lenet-init.zip")
+        LeNet().init(device=self.device).save(init_path)
+        first = NumpyDataSetIterator(train.features, train.labels, LENET_B, shuffle=True, seed=6)
+        first.reset()
+        first = [b for _, b in zip(range(LENET_CMP_STEPS), first)]
+        for mode, aot in (("captured", True), ("eager", False)):
+            env.set_aot_dispatch(aot)
+            net = MultiLayerNetwork.load(init_path, device=self.device)
+            scores, stamps = CollectScoresListener(), []
+            net.set_listeners(scores, DoneStamps(stamps))
+            compile_cache.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(train)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = compile_cache.stats()
+            losses = [v for _, v in scores.scores]
+            step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+            med = step_ms[len(step_ms) // 2]
+            acc = net.evaluate(test).accuracy()
+            log(f"runtime lenet {mode}: {len(losses)} steps in {wall:.3f} s; step ms median "
+                f"{med:.3f} (p90 {step_ms[int(0.9 * len(step_ms))]:.3f}); "
+                f"{LENET_B / med * 1e3:.0f} img/s at the median; {stats['aot_compiles']} graphs, "
+                f"{stats['aot_replays']} replays; test accuracy {acc:.4f}")
+            net.set_listeners()
+            x, y = train.features[:LENET_B], train.labels[:LENET_B]
+            self.device_breakdown(lambda: net.fit(x, y), f"runtime lenet {mode} step", reps=10,
+                                  step_ms=med)
+            self.check(len(losses) == LENET_STEPS and acc >= LENET_MIN_ACC
+                       and (stats["aot_replays"] >= LENET_STEPS - 2 if aot else
+                            stats["aot_replays"] == 0),
+                       f"runtime lenet {mode}: {len(losses)} steps, test accuracy {acc:.4f} "
+                       f"(>= {LENET_MIN_ACC}), {stats['aot_replays']} replays")
+            if aot:
+                cpu = MultiLayerNetwork.load(init_path, device="cpu")
+                cpu_scores = CollectScoresListener()
+                cpu.set_listeners(cpu_scores)
+                cpu.fit(ListDataSetIterator(first))
+                want = [v for _, v in cpu_scores.scores]
+                err = max(abs(a - b) for a, b in zip(losses[:LENET_CMP_STEPS], want))
+                self.check(err <= LENET_TOL,
+                           f"runtime lenet captured: first {LENET_CMP_STEPS} losses "
+                           f"{' '.join(f'{v:.6f}' for v in losses[:LENET_CMP_STEPS])} vs CPU "
+                           f"{' '.join(f'{v:.6f}' for v in want)}: max_abs_err={err:.3g} "
+                           f"tol={LENET_TOL:g}")
+            del net
+        env.set_aot_dispatch(True)
+
+    def runtime_resnet(self):
+        """ResNet-50 at bench_resnet's step (batch 256, 224x224, bf16,
+        Nesterovs(0.1, 0.9)), RESNET_STEPS steps of one host batch through
+        ``prefetch_buffer=2`` and a TrainingProfiler, against the same steps
+        with ``prefetch_buffer=0`` from the same weights: the same losses,
+        bit for bit, and 36 conv_stats launches a step."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.train.profiler import TrainingProfiler
+        from deeplearning4j_tpu_torch.train.updaters import Nesterovs
+        from deeplearning4j_tpu_torch.zoo import ResNet50
+        get_environment().allow_bfloat16()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((RESNET_B, RESNET_HW, RESNET_HW, 3), dtype=np.float32)
+        y = np.eye(RESNET_CLASSES, dtype=np.float32)[rng.integers(0, RESNET_CLASSES, RESNET_B)]
+        zoo = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW, width=RESNET_HW,
+                       updater=Nesterovs(0.1, momentum=0.9))
+        base = zoo.init(device=self.device)
+        runs = {}
+        for prefetch in (0, 2):
+            net = base.clone()  # the same weights and statistics, a fresh optimizer
+            scores, prof = CollectScoresListener(), TrainingProfiler()
+            net.set_listeners(scores)
+            cs.counter.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator([DataSet(x, y)] * RESNET_STEPS),
+                    prefetch_buffer=prefetch, profiler=prof)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cs.counter.value
+            losses = [v for _, v in scores.scores]
+            runs[prefetch] = losses
+            r = prof.report()
+            # the steady state: 5 more steps, every one a replay, timed alone
+            t1 = time.perf_counter()
+            net.fit(ListDataSetIterator([DataSet(x, y)] * 5), prefetch_buffer=prefetch)
+            torch.cuda.synchronize()
+            log(f"runtime resnet prefetch_buffer={prefetch}: 5 replayed steps "
+                f"{1e3 * (time.perf_counter() - t1) / 5:.2f} ms a step")
+            log(f"runtime resnet prefetch_buffer={prefetch}: {RESNET_STEPS} steps in {wall:.3f} s; "
+                f"{prof.summary()}; data wait total {r['data_wait_total_s']:.3f} s "
+                f"(mean {r['data_wait_mean_ms']:.3f} ms), dispatch mean {r['dispatch_mean_ms']:.3f}"
+                f" ms (p99 {r['dispatch_p99_ms']:.3f}), step mean {r['step_mean_ms']:.3f} ms "
+                f"(p99 {r['step_p99_ms']:.3f}); conv_stats launches {launches}")
+            self.check(launches == RESNET_PAIRS * RESNET_STEPS and r["iterations"] == RESNET_STEPS
+                       and all(np.isfinite(v) for v in losses),
+                       f"runtime resnet prefetch_buffer={prefetch}: {launches} conv_stats "
+                       f"launches (expected {RESNET_PAIRS * RESNET_STEPS}), {r['iterations']} "
+                       f"profiled iterations, finite losses")
+            del net
+            torch.cuda.empty_cache()
+        del base
+        self.check(runs[2] == runs[0],
+                   "runtime resnet: the losses of prefetch_buffer=2 equal prefetch_buffer=0's: "
+                   + " ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(runs[2], runs[0])))
+
+    def runtime_zoo_bert(self):
+        """``Bert.base()`` (dropout 0.1) fine-tuned with
+        ``dispatch_unroll(4)`` in RUNTIME_BERT_FITS fits of one group each on
+        every_token's labels: the dropout masks of each replayed group (read
+        from the graph's own buffers after the fit) differ from step to
+        step and from replay to replay, with the drop share in
+        RUNTIME_DROP_BAND; the first losses against the plain-attention
+        trainer; the loss falls as in ``train bert``."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn import attention_layers
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import Bert
+        env = get_environment()
+        env.allow_bfloat16()
+        init = Bert.base().init(device=self.device).params()
+        batches = label_batches(RUNTIME_UNROLL * RUNTIME_BERT_FITS, 99, every_token)
+        fmask = np.ones((BERT_B, BERT_T), np.float32)
+        net = MultiLayerNetwork(Bert.base().conf(), device=self.device).init(
+            params=clone_tree(init))
+        scores = CollectScoresListener()
+        net.set_listeners(scores)
+        masks = []
+        draw = attention_layers.keep_mask
+
+        def recording(x, keep, generator):
+            m = draw(x, keep, generator)
+            masks.append(m)
+            return m
+
+        env.set_dispatch_unroll(RUNTIME_UNROLL)
+        attention_layers.keep_mask = recording
+        per_fit = []
+        try:
+            for f in range(RUNTIME_BERT_FITS):
+                masks.clear()
+                group = batches[f * RUNTIME_UNROLL:(f + 1) * RUNTIME_UNROLL]
+                net.fit(ListDataSetIterator([DataSet(x, y, features_mask=fmask)
+                                             for x, y in group]))
+                torch.cuda.synchronize()
+                # the masks the Python step made in this fit: on a replay
+                # none (the graph's own buffers are read instead), so keep
+                # the last capture's and read what the replay wrote there
+                if masks:
+                    captured = list(masks)
+                per_fit.append([m.clone() for m in captured])
+            # the steady state: one more group, a replay, timed alone
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator([DataSet(x, y, features_mask=fmask) for x, y in group]))
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / RUNTIME_UNROLL
+        finally:
+            attention_layers.keep_mask = draw
+            env.set_dispatch_unroll(1)
+        log(f"runtime zoo bert dispatch_unroll({RUNTIME_UNROLL}): a replayed group {step_ms:.2f} "
+            f"ms a step, {BERT_B / step_ms * 1e3:.0f} samples/s")
+        losses = [v for _, v in scores.scores][:RUNTIME_UNROLL * RUNTIME_BERT_FITS]
+        sites = len(per_fit[-1]) // RUNTIME_UNROLL
+        drops = [1.0 - float(m.float().mean()) for ms in per_fit for m in ms]
+        in_band = all(RUNTIME_DROP_BAND[0] < d < RUNTIME_DROP_BAND[1] for d in drops)
+        replays = per_fit[2:]  # fits 3.. replay the 4-step graph captured in fit 2
+        step_apart = all(not torch.equal(ms[i * sites], ms[(i + 1) * sites])
+                         for ms in replays for i in range(RUNTIME_UNROLL - 1))
+        replay_apart = all(not torch.equal(a[0], b[0]) for a, b in zip(replays, replays[1:]))
+        self.check(in_band and step_apart and replay_apart and sites > 0,
+                   f"runtime zoo bert dispatch_unroll({RUNTIME_UNROLL}): {sites} dropout sites "
+                   f"a step; drop shares {min(drops):.4f}..{max(drops):.4f} (band "
+                   f"{RUNTIME_DROP_BAND}); masks differ between the steps of a replayed group: "
+                   f"{step_apart}; between replays: {replay_apart}")
+        with plain_attention():
+            want, _, _ = self.bert_fit(init, batches[:BERT_CMP_STEPS], torch.bfloat16)
+        err = max(abs(a - b) for a, b in zip(losses[:BERT_CMP_STEPS], want))
+        self.check(err <= BERT_TRAIN_TOL["bfloat16"],
+                   f"runtime zoo bert: first {BERT_CMP_STEPS} losses "
+                   f"{' '.join(f'{v:.5f}' for v in losses[:BERT_CMP_STEPS])} vs the plain "
+                   f"attention {' '.join(f'{v:.5f}' for v in want)}: max_abs_err={err:.3g} "
+                   f"tol={BERT_TRAIN_TOL['bfloat16']:g}")
+        tail = sum(losses[-3:]) / 3
+        limit = BERT_LOSS_FALL * min(losses[0], math.log(2))
+        self.check(len(losses) == RUNTIME_UNROLL * RUNTIME_BERT_FITS and tail < limit,
+                   f"runtime zoo bert: loss {losses[0]:.4f} -> mean of the last 3 {tail:.4f} "
+                   f"(must fall below {limit:.4f}): " + " ".join(f"{v:.4f}" for v in losses))
+        del net, init
+        torch.cuda.empty_cache()
+
+    def runtime_fault_tolerance(self, workdir):
+        """A FaultTolerantTrainer on LeNet (fp32) with a chaos fault at the
+        RUNTIME_FT_FAULT-th batch fetch: it restarts from the last
+        checkpoint and finishes with the weights of an uninterrupted run
+        (cuDNN deterministic for both, whose default backward-filter
+        algorithms sum in no fixed order)."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+        from deeplearning4j_tpu_torch.runtime.chaos import ChaosController, FailNth
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        from deeplearning4j_tpu_torch.train import FaultTolerantTrainer
+        from deeplearning4j_tpu_torch.train.checkpoint import (CheckpointListener,
+                                                               load_manifest, verify_checkpoint)
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        get_environment().set_compute_dtype(torch.float32)
+        torch.backends.cudnn.deterministic = True
+        it = MnistDataSetIterator(LENET_B, train=True, num_examples=LENET_B * RUNTIME_FT_BATCHES,
+                                  shuffle=False)
+        dirs = [os.path.join(workdir, f"ft-{k}") for k in ("fault", "clean")]
+        faulty = FaultTolerantTrainer(lambda: LeNet().init(device=self.device), dirs[0],
+                                      every_n_iterations=RUNTIME_FT_EVERY)
+        t0 = time.perf_counter()
+        with ChaosController(seed=1) as c:
+            c.on("train.prefetch.fetch", FailNth(RUNTIME_FT_FAULT))
+            a = faulty.fit(it, epochs=1)
+        wall = time.perf_counter() - t0
+        b = FaultTolerantTrainer(lambda: LeNet().init(device=self.device), dirs[1],
+                                 every_n_iterations=RUNTIME_FT_EVERY).fit(it, epochs=1)
+        torch.backends.cudnn.deterministic = False
+        top = max(float(w.abs().max()) for w in tree_leaves(b.params()))
+        diff = max(float((u - v).abs().max())
+                   for u, v in zip(tree_leaves(a.params()), tree_leaves(b.params())))
+        ck = CheckpointListener.last_checkpoint_in(dirs[0])
+        ok = ck is not None and verify_checkpoint(ck, load_manifest(dirs[0]).get(
+            os.path.basename(ck)))
+        self.check(faulty.restarts == 1 and a.iteration == b.iteration == RUNTIME_FT_BATCHES
+                   and diff <= RUNTIME_REL_TOL * top and ok,
+                   f"runtime fault tolerance: a fault at fetch {RUNTIME_FT_FAULT}, "
+                   f"{faulty.restarts} restart(s) from the checkpoint at iteration "
+                   f"{RUNTIME_FT_EVERY * ((RUNTIME_FT_FAULT - 1) // RUNTIME_FT_EVERY)}, "
+                   f"{a.iteration} iterations in {wall:.2f} s; final weights against the "
+                   f"uninterrupted run: max abs diff {diff:.3g} (largest |w| {top:.3g}); "
+                   f"verify_checkpoint({os.path.basename(ck or '-')}) {ok}")
+
+    def runtime_early_stopping(self):
+        """EarlyStoppingTrainer on LeNet: at most RUNTIME_ES_EPOCHS epochs,
+        ScoreImprovementEpochTerminationCondition(1), scored by the test
+        set's loss; the best epoch and score."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train import (DataSetLossCalculator,
+                                                    EarlyStoppingConfiguration,
+                                                    EarlyStoppingTrainer,
+                                                    MaxEpochsTerminationCondition,
+                                                    ScoreImprovementEpochTerminationCondition)
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        get_environment().set_compute_dtype(torch.float32)
+        test = MnistDataSetIterator(LENET_B, train=False)
+        cfg = (EarlyStoppingConfiguration.builder()
+               .score_calculator(DataSetLossCalculator(test))
+               .epoch_termination_conditions(ScoreImprovementEpochTerminationCondition(1),
+                                             MaxEpochsTerminationCondition(RUNTIME_ES_EPOCHS))
+               .build())
+        t0 = time.perf_counter()
+        result = EarlyStoppingTrainer(cfg, LeNet().init(device=self.device),
+                                      MnistDataSetIterator(LENET_B, train=True)).fit()
+        wall = time.perf_counter() - t0
+        acc = result.best_model.evaluate(test).accuracy()
+        scores = [result.score_vs_epoch[k] for k in sorted(result.score_vs_epoch)]
+        self.check(result.total_epochs <= RUNTIME_ES_EPOCHS and all(np.isfinite(scores))
+                   and 0 <= result.best_model_epoch < result.total_epochs
+                   and acc >= LENET_MIN_ACC,
+                   f"runtime early stopping: {result.termination_reason} "
+                   f"({result.termination_details}) after {result.total_epochs} epochs in "
+                   f"{wall:.1f} s; scores " + " ".join(f"{v:.4g}" for v in scores)
+                   + f"; best epoch {result.best_model_epoch}, score "
+                   f"{result.best_model_score:.4g}, its test accuracy {acc:.4f}")
+
+    def runtime_gradient_check(self):
+        """GradientCheckUtil in float64 on the card: a convolution +
+        BatchNormalization + dense net passes; an LSTM net raises by the
+        kernels' dtype rule (they take float32 or bfloat16)."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn import (LSTM, BatchNormalization, ConvolutionLayer,
+                                                 DenseLayer, InputType, NeuralNetConfiguration,
+                                                 OutputLayer, RnnOutputLayer)
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.gradient_check import GradientCheckUtil
+        get_environment().set_compute_dtype(torch.float32)
+        rng = np.random.default_rng(0)
+        conf = (NeuralNetConfiguration.builder().seed(3).list()
+                .layer(ConvolutionLayer(n_out=4, kernel_size=(3, 3), activation="tanh"))
+                .layer(BatchNormalization())
+                .layer(DenseLayer(n_out=8, activation="tanh"))
+                .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(6, 6, 2)).build())
+        net = MultiLayerNetwork(conf, device=self.device).init()
+        ok = GradientCheckUtil.check_gradients(net, rng.normal(size=(4, 6, 6, 2)),
+                                               np.eye(3)[rng.integers(0, 3, 4)])
+        conf = (NeuralNetConfiguration.builder().seed(3).list().layer(LSTM(n_out=8))
+                .layer(RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.recurrent(5)).build())
+        lstm = MultiLayerNetwork(conf, device=self.device).init()
+        try:
+            GradientCheckUtil.check_gradients(lstm, rng.normal(size=(2, 4, 5)),
+                                              np.eye(3)[rng.integers(0, 3, (2, 4))])
+            raised = "nothing"
+        except TypeError as e:
+            raised = str(e)
+        self.check(ok and "float32 or bfloat16" in raised,
+                   f"runtime gradient check on the card, float64: conv + BatchNormalization + "
+                   f"dense passes: {ok}; an LSTM net raises: {raised}")
 
     def lenet_phase(self, workdir):
         """BASELINE config #1 on the card: the zoo LeNet trained by ``fit``
@@ -3571,6 +4086,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--runtime"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.runtime_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -3597,6 +4122,7 @@ def main() -> int:
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
         smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
         smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
+        smoke.runtime_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

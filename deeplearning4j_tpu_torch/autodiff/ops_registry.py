@@ -260,14 +260,18 @@ def _gather(a, indices, axis=0):
     (JAX ``:231-251``): exact for in-range ids, its backward a small dense
     product instead of a scatter of colliding ids; an out-of-range id gives
     a zero row there, as in the JAX package. The table's gradient is dense
-    either way."""
+    either way. The gather is an advanced index, not ``index_select``: on a
+    CUDA device its backward accumulates colliding ids in a sorted order,
+    where ``index_select``'s atomic adds sum them in whatever order the
+    threads arrive, so a fit repeats bit for bit (eager, captured or
+    grouped alike)."""
     n = a.shape[axis]
     idx = indices.long()
     if (axis == 0 and a.dim() == 2 and n <= 16 and a.is_floating_point()):
         oh = (idx.unsqueeze(-1) == torch.arange(n, device=a.device)).to(a.dtype)
         return torch.einsum("...v,vd->...d", oh, a)
     idx = torch.where(idx < 0, idx + n, idx)
-    out = torch.index_select(a, axis, idx.reshape(-1))
+    out = a[(slice(None),) * axis + (idx.reshape(-1),)]
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
 
 
@@ -343,14 +347,14 @@ def _sdpa(q, k, v, bias=None, scale=None, boolean_bias=False):
     s = nat if scale is None else float(scale)
     if q.dim() == 4 and (bias is None or boolean_bias):
         if not math.isclose(s, nat, rel_tol=1e-6):
-            q = q * torch.tensor(s / nat, dtype=q.dtype, device=q.device)
+            q = q * torch.full((), s / nat, dtype=q.dtype, device=q.device)
         mask = None
         if bias is not None:
-            mask = bias > torch.tensor(-1.0, dtype=bias.dtype, device=bias.device)
+            mask = bias > torch.full((), -1.0, dtype=bias.dtype, device=bias.device)
             mask = mask | ~mask.any(dim=-1, keepdim=True)
         return dot_product_attention(q, k, v, mask=mask)
-    scores = torch.einsum("...qd,...kd->...qk", q, k) * torch.tensor(s, dtype=q.dtype,
-                                                                       device=q.device)
+    scores = torch.einsum("...qd,...kd->...qk", q, k) * torch.full((), s, dtype=q.dtype,
+                                                                     device=q.device)
     if bias is not None:
         if boolean_bias:
             zero = torch.zeros((), dtype=scores.dtype, device=scores.device)

@@ -11,15 +11,26 @@ package traces the graph into one jitted program, the port walks the ops
 needed for the requested outputs in graph order (``_exec_graph``) and
 takes gradients with ``torch.autograd``.
 
-Training (``fit``, JAX ``:733-916``) is one step per batch: the floating
-constants, the trainable masters and the placeholders are cast to the
-environment's ``compute_dtype`` (the masters stay float32 and the gradients
-come back through the cast, JAX ``_make_train_step`` ``:641-672``), the loss
-is the float32 sum of the loss variables plus the configuration's l1/l2, and
-the configured updater (the port's optax-equivalent, ``train/updaters.py``)
-steps the masters in place. Every stochastic op gets a generator of its own
-per step, folded from the graph's key, the global iteration index and the
-op's position, so a resumed fit draws what an uninterrupted one would.
+Training (``fit``, JAX ``:733-916``): in a step the floating constants,
+the trainable masters and the placeholders are cast to the environment's
+``compute_dtype`` (the masters stay float32 and the gradients come back
+through the cast, JAX ``_make_train_step`` ``:641-672``), the loss is the
+float32 sum of the loss variables plus the configuration's l1/l2, and the
+configured updater (the port's optax-equivalent, ``train/updaters.py``)
+steps the masters in place. With ``env.packed_state`` (and only stateless
+listeners) the masters and the updater state are packed
+(:class:`~..runtime.state_packing.LeafPacker`), ``env.dispatch_unroll``
+steps go as one dispatch through a
+:class:`~..runtime.state_packing.GroupedDispatch`, and each dispatch goes
+through the graph's :class:`~..runtime.compile_cache.AotCache`: on a CUDA
+device a captured graph of the step (or of K steps), replayed. A fit keeps
+a host-to-device transfer cache of the feeds (JAX ``:792-821``), and
+reads the losses back once, at its end. On the CPU every stochastic op gets
+a generator of its own per step, folded from the graph's key, the global
+iteration index and the op's position, so a resumed fit draws what an
+uninterrupted one would; on a CUDA device they draw from the fit's device
+generator (:mod:`~..runtime.rng`), seeded from the graph's key at the
+start of each fit.
 ``output``/``calculate_gradients`` run on the arrays as stored, with no cast,
 as the JAX package's do.
 
@@ -28,9 +39,9 @@ of ``graph.json``, ``arrays.npz``, ``training_state.npz`` and optionally
 ``updaterState.npz``, so a graph and its weights and optimizer state cross
 between the packages both ways.
 
-Not ported, and raising by name: ``export_stablehlo`` (JAX's own lowering),
-and the packed, grouped (``dispatch_unroll``) and rematerialized train steps
-of the JAX package, whose settings the port's environment does not have.
+Not ported, and raising by name: ``export_stablehlo`` (JAX's own lowering).
+The rematerialized train step of the JAX package is not ported (the port's
+environment has no ``remat_segments``).
 ``cond`` and ``while_loop`` are plain Python over tensors; a ``while_loop``
 without ``max_iterations`` is forward-only, as in JAX.
 """
@@ -333,6 +344,9 @@ class SameDiff:
         self._rng_key = np.zeros(2, np.uint32)
         self._train_iter = 0  # global step count (rng stream position)
         self._listeners: List[Any] = []
+        # the training runtime's cache: the packed state, the constants'
+        # casts, the captured graphs (``__aot__``), the fit's generator
+        self._runtime_cache: Dict[str, Any] = {}
         self.math = _Namespace(self, None)
         self.nn = _Namespace(self, _NN_OPS)
         self.cnn = _Namespace(self, _CNN_OPS)
@@ -554,10 +568,13 @@ class SameDiff:
         """Run the ops ``outputs`` need, in graph order, on the tensors of
         ``env``. ``env["__rng__"]`` (reserved, never a variable name), given
         in ``fit``, is the step's 63-bit seed: each stochastic op then gets a
-        generator folded from it and its position in ``self.ops``. Without
-        it (``output``, ``eval``) dropout is the identity."""
+        generator folded from it and its position in ``self.ops`` (or, a
+        CUDA generator, the fit's device stream that every stochastic op
+        draws from). Without it (``output``, ``eval``) dropout is the
+        identity."""
         rng = env.get("__rng__")
         pos = None
+        device_gen = rng if isinstance(rng, torch.Generator) else None
         for node in self._needed_ops(outputs):
             if all(o in env for o in node.outputs):
                 continue
@@ -567,10 +584,13 @@ class SameDiff:
             if rng is not None and (
                     node.op in RNG_OPS
                     or (node.op == "__callable__" and getattr(fn, "_accepts_rng", False))):
-                if pos is None:
-                    pos = {id(n): i for i, n in enumerate(self.ops)}
                 attrs = dict(attrs)
-                attrs["key"] = generator_for(rng, pos[id(node)])
+                if device_gen is not None:
+                    attrs["key"] = device_gen
+                else:
+                    if pos is None:
+                        pos = {id(n): i for i, n in enumerate(self.ops)}
+                    attrs["key"] = generator_for(rng, pos[id(node)])
             res = fn(*args, **attrs)
             if len(node.outputs) == 1:
                 env[node.outputs[0]] = res
@@ -629,10 +649,12 @@ class SameDiff:
         return self._updater
 
     def _train_step(self, trainable: Dict[str, torch.Tensor], consts: Dict[str, torch.Tensor],
-                    ph: Dict[str, torch.Tensor], step_idx: int) -> torch.Tensor:
+                    ph: Dict[str, torch.Tensor], rng) -> torch.Tensor:
         """One step (JAX ``_make_train_step``'s ``step``): the loss in
         ``compute_dtype`` over float32 masters, its gradients, and the
-        updater's step on the masters in place. Returns the detached loss."""
+        updater's step on the masters in place. ``rng`` is the global step
+        index (the stochastic ops' seeds fold it in) or the fit's CUDA
+        generator. Returns the detached loss."""
         cfg = self.training_config
         cdt = get_environment().compute_dtype
 
@@ -646,8 +668,8 @@ class SameDiff:
             env = dict(consts)
             env.update({n: _c(t) for n, t in zip(names, leaves)})
             env.update({n: _c(a) for n, a in ph.items()})
-            env["__rng__"] = _splitmix64(_key_int(self._rng_key)
-                                         ^ _splitmix64(step_idx + 1)) & ((1 << 63) - 1)
+            env["__rng__"] = rng if isinstance(rng, torch.Generator) else (
+                _splitmix64(_key_int(self._rng_key) ^ _splitmix64(rng + 1)) & ((1 << 63) - 1))
             losses = self._exec_graph(env, self.loss_variables)
             total = sum(l.float().sum() for l in losses)
             # the penalties sum in sorted name order, as the jitted step sees
@@ -665,13 +687,66 @@ class SameDiff:
                 torch._foreach_add_(masters, updates)
         return total.detach()
 
-    def fit(self, data, labels=None, epochs: int = 1, batch_size: Optional[int] = None):
+    def _fit_consts(self) -> Dict[str, torch.Tensor]:
+        """The constants cast to ``compute_dtype``, kept between fits while
+        the constants and the dtype stay (a captured step reads them where
+        the first fit put them)."""
+        cdt = get_environment().compute_dtype
+        raw = {n: a for n, a in self.arrays.items()
+               if self.vars[n].vtype == VariableType.CONSTANT}
+        from deeplearning4j_tpu_torch.runtime.state_packing import state_signature
+        sig = (cdt, tuple(sorted(raw)), state_signature([raw[n] for n in sorted(raw)]))
+        cached = self._runtime_cache.get("__consts__")
+        if cached is None or cached[0] != sig:
+            cached = (sig, {n: (a.to(cdt) if a.is_floating_point() and a.dtype != cdt else a)
+                            for n, a in raw.items()})
+            self._runtime_cache["__consts__"] = cached
+        return cached[1]
+
+    def _transfer_cache(self):
+        """Host-to-device transfer cache for one fit (JAX ``:792-821``):
+        iterators often hand back the SAME numpy arrays every epoch. A weak
+        reference guards against ``id`` reuse, a content hash against an
+        array refilled in place, and a size cap bounds the device memory it
+        holds. ``staged`` (the prefetcher's path) copies a new array from
+        pinned memory without waiting."""
+        import hashlib
+        import weakref
+        h2d: Dict[int, Any] = {}
+
+        def dev(a, staged=False):
+            if isinstance(a, torch.Tensor):
+                return as_tensor(a, self.device)
+            arr = np.asarray(a)
+            fp = hashlib.blake2b(np.ascontiguousarray(arr).tobytes(), digest_size=16).digest()
+            ent = h2d.get(id(a))
+            if ent is not None and ent[0]() is a and ent[2] == fp:
+                return ent[1]
+            if staged and self.device.type == "cuda":
+                buf = as_tensor(arr, "cpu").pin_memory().to(self.device, non_blocking=True)
+            else:
+                buf = as_tensor(arr, self.device)
+            if len(h2d) > 64:
+                h2d.clear()
+            try:
+                h2d[id(a)] = (weakref.ref(a), buf, fp)
+            except TypeError:
+                pass
+            return buf
+
+        return dev
+
+    def fit(self, data, labels=None, epochs: int = 1, batch_size: Optional[int] = None,
+            prefetch_buffer: int = 0, profiler=None):
         """Train (reference ``sd.fit(DataSetIterator)``) on an iterator of
         DataSets or MultiDataSets, one MultiDataSet, or ``(features,
         labels)`` arrays. Features feed
         ``training_config.data_set_feature_mapping`` and labels
         ``data_set_label_mapping``, in order. Returns the :class:`History`
-        of per-step losses."""
+        of per-step losses. ``prefetch_buffer`` and ``profiler`` as in
+        ``MultiLayerNetwork.fit`` (the JAX package's ``SameDiff.fit`` has
+        neither; the listeners are called where the step ran, so the
+        profiler's step stage is not measured)."""
         if self.training_config is None:
             raise ValueError("Call set_training_config first")
         if not self.loss_variables:
@@ -680,6 +755,11 @@ class SameDiff:
         from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
         from deeplearning4j_tpu_torch.data.iterators import (ExistingDataSetIterator,
                                                              ListDataSetIterator)
+        from deeplearning4j_tpu_torch.runtime.compile_cache import AotCache
+        from deeplearning4j_tpu_torch.runtime.state_packing import (
+            GroupedDispatch, LeafPacker, make_unrolled_packed_step, step_args_signature)
+        from deeplearning4j_tpu_torch.train.prefetch import batch_source, stateless_listeners
+        from deeplearning4j_tpu_torch.train.profiler import submit_timed
         if isinstance(data, MultiDataSet):
             iterator = ExistingDataSetIterator([data])
         elif labels is not None:
@@ -689,25 +769,101 @@ class SameDiff:
             iterator = data
         trainable = self._trainable()
         self._ensure_updater(trainable)
-        cdt = get_environment().compute_dtype
-        consts = {n: (a.to(cdt) if a.is_floating_point() and a.dtype != cdt else a)
-                  for n, a in self.arrays.items()
-                  if self.vars[n].vtype == VariableType.CONSTANT}
+        consts = self._fit_consts()
+        env = get_environment()
+        # packing keeps the masters as views of its buffers; only with
+        # listeners that read no state (as MultiLayerNetwork.fit)
+        use_packing = env.packed_state and stateless_listeners(self)
+        unroll = max(1, int(env.dispatch_unroll)) if use_packing else 1
+        packer, sig = None, None
+        if use_packing:
+            tree = (trainable, self._opt_state)
+            prev = self._runtime_cache.get("__packed__")
+            if prev is not None and prev[0].is_packed(tree, prev[1]):
+                packer, packed = prev
+            else:
+                packer = LeafPacker(tree)
+                packed = packer.pack(tree)
+                trainable, self._opt_state = packer.unpack(packed)
+                self.arrays.update(trainable)
+                self._runtime_cache["__packed__"] = (packer, packed)
+            # what a captured step closes over: the state's addresses, the
+            # constants' casts, the op list, the losses and the updater
+            sig = (LeafPacker.signature(packed), id(consts), tuple(map(id, self.ops)),
+                   tuple(self.loss_variables), id(self._updater), cfg.l1, cfg.l2,
+                   str(env.compute_dtype))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            gen = self._runtime_cache.get("__gen__")
+            if gen is None:
+                gen = self._runtime_cache["__gen__"] = torch.Generator(device=self.device)
+            gen.manual_seed(_splitmix64(_key_int(self._rng_key) ^ _splitmix64(
+                self._train_iter + 0x9E37)) & ((1 << 63) - 1))
+        aot = self._runtime_cache.setdefault("__aot__", AotCache("sd-fit"))
+        aot.generators = [gen] if cuda else []
+        if use_packing:
+            aot.evict(lambda k: k[1] != sig)
+
+        def step(ph, rng):
+            return self._train_step(trainable, consts, ph, rng)
+
+        group_step = make_unrolled_packed_step(step, packer, unroll) if unroll > 1 else None
         history: List[torch.Tensor] = []
-        bounds = []
-        for ep in range(int(epochs)):
-            iterator.reset()
-            for batch in iterator:
-                feats = batch.features if isinstance(batch.features, list) else [batch.features]
-                labs = batch.labels if isinstance(batch.labels, list) else [batch.labels]
-                ph = self._feeds(dict(zip(cfg.data_set_feature_mapping, feats)))
-                ph.update(self._feeds(dict(zip(cfg.data_set_label_mapping, labs))))
-                loss = self._train_step(trainable, consts, ph, self._train_iter)
-                self._train_iter += 1
-                history.append(loss)
-                for lst in self._listeners:
-                    lst.iteration_done(self, len(history), ep, loss)
-            bounds.append(len(history))
+        bounds: List[int] = []
+        it_count = 0
+        cur_ep = 0
+        dev = self._transfer_cache()
+
+        def run_single(a):
+            return aot.call(("single", sig, step_args_signature(a)), step, *a)
+
+        def run_group(todo):
+            losses = aot.call(("group", sig, unroll, step_args_signature(todo[0])),
+                              group_step, [tuple(t) for t in todo])
+            return [losses[i] for i in range(len(todo))]
+
+        def deliver(args, loss):
+            nonlocal it_count
+            # the losses stay on the device until the fit reads them all
+            history.append(loss)
+            it_count += 1
+            for lst in self._listeners:
+                lst.iteration_done(self, it_count, cur_ep, loss)
+
+        def feeds(batch, staged=False):
+            feats = batch.features if isinstance(batch.features, list) else [batch.features]
+            labs = batch.labels if isinstance(batch.labels, list) else [batch.labels]
+            ph = {n: dev(a, staged) for n, a in zip(cfg.data_set_feature_mapping, feats)}
+            ph.update({n: dev(a, staged) for n, a in zip(cfg.data_set_label_mapping, labs)})
+            return ph
+
+        gd = GroupedDispatch(
+            unroll=unroll,
+            compatible=lambda a, b: ({n: v.shape for n, v in a[0].items()}
+                                     == {n: v.shape for n, v in b[0].items()}),
+            run_single=(run_single if packer is not None
+                        else lambda a: self._train_step(trainable, consts, *a)),
+            run_group=run_group, deliver=deliver)
+        if profiler is not None:
+            profiler.start()
+        try:
+            for ep in range(int(epochs)):
+                cur_ep = ep
+                src = batch_source(iterator, feeds, prefetch_buffer, profiler,
+                                   device=self.device,
+                                   staged_prepare=lambda b: feeds(b, staged=True))
+                try:
+                    for ph in src:
+                        submit_timed(gd, (ph, gen if cuda else self._train_iter), profiler)
+                        self._train_iter += 1
+                finally:
+                    src.close()
+                gd.flush()
+                bounds.append(it_count)
+        finally:
+            gd.drain_on_error()  # deliver batches buffered before an error
+            if profiler is not None:
+                profiler.stop()
         losses = torch.stack(history).cpu().tolist() if history else []
         return History([float(v) for v in losses], bounds)
 

@@ -47,6 +47,7 @@ the stateful RNN API (``rnn_time_step``, ``rnn_time_step_external``,
 from __future__ import annotations
 
 import dataclasses
+import weakref
 import json
 from typing import Any, Dict, List, Optional
 
@@ -66,9 +67,12 @@ from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.ops.kernels.conv_stats import conv_stats
 from deeplearning4j_tpu_torch.runtime.environment import (coerce_dtype, dtype_name,
                                                           get_environment)
+from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.runtime.state_packing import assign_state
 from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
 from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+from deeplearning4j_tpu_torch.train.prefetch import as_device_tensor
 from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
 
 
@@ -250,6 +254,27 @@ class ComputationGraphConfiguration:
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
 
+def _cg_group_compatible(a, b) -> bool:
+    """Whether two buffered (inputs, labels, generator, masks) tuples may
+    share one grouped dispatch: same input/label shapes and mask presence
+    (JAX ``:229-246``)."""
+    ia, la, _, ma = a
+    ib, lb, _, mb = b
+    if set(ia) != set(ib) or len(la) != len(lb):
+        return False
+    if any(ia[n].shape != ib[n].shape for n in ia):
+        return False
+    if any(x.shape != y.shape for x, y in zip(la, lb)):
+        return False
+    if (ma is None) != (mb is None):
+        return False
+    if ma is not None and (set(ma) != set(mb) or any(
+            (ma[k] is None) != (mb[k] is None)
+            or (ma[k] is not None and ma[k].shape != mb[k].shape) for k in ma)):
+        return False
+    return True
+
+
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"ComputationGraph.{what} is not ported to "
                                "deeplearning4j_tpu_torch yet")
@@ -276,6 +301,9 @@ class ComputationGraph:
         self._iteration = 0
         self._epoch = 0
         self._score = float("nan")
+        # the training runtime's per-graph cache (see MultiLayerNetwork)
+        self._runtime_cache: Dict[str, Any] = {}
+        self._device_gen: Optional[torch.Generator] = None
 
     @property
     def layers(self) -> List[Layer]:
@@ -308,6 +336,7 @@ class ComputationGraph:
         self._optimizer = None  # built at the first fit, on these parameters
         self._restored_updater_leaves = None
         self._fused = self._fused_pairs()
+        self._runtime_cache = {}
         return self
 
     def _fused_pairs(self) -> Dict[str, str]:
@@ -340,13 +369,11 @@ class ComputationGraph:
         if self._params is None:
             self.init()
 
-    def _as_input(self, x) -> torch.Tensor:
+    def _as_input(self, x, staged: bool = False) -> torch.Tensor:
         """Tensor on the graph's device; float64 becomes float32, as the JAX
-        package (64-bit off) reads it."""
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-        if t.dtype == torch.float64:
-            t = t.float()
-        return t.to(self.device)
+        package (64-bit off) reads it (``staged``: see
+        :func:`~..train.prefetch.as_device_tensor`)."""
+        return as_device_tensor(x, self.device, staged)
 
     # --------------------------------------------------------------- forward
     def _exec_node(self, name, acts, last_inputs, new_state, pending, params, model_state,
@@ -437,11 +464,13 @@ class ComputationGraph:
         return total, new_state
 
     # ------------------------------------------------------------------- fit
-    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, labels=None, epochs: int = 1, prefetch_buffer: int = 0,
+            profiler=None) -> "ComputationGraph":
         """``fit(iterator)``, ``fit(iterator, epochs=N)`` or ``fit(x, y)``
         (JAX ``:677-742``): ``x``/``y`` one array or tensor each, or lists of
         them for several inputs/outputs, taken as one batch. Tensors already
-        on the graph's device are used where they lie."""
+        on the graph's device are used where they lie. ``prefetch_buffer``
+        and ``profiler`` as in ``MultiLayerNetwork.fit``."""
         self._ensure_init()
         if labels is not None:
             xs = list(data) if isinstance(data, (list, tuple)) else [data]
@@ -451,32 +480,72 @@ class ComputationGraph:
             iterator = [batch]
         else:
             iterator = data
-        self._fit_epochs(iterator, int(epochs))
+        from deeplearning4j_tpu_torch.runtime.state_packing import (GroupedDispatch,
+                                                                    PackedStepLoop)
+        from deeplearning4j_tpu_torch.train.prefetch import (AsyncLossDelivery,
+                                                             stateless_listeners)
+        self._seed_device_generator()
+        ploop = PackedStepLoop.for_network(self)
+        if profiler is not None:
+            profiler.start()
+        # async loss readback (see MultiLayerNetwork._fit_epochs)
+        adel = (AsyncLossDelivery(lambda _n, loss: self._iteration_done(loss),
+                                  profiler=profiler)
+                if (self._listeners or profiler is not None)
+                and stateless_listeners(self) else None)
+        sink = adel.submit if adel is not None else (lambda _n, loss: self._iteration_done(loss))
+        gd = GroupedDispatch(
+            unroll=(get_environment().dispatch_unroll if ploop.enabled else 1),
+            compatible=_cg_group_compatible,
+            run_single=lambda a: ploop.step(*a)[0],
+            run_group=ploop.step_group,
+            deliver=lambda args, loss: sink(None, loss))
+        try:
+            try:
+                self._fit_epochs(iterator, int(epochs), ploop, gd,
+                                 drain=(adel.flush if adel is not None else (lambda: None)),
+                                 prefetch_buffer=int(prefetch_buffer), profiler=profiler)
+            finally:
+                gd.drain_on_error()
+                if adel is not None:
+                    adel.shutdown()  # never raises; original errors win
+        finally:
+            ploop.sync(release=True)
+            if profiler is not None:
+                profiler.stop()
+        if adel is not None:
+            adel.raise_pending()
         return self
 
-    def _coerce_batch(self, batch):
+    def _coerce_batch(self, batch, staged: bool = False):
         """A DataSet or MultiDataSet minibatch, or an already coerced
         ``(inputs, labels, masks)``, as tensors on the device (JAX
-        ``:659-675``)."""
+        ``:659-675``); ``staged`` as ``MultiLayerNetwork._coerce_batch``."""
         if isinstance(batch, tuple):
             return batch
+
+        def dev(a):
+            return self._as_input(a, staged)
+
         if isinstance(batch, MultiDataSet):
             masks = None
             if batch.labels_masks is not None:
-                masks = {o: (None if m is None else self._as_input(m))
+                masks = {o: (None if m is None else dev(m))
                          for o, m in zip(self.conf.outputs, batch.labels_masks)}
-            return ({n: self._as_input(f) for n, f in zip(self.conf.inputs, batch.features)},
-                    [self._as_input(y) for y in batch.labels], masks)
+            return ({n: dev(f) for n, f in zip(self.conf.inputs, batch.features)},
+                    [dev(y) for y in batch.labels], masks)
         if not isinstance(batch, DataSet):
             raise NotImplementedError(f"fitting a ComputationGraph on {type(batch).__name__} "
                                       "is not ported to deeplearning4j_tpu_torch yet")
         masks = None
         if batch.labels_mask is not None:
-            masks = {self.conf.outputs[0]: self._as_input(batch.labels_mask)}
-        return ({self.conf.inputs[0]: self._as_input(batch.features)},
-                [self._as_input(batch.labels)], masks)
+            masks = {self.conf.outputs[0]: dev(batch.labels_mask)}
+        return ({self.conf.inputs[0]: dev(batch.features)}, [dev(batch.labels)], masks)
 
-    def _fit_epochs(self, iterator, epochs: int) -> None:
+    def _fit_epochs(self, iterator, epochs: int, ploop, gd, drain=lambda: None,
+                    prefetch_buffer: int = 0, profiler=None) -> None:
+        from deeplearning4j_tpu_torch.train.prefetch import batch_source
+        from deeplearning4j_tpu_torch.train.profiler import submit_timed
         if self.conf.global_conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
             raise NotImplementedError(
                 f"optimization_algo={self.conf.global_conf.optimization_algo!r} is not "
@@ -484,30 +553,39 @@ class ComputationGraph:
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
-            if hasattr(iterator, "reset"):
-                iterator.reset()  # and again as iteration starts, as JAX's fit does
-            for batch in iterator:
-                inputs, labels, masks = self._coerce_batch(batch)
-                if self.conf.tbptt_fwd_length and any(
-                        is_sequence_array(v) for v in inputs.values()):
-                    raise _unported("fit with truncated BPTT")
-                self._iteration_done(self._train_step(inputs, labels, masks))
+            # the source resets, and iterating resets again, as JAX's fit does
+            src = batch_source(iterator, self._coerce_batch, prefetch_buffer, profiler,
+                               device=self.device,
+                               staged_prepare=lambda b: self._coerce_batch(b, staged=True))
+            try:
+                for inputs, labels, masks in src:
+                    if self.conf.tbptt_fwd_length and any(
+                            is_sequence_array(v) for v in inputs.values()):
+                        raise _unported("fit with truncated BPTT")
+                    submit_timed(gd, (inputs, labels, self._step_generator(), masks),
+                                 profiler)
+            finally:
+                src.close()
+            gd.flush()
+            drain()  # on_epoch_end must observe every iteration_done
             for lst in self._listeners:
                 lst.on_epoch_end(self, self._epoch)
             self._epoch += 1
 
-    def _train_step(self, inputs, labels, masks):
+    def _train_step(self, inputs, labels, masks, generator=None):
         """One step: loss, gradients of the float parameters through the
         compute-dtype cast, the optimizer's update in place, and the layers'
-        new state in place of the old. Returns the detached loss."""
+        new state copied into the old (in place, as a captured step needs).
+        Returns the detached loss."""
         optimizer = self._ensure_optimizer()
         leaves = tree_leaves(self._params)
         trained = [t for t in leaves if t.is_floating_point()]
         for t in trained:
             t.requires_grad_(True)
         try:
-            loss, new_state = self._loss(self._params, self._model_state, inputs, labels,
-                                         self.rng.next_generator(), masks)
+            loss, new_state = self._loss(
+                self._params, self._model_state, inputs, labels,
+                generator if generator is not None else self.rng.next_generator(), masks)
             grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
         finally:
             for t in trained:
@@ -518,8 +596,30 @@ class ComputationGraph:
             per_leaf.append(torch.zeros_like(t) if g is None else g)
         optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
         self._apply_constraints()
-        self._model_state = tree_map(lambda t: t.detach(), new_state)
+        self._model_state = assign_state(self._model_state, new_state)
         return loss.detach()
+
+    # ------------------------------------------------------------- runtime
+    def _train_step_fn(self):
+        """The step the packed loop dispatches: ``(inputs, labels,
+        generator, masks) -> loss``, the state updated in place."""
+        fn = self._runtime_cache.get("__step__")
+        if fn is None:
+            # a weak reference: the network's own cache must not keep it
+            # alive in a cycle (its graphs would then die whenever the
+            # cyclic collector runs, not when the network is dropped)
+            net = weakref.ref(self)
+
+            def fn(inputs, labels, generator, masks):
+                return net()._train_step(inputs, labels, masks, generator=generator)
+            self._runtime_cache["__step__"] = fn
+        return fn
+
+    _state_tree = MultiLayerNetwork._state_tree
+    _set_state_tree = MultiLayerNetwork._set_state_tree
+    _seed_device_generator = MultiLayerNetwork._seed_device_generator
+    _device_generators = MultiLayerNetwork._device_generators
+    _step_generator = MultiLayerNetwork._step_generator
 
     def _perturbed(self, params, generator):
         """``params`` cast to ``compute_dtype``, each layer node that has
@@ -674,9 +774,9 @@ class ComputationGraph:
             net._model_state = tree_map(torch.clone, self._model_state)
         return net
 
-    def save(self, path: str) -> None:
+    def save(self, path: str, save_updater: bool = True) -> None:
         from deeplearning4j_tpu_torch.models.serializer import ModelSerializer
-        ModelSerializer.write_model(self, path)
+        ModelSerializer.write_model(self, path, save_updater=save_updater)
 
     @staticmethod
     def load(path: str, device=None) -> "ComputationGraph":

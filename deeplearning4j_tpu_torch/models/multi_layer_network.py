@@ -20,13 +20,21 @@ layers' l1/l2 penalties (JAX ``_reg_score``). In training a layer with
 update the layers' ``constraints``/``bias_constraints`` project the
 parameters (JAX ``:187``, ``:232``, ``:278``).
 
-PyTorch runs eagerly, so there is no jit cache and no packed, grouped or
-prefetched step: ``fit`` is a plain loop of ``_loss`` -> ``torch.autograd``
--> :class:`~..train.updaters.NetworkOptimizer`, one iteration and one
-listener call per batch, or per truncated-BPTT chunk with the carries
-detached between chunks (JAX ``:505-524``). The inference entry points run
-under ``torch.inference_mode``, so the recurrent layers launch the kernels'
-inference instance there.
+``fit`` runs the JAX package's training runtime (``:370-500`` there):
+the steps go through :class:`~..runtime.state_packing.PackedStepLoop` and
+:class:`~..runtime.state_packing.GroupedDispatch` (``env.dispatch_unroll``
+steps a dispatch), the batches through
+:func:`~..train.prefetch.batch_source` (``prefetch_buffer``), listener
+delivery through :class:`~..train.prefetch.AsyncLossDelivery` when every
+listener is stateless, and dispatch timing through
+:func:`~..train.profiler.submit_timed`. A step is ``_loss`` ->
+``torch.autograd`` -> :class:`~..train.updaters.NetworkOptimizer`, all in
+place; on a CUDA device it is captured once and replayed
+(:class:`~..runtime.compile_cache.AotCache`), one graph for a group. A
+truncated-BPTT batch flushes the group, drains the delivery and runs its
+chunks eagerly, the carries detached between chunks (JAX ``:505-524``).
+The inference entry points run under ``torch.inference_mode``, so the
+recurrent layers launch the kernels' inference instance there.
 
 Parameters live on one device, chosen at :meth:`init`: ``cuda`` unless the
 caller asks for the CPU (``device="cpu"`` or
@@ -36,6 +44,7 @@ caller asks for the CPU (``device="cpu"`` or
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -51,13 +60,23 @@ from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints, app
 from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
 from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.runtime.state_packing import assign_state
 from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
 from deeplearning4j_tpu_torch.train.listeners import PerformanceListener, TrainingListener
+from deeplearning4j_tpu_torch.train.prefetch import as_device_tensor
 from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
 
 
 def _layer_key(i: int, layer: Layer) -> str:
     return layer.name or f"layer_{i}"
+
+
+def _group_compatible(a, b) -> bool:
+    """Whether two buffered (x, y, generator, fm, lm) step tuples may share
+    one grouped dispatch: same input/label shapes and mask presence."""
+    return (a[0].shape == b[0].shape and a[1].shape == b[1].shape
+            and (a[3] is None) == (b[3] is None)
+            and (a[4] is None) == (b[4] is None))
 
 
 class MultiLayerNetwork:
@@ -80,6 +99,10 @@ class MultiLayerNetwork:
         self._epoch = 0
         self._score = float("nan")
         self._rnn_carries: Optional[Dict[str, Any]] = None
+        # the training runtime's per-network cache: the packed state, the
+        # captured graphs (``__aot__``), the step functions
+        self._runtime_cache: Dict[str, Any] = {}
+        self._device_gen: Optional[torch.Generator] = None
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict] = None) -> "MultiLayerNetwork":
@@ -107,19 +130,18 @@ class MultiLayerNetwork:
         self._optimizer = None  # built at the first fit, on these parameters
         self._restored_updater_leaves = None
         self._rnn_carries = None
+        self._runtime_cache = {}
         return self
 
     def _ensure_init(self) -> None:
         if self._params is None:
             self.init()
 
-    def _as_input(self, x) -> torch.Tensor:
+    def _as_input(self, x, staged: bool = False) -> torch.Tensor:
         """Tensor on the network's device; float64 becomes float32, as the
-        JAX package (64-bit off) reads it."""
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-        if t.dtype == torch.float64:
-            t = t.float()
-        return t.to(self.device)
+        JAX package (64-bit off) reads it. ``staged``: through pinned host
+        memory, without waiting (the prefetcher's stream orders it)."""
+        return as_device_tensor(x, self.device, staged)
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, model_state, x, *, training: bool = False,
@@ -311,11 +333,19 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, epochs: int = 1, mask=None,
-            labels_mask=None) -> "MultiLayerNetwork":
+            labels_mask=None, prefetch_buffer: int = 0,
+            profiler=None) -> "MultiLayerNetwork":
         """``fit(iterator)``, ``fit(iterator, epochs=N)`` or
         ``fit(x, y[, mask, labels_mask])`` (JAX ``:370-409``). ``mask`` is
         the features mask; the labels mask of per-timestep labels defaults
-        to it."""
+        to it.
+
+        ``prefetch_buffer > 0`` stages that many coerced batches on the
+        device ahead of the step through a background
+        :class:`~..train.prefetch.DevicePrefetcher` (the trajectory is the
+        synchronous loop's, bit for bit); ``profiler`` takes a
+        :class:`~..train.profiler.TrainingProfiler` that splits each
+        iteration into data-wait, dispatch and step time."""
         self._ensure_init()
         if labels is not None:
             ds = DataSet(np.asarray(data), np.asarray(labels), features_mask=mask,
@@ -323,19 +353,70 @@ class MultiLayerNetwork:
             iterator = ListDataSetIterator([ds], batch_size=len(ds))
         else:
             iterator = data
-        self._run_epochs(iterator, int(epochs))
+        from deeplearning4j_tpu_torch.runtime.state_packing import PackedStepLoop
+        self._seed_device_generator()
+        ploop = PackedStepLoop.for_network(self)
+        if profiler is not None:
+            profiler.start()
+        try:
+            self._fit_epochs(iterator, int(epochs), ploop,
+                             prefetch_buffer=int(prefetch_buffer), profiler=profiler)
+        finally:
+            ploop.sync(release=True)
+            if profiler is not None:
+                profiler.stop()
         return self
 
-    def _coerce_batch(self, ds):
+    def _coerce_batch(self, ds, staged: bool = False):
         """A DataSet minibatch as tensors ``(x, y, fm, lm)`` on the device
-        (JAX ``train/prefetch.py:70-84``)."""
-        x, y = self._as_input(ds.features), self._as_input(ds.labels)
-        fm = None if ds.features_mask is None else self._as_input(ds.features_mask)
-        lm = self._as_input(ds.labels_mask) if ds.labels_mask is not None \
+        (JAX ``train/prefetch.py:70-84``); ``staged`` copies from pinned
+        memory without waiting (the prefetcher's path)."""
+        x, y = self._as_input(ds.features, staged), self._as_input(ds.labels, staged)
+        fm = None if ds.features_mask is None else self._as_input(ds.features_mask, staged)
+        lm = self._as_input(ds.labels_mask, staged) if ds.labels_mask is not None \
             else (fm if y.dim() == 3 else None)
         return x, y, fm, lm
 
-    def _run_epochs(self, iterator, epochs: int) -> None:
+    def _fit_epochs(self, iterator, epochs: int, ploop, prefetch_buffer: int = 0,
+                    profiler=None) -> None:
+        """JAX ``_fit_epochs`` (``:411-455``): the steps go through a
+        :class:`~..runtime.state_packing.GroupedDispatch` over the packed
+        loop, and listener delivery through an
+        :class:`~..train.prefetch.AsyncLossDelivery` when every listener is
+        stateless; a state-reading listener turns packing, grouping and
+        async delivery off together."""
+        from deeplearning4j_tpu_torch.runtime.state_packing import GroupedDispatch
+        from deeplearning4j_tpu_torch.train.prefetch import (AsyncLossDelivery,
+                                                             stateless_listeners)
+        def deliver(n, loss):
+            self._iteration_done(loss, n)
+
+        adel = (AsyncLossDelivery(deliver, profiler=profiler)
+                if (self._listeners or profiler is not None)
+                and stateless_listeners(self) else None)
+        # only the batch SIZE crosses into the delivery queue
+        sink = adel.submit if adel is not None else deliver
+        gd = GroupedDispatch(
+            unroll=(get_environment().dispatch_unroll if ploop.enabled else 1),
+            compatible=_group_compatible,
+            run_single=lambda a: ploop.step(*a)[0],
+            run_group=ploop.step_group,
+            deliver=lambda args, loss: sink(args[0].shape[0], loss))
+        try:
+            self._run_epochs(iterator, epochs, ploop, gd,
+                             drain=(adel.flush if adel is not None else (lambda: None)),
+                             prefetch_buffer=prefetch_buffer, profiler=profiler)
+        finally:
+            gd.drain_on_error()
+            if adel is not None:
+                adel.shutdown()  # never raises; original errors win
+        if adel is not None:
+            adel.raise_pending()
+
+    def _run_epochs(self, iterator, epochs: int, ploop, gd, drain=lambda: None,
+                    prefetch_buffer: int = 0, profiler=None) -> None:
+        from deeplearning4j_tpu_torch.train.prefetch import batch_source
+        from deeplearning4j_tpu_torch.train.profiler import submit_timed
         if self.conf.global_conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
             raise NotImplementedError(
                 f"optimization_algo={self.conf.global_conf.optimization_algo!r} is not "
@@ -343,21 +424,31 @@ class MultiLayerNetwork:
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
-            iterator.reset()  # and again as iteration starts, as JAX's fit does
-            for ds in iterator:
-                x, y, fm, lm = self._coerce_batch(ds)
-                if self.conf.tbptt_fwd_length and is_sequence_array(x):
-                    self._fit_tbptt(x, y, fm, lm)
-                else:
-                    loss, _ = self._train_step(x, y, fm, lm)
-                    self._iteration_done(loss, x.shape[0])
+            # the source resets, and iterating resets again, as JAX's fit does
+            src = batch_source(iterator, self._coerce_batch, prefetch_buffer, profiler,
+                               device=self.device,
+                               staged_prepare=lambda ds: self._coerce_batch(ds, staged=True))
+            try:
+                for x, y, fm, lm in src:
+                    if self.conf.tbptt_fwd_length and is_sequence_array(x):
+                        gd.flush()
+                        drain()  # tBPTT notifies listeners inline (ordered)
+                        ploop.sync(release=True)
+                        self._fit_tbptt(x, y, fm, lm)
+                        continue
+                    submit_timed(gd, (x, y, self._step_generator(), fm, lm), profiler)
+            finally:
+                src.close()
+            gd.flush()
+            drain()  # on_epoch_end must observe every iteration_done
             for lst in self._listeners:
                 lst.on_epoch_end(self, self._epoch)
             self._epoch += 1
 
     def _fit_tbptt(self, x, y, fmask, lmask) -> None:
         """Split the time axis into tbptt-length chunks, carrying the hidden
-        state across them with the gradient cut (JAX ``:505-524``)."""
+        state across them with the gradient cut (JAX ``:505-524``); eager,
+        one step a chunk."""
         L = int(self.conf.tbptt_fwd_length)
         carries = self._zero_carries(
             x.shape[0], carry_dtype(x, get_environment().compute_dtype))
@@ -365,18 +456,20 @@ class MultiLayerNetwork:
             loss, carries = self._train_step(
                 slice_time(x, t0, L), y[:, t0:t0 + L] if y.dim() >= 3 else y,
                 None if fmask is None else fmask[:, t0:t0 + L],
-                None if lmask is None else lmask[:, t0:t0 + L], carries)
+                None if lmask is None else lmask[:, t0:t0 + L], carries,
+                generator=self._step_generator())
             carries = tree_map(lambda t: t.detach(), carries)
             self._iteration_done(loss)
 
-    def _train_step(self, x, y, fmask, lmask, carries=None):
+    def _train_step(self, x, y, fmask, lmask, carries=None, generator=None):
         """One step: loss, gradients of the float parameters through the
         compute-dtype cast, and the optimizer's update in place; the layers'
-        new state (``BatchNormalization``'s running statistics) replaces the
-        old, as the JAX step's ``model_state=new_state`` does. The
-        parameters may nest (``"attn"``, ``"stack"``): every leaf is walked
-        in :func:`tree_leaves` order. Returns the detached loss and the new
-        carries."""
+        new state (``BatchNormalization``'s running statistics) is copied
+        into the old, as the JAX step's ``model_state=new_state`` replaces
+        it (in place, so that a captured step writes where the next replay
+        reads). The parameters may nest (``"attn"``, ``"stack"``): every
+        leaf is walked in :func:`tree_leaves` order. Returns the detached
+        loss and the new carries."""
         optimizer = self._ensure_optimizer()
         leaves = tree_leaves(self._params)
         trained = [t for t in leaves if t.is_floating_point()]
@@ -384,8 +477,9 @@ class MultiLayerNetwork:
             t.requires_grad_(True)
         try:
             loss, new_state, new_carries = self._loss(
-                self._params, self._model_state, x, y, self.rng.next_generator(), fmask,
-                lmask, carries)
+                self._params, self._model_state, x, y,
+                generator if generator is not None else self.rng.next_generator(),
+                fmask, lmask, carries)
             grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
         finally:
             for t in trained:
@@ -396,8 +490,51 @@ class MultiLayerNetwork:
             per_leaf.append(torch.zeros_like(t) if g is None else g)
         optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
         self._apply_constraints()
-        self._model_state = tree_map(lambda t: t.detach(), new_state)
+        self._model_state = assign_state(self._model_state, new_state)
         return loss.detach(), new_carries
+
+    # ------------------------------------------------------------- runtime
+    def _train_step_fn(self):
+        """The step the packed loop dispatches: ``(x, y, generator, fm, lm)
+        -> loss``, the state updated in place."""
+        fn = self._runtime_cache.get("__step__")
+        if fn is None:
+            # a weak reference: the network's own cache must not keep it
+            # alive in a cycle (its graphs would then die whenever the
+            # cyclic collector runs, not when the network is dropped)
+            net = weakref.ref(self)
+
+            def fn(x, y, generator, fm, lm):
+                return net()._train_step(x, y, fm, lm, generator=generator)[0]
+            self._runtime_cache["__step__"] = fn
+        return fn
+
+    def _state_tree(self):
+        return {"params": self._params, "opt": self._ensure_optimizer().state,
+                "state": self._model_state}
+
+    def _set_state_tree(self, tree) -> None:
+        self._params = tree["params"]
+        self._optimizer.state = tree["opt"]
+        self._model_state = tree["state"]
+
+    def _seed_device_generator(self) -> None:
+        """On a CUDA device: the fit's mask stream, seeded from the
+        network's key (:mod:`~..runtime.rng`)."""
+        if self.device.type == "cuda":
+            if self._device_gen is None:
+                self._device_gen = torch.Generator(device=self.device)
+            self._device_gen.manual_seed(self.rng.peek_seed())
+
+    def _device_generators(self):
+        return [] if self._device_gen is None else [self._device_gen]
+
+    def _step_generator(self) -> torch.Generator:
+        """A step's generator argument: the next CPU generator of the
+        network's stream, or on a CUDA device (the stream advanced all the
+        same) the fit's device generator."""
+        gen = self.rng.next_generator()
+        return self._device_gen if self.device.type == "cuda" else gen
 
     # ------------------------------------------------------ external errors
     def _external_vjp(self, x, epsilon, generator):
@@ -456,7 +593,9 @@ class MultiLayerNetwork:
     def _iteration_done(self, loss, batch_size: Optional[int] = None) -> None:
         """Listener bookkeeping after one iteration; a
         ``PerformanceListener`` first counts the batch's examples (JAX
-        ``:417-423``; the truncated-BPTT chunks count none)."""
+        ``:417-423``; the truncated-BPTT chunks count none). With a
+        listener that reads state, it runs where the step ran; otherwise
+        on the delivery thread."""
         self._score = loss
         self._iteration += 1
         for lst in self._listeners:

@@ -48,8 +48,10 @@ def dot_product_attention(q, k, v, mask=None, use_flash: bool = True, causal: bo
         return flash_attention(q, k, v, mask, causal=causal)
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.sqrt(
-        torch.tensor(d, dtype=q.dtype, device=q.device))
-    neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
+        torch.full((), d, dtype=q.dtype, device=q.device))
+    # torch.full, not torch.tensor: no host-to-device copy (a CUDA graph
+    # capture of the step allows none)
+    neg = torch.full((), -1e9, dtype=scores.dtype, device=scores.device)
     if mask is not None:
         if mask.dim() == 2:  # (batch, t_k) key-padding form
             mask = mask[:, None, None, :]
@@ -264,7 +266,11 @@ class BertEmbeddingLayer(Layer):
         ids = x if not x.is_floating_point() else x.long()
         t = ids.shape[1]
         _check_len(t, self.max_len, "BertEmbeddingLayer")
-        if bool(((ids < 0) | (ids >= self.vocab_size)).any()):
+        # the range check reads the ids back, which a CUDA graph capture
+        # cannot do: a captured step checks nothing (an id out of range then
+        # trips the gather's device assert)
+        if not (ids.is_cuda and torch.cuda.is_current_stream_capturing()) and bool(
+                ((ids < 0) | (ids >= self.vocab_size)).any()):
             raise ValueError(f"BertEmbeddingLayer: token ids must lie in [0, "
                              f"{self.vocab_size}), got {int(ids.min())}..{int(ids.max())}")
         y = params["tok"][ids] + params["pos"][None, :t, :] + params["seg"][0][None, None, :]

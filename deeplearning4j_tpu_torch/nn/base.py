@@ -66,9 +66,11 @@ def keep_mask(x: torch.Tensor, keep: float, generator: torch.Generator) -> torch
     (``RngManager.next_generator``): a step does no per-element host work
     and copies no mask to the device. The masks differ from the JAX
     package's stream (and between CPU and device), as every draw of the two
-    packages does."""
-    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-    device_gen = torch.Generator(device=x.device).manual_seed(seed)
+    packages does. A generator already on ``x``'s CUDA device (a fit's
+    stream, :func:`~..runtime.rng.device_generator`) is drawn from
+    directly."""
+    from deeplearning4j_tpu_torch.runtime.rng import device_generator
+    device_gen = device_generator(generator, x.device)
     return torch.rand(x.shape, generator=device_gen, device=x.device) < keep
 
 

@@ -133,8 +133,8 @@ def apply_layer_constraints(layer, layer_params):
 
 
 def _device_generator(generator: torch.Generator, device) -> torch.Generator:
-    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-    return torch.Generator(device=device).manual_seed(seed)
+    from deeplearning4j_tpu_torch.runtime.rng import device_generator
+    return device_generator(generator, device)
 
 
 @dataclasses.dataclass

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes`. The build
 happens at first use, into ``_build/`` beside this file (listed in
-``.gitignore``), under a name keyed by the source's content and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``) or, once ``runtime.compile_cache.enable`` has been called,
+into its framework-keyed directory, under a name keyed by the source's
+content and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is; the cache counts loads, builds and unloadable files.
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
 """
@@ -27,15 +29,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+_COUNTERS: List["LaunchCounter"] = []
+
+
 class LaunchCounter:
     """Count of kernel launches made by one wrapper. The wrapper adds one
     where it launches its kernel and nowhere else, so a run can show that
-    its main path went through the kernel."""
+    its main path went through the kernel. Every counter is registered
+    (:func:`counter_values`): a captured CUDA graph takes back the counts
+    its capture made and adds them at each replay."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
+        _COUNTERS.append(self)
 
     def add(self, n: int = 1) -> None:
         with self._lock:
@@ -48,6 +56,18 @@ class LaunchCounter:
     @property
     def value(self) -> int:
         return self._n
+
+
+def counter_values() -> Dict["LaunchCounter", int]:
+    return {c: c.value for c in _COUNTERS}
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: the compile cache's directory when it
+    is enabled, else ``BUILD_DIR``."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+    d = compile_cache.cache_dir()
+    return Path(d) if d else BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -81,7 +101,7 @@ class NativeLibrary:
             h.update(p.name.encode())
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+        return build_dir() / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def _start_build(self):
         """Start nvcc for this source unless the library is already built;
@@ -89,7 +109,7 @@ class NativeLibrary:
         target = self._target()
         if target.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        target.parent.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -101,9 +121,11 @@ class NativeLibrary:
             if self.build_seconds is None:
                 self.build_seconds = 0.0
             return
+        from deeplearning4j_tpu_torch.runtime import compile_cache
         proc, tmp, target, t0 = started
         out, _ = proc.communicate()
         self.build_seconds = time.perf_counter() - t0
+        compile_cache.STATS.record("compiles", self.build_seconds)
         self.build_log = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -114,8 +136,9 @@ class NativeLibrary:
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                self._finish_build(self._start_build())
-                lib = ctypes.CDLL(str(self._target()))
+                from deeplearning4j_tpu_torch.runtime import compile_cache
+                lib = compile_cache.load_library(
+                    self._target(), lambda: self._finish_build(self._start_build()))
                 self._declare(lib)
                 self._lib = lib
             return self._lib

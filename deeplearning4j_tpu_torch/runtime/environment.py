@@ -8,6 +8,14 @@ matmuls) and the device policy: ``cuda`` by default, the CPU only when the
 caller asks for it with :meth:`Environment.set_device`. With no GPU and no
 such request, :meth:`Environment.resolve_device` raises — the port never
 carries on quietly on the CPU.
+
+The training runtime's switches are those of the JAX package
+(``environment.py:185-215`` there), read from the same variables:
+``packed_state`` (``DL4J_TPU_PACKED_STATE=0`` turns it off),
+``dispatch_unroll`` (``DL4J_TPU_DISPATCH_UNROLL``), ``aot_dispatch``
+(``DL4J_TPU_AOT_DISPATCH=0``), the kernels' build cache
+(``DL4J_TPU_COMPILE_CACHE``, :meth:`Environment.set_compile_cache`) and
+``nan_panic`` (``DL4J_TPU_NAN_PANIC=1``).
 """
 
 from __future__ import annotations
@@ -52,11 +60,29 @@ class Environment:
     - ``compute_dtype``: dtype activations and matmuls are cast to inside
       the forward pass; parameters stay ``default_dtype``.
     - ``device``: ``None`` means ``cuda``; ``"cpu"`` must be asked for.
+    - ``packed_state``: the fit loops keep the small leaves of the training
+      state in one flat buffer per dtype (:mod:`.state_packing`); on by
+      default.
+    - ``dispatch_unroll``: batches grouped into one dispatch by the three
+      fit loops (``>= 1``; 1 = no grouping). On a CUDA device a group is one
+      captured graph of K steps.
+    - ``aot_dispatch``: the fit loops replay captured CUDA graphs
+      (:class:`.compile_cache.AotCache`); on by default.
+    - ``nan_panic``: a fit raises ``FloatingPointError`` at the first step
+      whose loss is not finite (it reads each loss back, so it waits for
+      the device every step).
+    - ``cache_compiled``: the kernels' build directory when
+      :meth:`set_compile_cache` moved it, else ``None`` (``_build/``).
     """
 
     default_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     device: Optional[str] = None
+    packed_state: bool = True
+    dispatch_unroll: int = 1
+    aot_dispatch: bool = True
+    nan_panic: bool = False
+    cache_compiled: Optional[str] = None
 
     def set_default_dtype(self, dtype) -> "Environment":
         self.default_dtype = coerce_dtype(dtype)
@@ -70,6 +96,40 @@ class Environment:
         """Mixed precision: bf16 compute, parameters stay ``default_dtype``."""
         self.compute_dtype = torch.bfloat16
         return self
+
+    def set_packed_state(self, enabled: bool = True) -> "Environment":
+        self.packed_state = bool(enabled)
+        return self
+
+    def set_dispatch_unroll(self, k: int) -> "Environment":
+        if int(k) < 1:
+            raise ValueError("dispatch_unroll must be >= 1")
+        self.dispatch_unroll = int(k)
+        return self
+
+    def set_aot_dispatch(self, enabled: bool = True) -> "Environment":
+        self.aot_dispatch = bool(enabled)
+        return self
+
+    def set_nan_panic(self, enabled: bool) -> "Environment":
+        self.nan_panic = bool(enabled)
+        return self
+
+    def set_compile_cache(self, directory: str) -> "Environment":
+        """Build the kernels under ``directory`` (keyed by framework; see
+        :mod:`.compile_cache`), the builder form of
+        ``DL4J_TPU_COMPILE_CACHE``."""
+        from deeplearning4j_tpu_torch.runtime import compile_cache
+        self.cache_compiled = compile_cache.enable(directory)
+        return self
+
+    def to_dict(self) -> dict:
+        return {"default_dtype": dtype_name(self.default_dtype),
+                "compute_dtype": dtype_name(self.compute_dtype),
+                "device": self.device, "packed_state": self.packed_state,
+                "dispatch_unroll": self.dispatch_unroll,
+                "aot_dispatch": self.aot_dispatch, "nan_panic": self.nan_panic,
+                "cache_compiled": self.cache_compiled}
 
     def set_device(self, device: Optional[Union[str, torch.device]]) -> "Environment":
         """``"cuda"``/``"cuda:N"``, ``"cpu"``, or ``None`` for the default
@@ -104,7 +164,9 @@ _instance: Optional[Environment] = None
 
 def get_environment() -> Environment:
     """The process-wide :class:`Environment`. The first call reads
-    ``DL4J_TPU_DTYPE`` and ``DL4J_TPU_COMPUTE_DTYPE``."""
+    ``DL4J_TPU_DTYPE``, ``DL4J_TPU_COMPUTE_DTYPE``, ``DL4J_TPU_NAN_PANIC``,
+    ``DL4J_TPU_PACKED_STATE``, ``DL4J_TPU_DISPATCH_UNROLL``,
+    ``DL4J_TPU_AOT_DISPATCH`` and ``DL4J_TPU_COMPILE_CACHE``."""
     global _instance
     with _lock:
         if _instance is None:
@@ -113,5 +175,18 @@ def get_environment() -> Environment:
                 env.set_default_dtype(os.environ[_ENV_PREFIX + "DTYPE"])
             if os.environ.get(_ENV_PREFIX + "COMPUTE_DTYPE"):
                 env.set_compute_dtype(os.environ[_ENV_PREFIX + "COMPUTE_DTYPE"])
+            if os.environ.get(_ENV_PREFIX + "NAN_PANIC", "").lower() in ("1", "true"):
+                env.nan_panic = True
+            if os.environ.get(_ENV_PREFIX + "PACKED_STATE", "").lower() in ("0", "false"):
+                env.packed_state = False
+            if os.environ.get(_ENV_PREFIX + "DISPATCH_UNROLL", "").isdigit():
+                # "0" means no grouping, as in the JAX package
+                env.set_dispatch_unroll(max(1, int(os.environ[_ENV_PREFIX + "DISPATCH_UNROLL"])))
+            if os.environ.get(_ENV_PREFIX + "AOT_DISPATCH", "").lower() in ("0", "false"):
+                env.aot_dispatch = False
+            cache = os.environ.get(_ENV_PREFIX + "COMPILE_CACHE")
+            if cache:
+                from deeplearning4j_tpu_torch.runtime import compile_cache
+                env.cache_compiled = compile_cache.enable(cache)
             _instance = env
         return _instance

@@ -8,6 +8,13 @@ draw, so ``get_state``/``set_state`` round-trip an archive's
 ``rng_seed``/``rng_key`` metadata in either direction. The two packages
 draw different numbers from the same key; weights cross through archives,
 never through seeds.
+
+On a CUDA device a fit draws its masks from one generator on the card per
+network (:func:`device_generator` returns it as it is), seeded at the start
+of each fit from the network's key (:meth:`RngManager.peek_seed`). A
+captured CUDA graph registers it, so every replay advances its Philox
+offset and draws fresh masks, and a K-step graph consumes the stream as K
+eager steps do: the masks do not depend on how the steps are grouped.
 """
 
 from __future__ import annotations
@@ -68,6 +75,13 @@ class RngManager:
             self._key = [nxt >> 32, nxt & 0xFFFFFFFF]
         return torch.Generator(device="cpu").manual_seed(sub & ((1 << 63) - 1))
 
+    def peek_seed(self) -> int:
+        """A 63-bit seed folded from the current key, without advancing the
+        stream (the seed of a fit's device generator)."""
+        with self._lock:
+            key = self._key if self._key is not None else _key_from_seed(self._seed)
+            return _splitmix64(_key_int(key) ^ 0x2545F4914F6CDD1D) & ((1 << 63) - 1)
+
     def get_state(self) -> dict:
         """JSON-serializable stream position: the seed and the current key
         (``None`` while the stream is at its origin)."""
@@ -86,3 +100,16 @@ class RngManager:
             if len(k) != 2:
                 raise ValueError(f"rng key must have two words, got {len(k)}")
             self._key = k
+
+
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """The generator to draw on ``device`` with: ``generator`` itself when it
+    already lives on that CUDA device (a fit's graph-safe stream), else a
+    fresh generator there seeded by one draw from ``generator`` (the step's
+    CPU generator)."""
+    device = torch.device(device)
+    if generator.device.type == "cuda" and device.type == "cuda" and (
+            torch.device(generator.device).index or 0) == (device.index or 0):
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)

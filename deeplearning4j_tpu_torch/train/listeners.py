@@ -21,6 +21,14 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 class TrainingListener:
     """Subclass and override what you need (reference interface)."""
 
+    #: Whether this listener reads the model's parameters or state in its
+    #: callbacks (JAX ``listeners.py:27``). Listeners that only read the
+    #: score and the counters set it to False, which lets ``fit`` keep the
+    #: state packed, group its steps and deliver the callbacks from a
+    #: completion thread (:mod:`~..runtime.state_packing`,
+    #: :mod:`~..train.prefetch`).
+    needs_model_state = True
+
     def iteration_done(self, model, iteration: int, epoch: int, score) -> None:
         pass
 
@@ -33,6 +41,8 @@ class TrainingListener:
 
 class ScoreIterationListener(TrainingListener):
     """Log the score every N iterations (reference ``ScoreIterationListener``)."""
+
+    needs_model_state = False
 
     def __init__(self, print_iterations: int = 10):
         self.print_iterations = max(1, int(print_iterations))
@@ -50,6 +60,8 @@ class PerformanceListener(TrainingListener):
     samples/s, score)``. The first iteration starts the clock. Reading the
     score waits for the device, so a report's window ends when that
     iteration's step has finished."""
+
+    needs_model_state = False
 
     def __init__(self, frequency: int = 10, report_samples: bool = True):
         self.frequency = max(1, int(frequency))
@@ -107,8 +119,13 @@ class CollectScoresListener(TrainingListener):
     """Collect (iteration, score) pairs in memory (reference
     ``CollectScoresIterationListener``)."""
 
+    needs_model_state = False
+
     def __init__(self):
         self.scores: list[tuple[int, float]] = []
 
     def iteration_done(self, model, iteration, epoch, score):
         self.scores.append((iteration, float(score)))
+
+
+BaseTrainingListener = TrainingListener  # the reference's adapter base class

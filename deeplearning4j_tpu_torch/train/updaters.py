@@ -29,6 +29,17 @@ regularizable leaves, with a ``count`` of its own). A layer's parameters may
 nest (``"attn"``, ``"stack"``): they, their gradients and their moments are
 walked in :func:`tree_leaves` order. :func:`reg_score` is the l1/l2 penalty
 the networks add to their loss (JAX ``_reg_score``).
+
+Where the count lives decides how the count-dependent scalars are formed.
+On the CPU it is a host tensor, and the bias corrections and schedule
+values are host floats, as before (the CPU tests hold these against optax).
+On a CUDA device the count is a 0-d int32 tensor there, as optax keeps it,
+and the scalars are 0-d device tensors computed from it: a step reads
+nothing back from the card, and a captured CUDA graph of it reads the
+count of each replay instead of the one it was captured with. The eager
+and the captured steps on the card take this same path, so they compute
+alike (a division by a device tensor is a true division; by a host float
+PyTorch multiplies by the reciprocal).
 """
 
 from __future__ import annotations
@@ -51,23 +62,49 @@ def register_updater(cls):
     return cls
 
 
-def _zero_count() -> torch.Tensor:
-    """A 0-d int32 step count. It stays on the host, so the bias
-    corrections and schedule values are host scalars and a step reads
-    nothing back from the device."""
-    return torch.zeros((), dtype=torch.int32)
+def _zero_count(device=None) -> torch.Tensor:
+    """A 0-d int32 step count, on ``device`` (the parameters'): on the CPU
+    the bias corrections and schedule values are host scalars; on a CUDA
+    device they are formed there (module docstring)."""
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def _increment(count: torch.Tensor) -> int:
-    """optax ``safe_increment`` of a count, in place; returns the new value."""
+def _device_of(params) -> Optional[torch.device]:
+    leaves = tree_leaves(params)
+    return leaves[0].device if leaves and isinstance(leaves[0], torch.Tensor) else None
+
+
+def _increment(count: torch.Tensor):
+    """optax ``safe_increment`` of a count, in place; returns the new value:
+    a Python int for a host count, the count tensor itself on a device."""
+    if count.is_cuda:
+        count.copy_(torch.where(count < _INT32_MAX, count + 1, count))
+        return count
     n = min(int(count) + 1, _INT32_MAX)
     count.fill_(n)
     return n
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay ** count`` in float32, as jnp forms it."""
+def _next(count):
+    """``count + 1`` saturated at int32's maximum (Nadam's look-ahead)."""
+    if isinstance(count, torch.Tensor):
+        return torch.where(count < _INT32_MAX, count + 1, count)
+    return min(count + 1, _INT32_MAX)
+
+
+def _bias_correction(decay: float, count):
+    """``1 - decay ** count`` in float32, as jnp forms it: a host float for a
+    host count, a 0-d float32 tensor on the count's device otherwise."""
+    if isinstance(count, torch.Tensor):
+        base = torch.full((), decay, dtype=torch.float32, device=count.device)
+        return 1.0 - torch.pow(base, count)
     return float(_ONE - torch.tensor(decay, dtype=torch.float32) ** count)
+
+
+def _scalar(v):
+    """A schedule's value as the step uses it: a host float from a host
+    tensor, the 0-d device tensor as it is."""
+    return v if v.is_cuda else float(v)
 
 
 def _moment(moments, term, decay: float) -> None:
@@ -106,7 +143,7 @@ class Updater:
         package's ``jax.tree.leaves(opt_state)`` order; None when there is
         none."""
         inner = self._init(params)
-        return (inner, _zero_count()) if self._scheduled() else inner
+        return (inner, _zero_count(_device_of(params))) if self._scheduled() else inner
 
     def update(self, grads: List[torch.Tensor], state: Any,
                params: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -115,7 +152,7 @@ class Updater:
         advanced in place."""
         if self._scheduled():
             state, count = state
-            neg_lr = -float(self.learning_rate(count))
+            neg_lr = -_scalar(self.learning_rate(count))
             _increment(count)
         else:
             neg_lr = -self._lr()
@@ -177,7 +214,8 @@ class Adam(Updater):
     epsilon: float = 1e-8
 
     def _init(self, params):
-        return {"count": _zero_count(), "mu": tree_map(torch.zeros_like, params),
+        return {"count": _zero_count(_device_of(params)),
+                "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
     def _moments(self, grads, state):
@@ -254,7 +292,7 @@ class Nadam(Adam):
     def _direction(self, grads, state, params):
         mu, nu, count = self._moments(grads, state)
         updates = torch._foreach_div(
-            mu, _bias_correction(self.beta1, min(count + 1, _INT32_MAX)))
+            mu, _bias_correction(self.beta1, _next(count)))
         torch._foreach_mul_(updates, self.beta1)
         now = torch._foreach_div(grads, _bias_correction(self.beta1, count))
         torch._foreach_mul_(now, 1.0 - self.beta1)
@@ -467,13 +505,13 @@ class WeightDecay:
     lr: Any  # float or Schedule
     mask: List[bool]
 
-    def init_state(self) -> Dict[str, torch.Tensor]:
-        return {"count": _zero_count()}
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        return {"count": _zero_count(device)}
 
     def apply(self, updates, params, state) -> None:
         count = state["count"]
         if isinstance(self.lr, Schedule):
-            scale = float(self.lr(count) * self.wd)
+            scale = _scalar(self.lr(count) * self.wd)
         else:
             scale = self.lr * self.wd
         count.add_(1)
@@ -506,7 +544,7 @@ class NetworkOptimizer:
         for k, upd in transforms.items():
             st = upd.init_state(params[k])
             if k in self.decay:
-                st = (st, self.decay[k].init_state())
+                st = (st, self.decay[k].init_state(_device_of(params[k])))
             if st is not None:
                 self.state[k] = st
 
