@@ -245,6 +245,28 @@ the card and exits nonzero if any phase fails:
             ``GradientCheckUtil`` in float64 on the card: conv +
             BatchNormalization + dense passes, an LSTM net raises by the
             kernels' dtype rule. Then the graphs captured and replayed.
+8. parallel: (after ``runtime``; ``--parallel`` runs the build and this
+            phase only) config #5 over meshes that repeat cuda:0, one
+            process driving every replica. ``ParallelWrapper`` on
+            ``Bert.base()`` (dropout 0, Adam(2e-5), bf16 over fp32 weights,
+            10 steps of ``bert_synthetic_batch(64, 128, 30522, seed=1)``)
+            data parallel, FSDP and tensor parallel over 2 x cuda:0: 2 x 12
+            saving forwards, dq and dk/dv a step (one set per replica or
+            tensor piece) and nothing else, step ms, samples/s, peak memory,
+            a device-busy breakdown of a data-parallel step; each plan's
+            ``compose()`` twin bit for bit (deterministic kernels on); data
+            parallel's losses and weights against the net's own fit. The
+            pipe plans on ``bench_parallel``'s net over 8 x cuda:0:
+            ``compose(data=2, pipe=4)`` at microbatches 1 bit for bit
+            against data=2, at 4 within 2e-5. The distributed trainer at
+            ``bench_distributed``'s shape: world-2 loopback, then two
+            processes over gloo both computing on cuda:0, at threshold 0 and
+            1e-3, bit for bit against loopback, the encoded bytes >= 5x
+            smaller than dense, the encode/exchange/decode/apply split; then
+            world-2 loopback on ``Bert.base()`` at 1e-3 (the codec at 110M
+            parameters). Ring attention over seq=4 x cuda:0 at (1, 12, 4096,
+            64) bf16 against a dense fp32 softmax (<= 0.05), causal and not.
+            One card measures no scaling: the replicas run one after another.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -598,6 +620,82 @@ RUNTIME_SD_STEPS, RUNTIME_UNROLL, RUNTIME_REL_TOL = 48, 4, 1e-6
 RUNTIME_BERT_FITS, RUNTIME_DROP_BAND = 5, (0.08, 0.12)
 RUNTIME_FT_BATCHES, RUNTIME_FT_EVERY, RUNTIME_FT_FAULT = 30, 10, 17
 RUNTIME_ES_EPOCHS = 3
+# The parallel phase (config #5). ParallelWrapper on Bert.base() (dropout 0,
+# Adam(2e-5), bf16 compute over fp32 weights) for PAR_STEPS steps of one
+# bert_synthetic_batch(64, 128, 30522, seed=1), over a mesh that repeats
+# cuda:0 PAR_WAYS times: data parallel, FSDP and tensor parallel, each beside
+# its compose() twin (bit for bit), data parallel against the net's own fit
+# (losses within BERT_TRAIN_TOL; weights within PAR_WEIGHT_TOL = 2 x steps x
+# lr, the most Adam can move a weight apart in that many steps). The pipe
+# plans on bench_parallel's net (5 x Dense(64, tanh) from 32 features -> 8,
+# Sgd(0.05), PAR_PIPE_STEPS batches of 64) over 8 x cuda:0. The distributed
+# trainer at bench_distributed's shape (PAR_DIST_* : 512 features, Dense 512
+# relu -> 8, Sgd(0.1), local batch 256, world 2): loopback, then two
+# processes over gloo computing on cuda:0, at threshold 0 and 1e-3; then
+# world-2 loopback on Bert.base() at 1e-3 for PAR_DIST_BERT_STEPS steps.
+# Ring attention over seq=4 x cuda:0 at PAR_RING_SHAPE bf16 against a dense
+# fp32 softmax within PAR_RING_TOL (bench.py's attention limit).
+PAR_WAYS, PAR_STEPS = 2, 10
+PAR_WEIGHT_TOL = 2 * PAR_STEPS * 2e-5
+PAR_PIPE_STEPS, PAR_PIPE_TOL = 12, dict(rtol=2e-5, atol=1e-6)
+PAR_DIST_FEATURES, PAR_DIST_HIDDEN, PAR_DIST_LOCAL_B, PAR_DIST_STEPS = 512, 512, 256, 8
+PAR_DIST_BERT_STEPS, PAR_DIST_MIN_RATIO = 3, 5.0
+PAR_RING_SHAPE, PAR_RING_TOL = (1, 12, 4096, 64), 0.05
+
+# The distributed trainer's worker, one process per rank, both on cuda:0:
+# argv rank world port threshold steps local_batch features hidden.
+DIST_WORKER = r"""
+import hashlib, json, os, sys, time
+import numpy as np
+
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+threshold, steps, local_b = float(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6])
+features, hidden = int(sys.argv[7]), int(sys.argv[8])
+
+import torch
+from deeplearning4j_tpu_torch.runtime.environment import get_environment
+get_environment().set_device("cuda:0").set_compute_dtype("float32")
+torch.backends.cuda.matmul.allow_tf32 = False
+from deeplearning4j_tpu_torch.runtime.mesh import initialize_multihost
+initialize_multihost(f"127.0.0.1:{port}", world, rank)
+from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn import DenseLayer, InputType, NeuralNetConfiguration, OutputLayer
+from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+from deeplearning4j_tpu_torch.train import Sgd
+from deeplearning4j_tpu_torch.train.distributed import DistributedConfig, DistributedTrainer
+
+conf = (NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.1)).list()
+        .layer(DenseLayer(n_out=hidden, activation="relu"))
+        .layer(OutputLayer(n_out=8, activation="softmax"))
+        .set_input_type(InputType.feed_forward(features)).build())
+try:
+    net = MultiLayerNetwork(conf).init()
+    tr = DistributedTrainer(net, DistributedConfig(threshold=threshold))
+    B = world * local_b
+    t0 = None
+    for i in range(steps + 2):
+        if i == 2:  # after the eager warm-up step and the capture
+            torch.cuda.synchronize()
+            tr.reset_stats()
+            t0 = time.perf_counter()
+        brng = np.random.default_rng(1000 + i)
+        x = brng.normal(0, 1, (B, features)).astype(np.float32)
+        y = np.eye(8, dtype=np.float32)[brng.integers(0, 8, B)]
+        tr.step(x, y)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+except BaseException as e:  # noqa: BLE001
+    print(f"WORKER-FAILED {type(e).__name__}: {e}", flush=True)
+    os._exit(17)  # the peer sees an exit code, not a stalled collective
+h = hashlib.sha256()
+for t in tree_leaves(net.params()):
+    h.update(t.detach().cpu().numpy().tobytes())
+rep = tr.stats.report()
+print("RES" + json.dumps({"losses": tr.losses, "phash": h.hexdigest(),
+                          "steps_per_sec": steps / elapsed, "report": rep}), flush=True)
+os._exit(0)
+"""
+
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 without
 # tensor cores, memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -999,6 +1097,7 @@ class Smoke:
         self.bert_p50_ms = None  # one 64-row BERT-base request, p50
         self.resnet_step_ms = None  # median step ms of the resnet phase
         self.resnet_conv_stats_ms = None  # conv_stats' device ms in one resnet step
+        self.card = ""  # nvidia-smi's name and power limit, beside every number
 
     def check(self, ok, what):
         log(("ok   " if ok else "FAIL ") + what)
@@ -3448,6 +3547,338 @@ class Smoke:
                        f"vs CPU {' '.join(f'{v:.6f}' for v in w)}: max_abs_err={err:.3g} "
                        f"tol={LENET_TOL:g}")
 
+    # ------------------------------------------------------------ parallel
+    def parallel_phase(self, workdir):
+        """Config #5 on the card (``ParallelWrapper`` over a mesh that
+        repeats cuda:0, the pipe plans, the distributed trainer over gloo,
+        ring attention); each part a phase of its own."""
+        for name, part in (("wrapper", self.parallel_wrapper),
+                           ("pipe", self.parallel_pipe),
+                           ("distributed", lambda: self.parallel_distributed(workdir)),
+                           ("ring attention", self.parallel_ring)):
+            self.phase(f"parallel {name}", part)
+
+    def par_bert_fit(self, init, plan):
+        """10 steps of Bert.base() from ``init`` on the synthetic batch, by
+        the net's own ``fit`` (``plan`` None) or a ``ParallelWrapper``:
+        ``(losses, [start] + step stamps, net, wrapper, flash counts, wall
+        s)``."""
+        from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+        from deeplearning4j_tpu_torch.imports.tf_oracles import bert_synthetic_batch
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import Bert
+        torch = self.torch
+        ids, _, mask, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
+        ds = DataSet(ids, labels, features_mask=mask.astype("float32"))
+        net = MultiLayerNetwork(Bert.base(dropout_rate=0.0).conf(), device=self.device).init(
+            params=clone_tree(init))
+        scores, stamps = CollectScoresListener(), []
+        net.set_listeners(scores, StepStamps(stamps))
+        pw = None if plan is None else ParallelWrapper(net, plan)
+        counters = all_counters()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        (net if pw is None else pw).fit(ListDataSetIterator([ds] * PAR_STEPS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        flash = {c.name for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter)}
+        others = {k: v for k, v in counts.items() if k not in flash and v}
+        self.check(not others, f"parallel: only the flash kernels launched ({others or 'none'})")
+        return [v for _, v in scores.scores], [t0] + stamps, net, pw, \
+            {k: counts[k] for k in sorted(flash)}, wall
+
+    def parallel_wrapper(self):
+        """ParallelWrapper on BERT-base over PAR_WAYS x cuda:0: data
+        parallel, FSDP and tensor parallel, each beside its compose() twin;
+        data parallel against the net's own fit; flash launches per replica
+        counted; step ms, samples/s, busy share, peak memory."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.parallel import ParallelPlan
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.runtime.mesh import create_mesh
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        from deeplearning4j_tpu_torch.zoo import Bert
+        env = get_environment()
+        env.allow_bfloat16()
+        # the embedding's backward accumulates by atomics unless asked not to:
+        # a bitwise comparison needs the deterministic kernels
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        devs = [str(self.device)] * PAR_WAYS
+        try:
+            init = Bert.base(dropout_rate=0.0).init(device=self.device).params()
+            own_l, _, own, _, _, _ = self.par_bert_fit(init, None)
+            own_w = [t.detach().clone() for t in tree_leaves(own.params())]
+            del own
+            plans = {
+                "data_parallel": (lambda: ParallelPlan.data_parallel(create_mesh(devices_=devs)),
+                                  lambda: ParallelPlan.compose(data=PAR_WAYS, devices_=devs)),
+                "fsdp": (lambda: ParallelPlan.fsdp(create_mesh(devices_=devs)),
+                         lambda: ParallelPlan.compose(fsdp=PAR_WAYS, devices_=devs)),
+                "tensor_parallel": (lambda: ParallelPlan.tensor_parallel(create_mesh(
+                    {"data": 1, "model": PAR_WAYS}, devices_=devs)),
+                                    lambda: ParallelPlan.compose(tensor=PAR_WAYS, devices_=devs))}
+            for kind, (factory, composed) in plans.items():
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                losses, stamps, net, pw, counts, wall = self.par_bert_fit(init, factory())
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                want = PAR_WAYS * BERT_LAYERS * PAR_STEPS
+                self.check(all(v == want for v in counts.values()),
+                           f"parallel {kind}: flash launches over {PAR_STEPS} steps {counts} "
+                           f"(expected {want} each: {PAR_WAYS} x 12 a step)")
+                for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
+                    row = self.kernels.setdefault(c.name, {})
+                    row["launches"] = row.get("launches", 0) + counts[c.name]
+                step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:]))
+                med = step_ms[len(step_ms) // 2]
+                log(f"parallel {kind} ({PAR_WAYS} x {self.device}, {self.card}): "
+                    f"{PAR_STEPS} steps of B={BERT_B} T={BERT_T} bf16 in {wall:.3f} s; step ms "
+                    f"after the first: median {med:.2f} (min {step_ms[0]:.2f}, max "
+                    f"{step_ms[-1]:.2f}); {BERT_B / med * 1e3:.0f} samples/s; first step "
+                    f"{1e3 * (stamps[1] - stamps[0]):.1f} ms; peak memory "
+                    f"{peak:.2f} GiB; losses " + " ".join(f"{v:.4f}" for v in losses))
+                finite = len(losses) == PAR_STEPS and all(np.isfinite(v) for v in losses)
+                self.check(finite, f"parallel {kind}: {PAR_STEPS} finite losses")
+                weights = [t.detach().clone() for t in tree_leaves(net.params())]
+                if kind == "data_parallel":
+                    err = max(abs(a - b) for a, b in zip(losses, own_l))
+                    werr = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(tree_leaves(net.params()), own_w))
+                    self.check(err <= BERT_TRAIN_TOL["bfloat16"] and werr <= PAR_WEIGHT_TOL,
+                               f"parallel data_parallel vs the net's own fit: losses "
+                               f"max_abs_err={err:.3g} (tol {BERT_TRAIN_TOL['bfloat16']:g}), "
+                               f"weights max_abs_err={werr:.3g} (tol {PAR_WEIGHT_TOL:g}); own "
+                               + " ".join(f"{v:.4f}" for v in own_l))
+                    x = pw.model  # one more step, replayed, under the profiler
+                    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+                    from deeplearning4j_tpu_torch.imports.tf_oracles import bert_synthetic_batch
+                    ids, _, mask, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
+                    one = ListDataSetIterator([DataSet(ids, labels,
+                                                       features_mask=mask.astype("float32"))])
+                    x.set_listeners()
+                    self.device_breakdown(lambda: pw.fit(one), f"parallel {kind} step", reps=3,
+                                          step_ms=med)
+                del net, pw
+                torch.cuda.empty_cache()
+                l2, _, net2, _, _, _ = self.par_bert_fit(init, composed())
+                same = l2 == losses and all(
+                    bool(torch.equal(a, b)) for a, b in zip(weights, tree_leaves(net2.params())))
+                self.check(same, f"parallel compose twin of {kind}: losses and weights bit for "
+                                 f"bit ({' '.join(f'{v:.4f}' for v in l2)})")
+                del net2, weights
+        finally:
+            torch.use_deterministic_algorithms(False)
+            env.set_compute_dtype("float32")
+            torch.cuda.empty_cache()
+
+    def parallel_pipe(self):
+        """bench_parallel's net over 8 x cuda:0: compose(data=2, pipe=4) at
+        microbatches 1 bit for bit against data=2, at 4 within
+        PAR_PIPE_TOL."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import NumpyDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn import (DenseLayer, InputType, NeuralNetConfiguration,
+                                                 OutputLayer)
+        from deeplearning4j_tpu_torch.parallel import ParallelPlan, ParallelWrapper
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.runtime.mesh import MeshSpec, create_mesh
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        from deeplearning4j_tpu_torch.train import Sgd
+        get_environment().set_compute_dtype("float32")
+        b = NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.05)).list()
+        for _ in range(5):
+            b = b.layer(DenseLayer(n_out=64, activation="tanh"))
+        conf = (b.layer(OutputLayer(n_out=8, activation="softmax"))
+                .set_input_type(InputType.feed_forward(32)).build())
+        rng = np.random.default_rng(20)
+        n = 64 * PAR_PIPE_STEPS
+        X = rng.normal(0, 1, (n, 32)).astype(np.float32)
+        Y = np.eye(8, dtype=np.float32)[rng.integers(0, 8, n)]
+        devs = [str(self.device)] * 8
+
+        def run(plan):
+            net = MultiLayerNetwork(conf, device=self.device).init()
+            pw = ParallelWrapper(net, plan, prefetch_buffer=0)
+            pw.fit(NumpyDataSetIterator(X, Y, batch_size=64))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pw.fit(NumpyDataSetIterator(X, Y, batch_size=64))
+            torch.cuda.synchronize()
+            sps = PAR_PIPE_STEPS / (time.perf_counter() - t0)
+            return torch.cat([t.detach().reshape(-1) for t in tree_leaves(net.params())]), sps
+
+        ref, ref_sps = run(ParallelPlan.data_parallel(create_mesh(MeshSpec({"data": 2}),
+                                                                  devices_=devs[:2])))
+        m1, m1_sps = run(ParallelPlan.compose(data=2, pipe=4, microbatches=1, devices_=devs))
+        m4, m4_sps = run(ParallelPlan.compose(data=2, pipe=4, microbatches=4, devices_=devs))
+        log(f"parallel pipe ({self.card}): steps/s (2 fits of {PAR_PIPE_STEPS} batches of 64, "
+            f"the second timed) data=2 {ref_sps:.1f}, data=2 x pipe=4 microbatches 1 "
+            f"{m1_sps:.1f}, microbatches 4 {m4_sps:.1f}")
+        self.check(bool(torch.equal(ref, m1)),
+                   "parallel pipe: compose(data=2, pipe=4, microbatches=1) bit for bit "
+                   "against data=2")
+        err = float((ref - m4).abs().max())
+        self.check(bool(torch.allclose(m4, ref, **PAR_PIPE_TOL)),
+                   f"parallel pipe: microbatches=4 against data=2, max_abs_err={err:.3g} "
+                   f"(rtol {PAR_PIPE_TOL['rtol']:g}, atol {PAR_PIPE_TOL['atol']:g})")
+
+    def parallel_distributed(self, workdir):
+        """bench_distributed's shape: world-2 loopback, then two gloo
+        processes computing on cuda:0, at threshold 0 and 1e-3 (bit for bit
+        against loopback; encoded bytes >= PAR_DIST_MIN_RATIO x smaller);
+        then world-2 loopback on BERT-base at 1e-3."""
+        import hashlib
+
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn import (DenseLayer, InputType, NeuralNetConfiguration,
+                                                 OutputLayer)
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        from deeplearning4j_tpu_torch.train import Sgd
+        from deeplearning4j_tpu_torch.train.distributed import (DistributedConfig,
+                                                                DistributedSupervisor,
+                                                                DistributedTrainer,
+                                                                kill_stray_workers)
+        from deeplearning4j_tpu_torch.zoo import Bert
+        env = get_environment()
+        env.set_compute_dtype("float32")
+        conf = (NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.1)).list()
+                .layer(DenseLayer(n_out=PAR_DIST_HIDDEN, activation="relu"))
+                .layer(OutputLayer(n_out=8, activation="softmax"))
+                .set_input_type(InputType.feed_forward(PAR_DIST_FEATURES)).build())
+        B = 2 * PAR_DIST_LOCAL_B
+
+        def loopback(threshold):
+            net = MultiLayerNetwork(conf, device=self.device).init()
+            tr = DistributedTrainer(net, DistributedConfig(threshold=threshold), world=2,
+                                    rank=None)
+            for i in range(PAR_DIST_STEPS + 2):
+                brng = np.random.default_rng(1000 + i)
+                tr.step(brng.normal(0, 1, (B, PAR_DIST_FEATURES)).astype(np.float32),
+                        np.eye(8, dtype=np.float32)[brng.integers(0, 8, B)])
+            h = hashlib.sha256()
+            for t in tree_leaves(net.params()):
+                h.update(t.detach().cpu().numpy().tobytes())
+            return tr.losses, h.hexdigest()
+
+        wfile = os.path.join(workdir, "dist_worker.py")
+        with open(wfile, "w") as f:
+            f.write(DIST_WORKER)
+        try:
+            for threshold in (0.0, 1e-3):
+                oracle_l, oracle_h = loopback(threshold)
+                sup = DistributedSupervisor(
+                    lambda rank, port: [sys.executable, wfile, str(rank), "2", port,
+                                        str(threshold), str(PAR_DIST_STEPS),
+                                        str(PAR_DIST_LOCAL_B), str(PAR_DIST_FEATURES),
+                                        str(PAR_DIST_HIDDEN)],
+                    num_processes=2, heartbeat_files=[], max_restarts=0)
+                t0 = time.perf_counter()
+                outs = sup.run(round_timeout_s=240)
+                wall = time.perf_counter() - t0
+                res = []
+                for out, err in outs:
+                    line = [l for l in out.splitlines() if l.startswith("RES")]
+                    self.check(bool(line), f"parallel distributed worker result "
+                                           f"({(out + err)[-600:]!r})")
+                    if line:
+                        res.append(json.loads(line[0][3:]))
+                if len(res) != 2:
+                    continue
+                rep = res[0]["report"]
+                ratio = rep["dense_bytes_per_step"] / max(1.0, rep["comms_bytes_per_step"])
+                log(f"parallel distributed threshold={threshold:g} (2 processes on "
+                    f"{self.device} over gloo, {self.card}): {res[0]['steps_per_sec']:.2f} "
+                    f"steps/s of global batch {B}; encode {rep['encode_mean_ms']:.3f} ms, "
+                    f"exchange {rep['exchange_mean_ms']:.3f} ms, decode "
+                    f"{rep['decode_mean_ms']:.3f} ms, apply {rep['apply_mean_ms']:.3f} ms a "
+                    f"step; {rep['comms_bytes_per_step']:.0f} bytes a step on the wire against "
+                    f"{rep['dense_bytes_per_step']:.0f} dense ({ratio:.2f}x); group wall "
+                    f"{wall:.1f} s with start-up")
+                self.check(res[0]["losses"] == res[1]["losses"] == oracle_l
+                           and res[0]["phash"] == res[1]["phash"] == oracle_h,
+                           f"parallel distributed threshold={threshold:g}: both processes bit "
+                           f"for bit against the loopback oracle "
+                           f"({' '.join(f'{v:.4f}' for v in oracle_l[:3])} ...)")
+                if threshold > 0:
+                    self.check(ratio >= PAR_DIST_MIN_RATIO,
+                               f"parallel distributed: encoded bytes {ratio:.2f}x smaller than "
+                               f"dense (must be >= {PAR_DIST_MIN_RATIO:g})")
+        finally:
+            kill_stray_workers()
+
+        # the codec at 110M parameters: BERT-base, world-2 loopback
+        from deeplearning4j_tpu_torch.imports.tf_oracles import bert_synthetic_batch
+        env.allow_bfloat16()
+        try:
+            net = MultiLayerNetwork(Bert.base(dropout_rate=0.0).conf(), device=self.device).init()
+            tr = DistributedTrainer(net, DistributedConfig(threshold=1e-3), world=2, rank=None)
+            ids, _, _, labels = bert_synthetic_batch(BERT_B, BERT_T, BERT_VOCAB, seed=1)
+            tr.step(ids, labels)  # rank 0 warms up, rank 1 captures
+            torch.cuda.synchronize()
+            tr.reset_stats()
+            t0 = time.perf_counter()
+            for _ in range(PAR_DIST_BERT_STEPS):
+                tr.step(ids, labels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = tr.stats.report()
+            log(f"parallel distributed Bert.base() world 2 loopback threshold 1e-3 "
+                f"({self.card}): {PAR_DIST_BERT_STEPS} steps after the capture in {wall:.2f} s; "
+                f"{net.num_params()} parameters; encode {rep['encode_mean_ms']:.1f} ms a rank "
+                f"(2 a step), decode {rep['decode_mean_ms']:.1f} ms and apply "
+                f"{rep['apply_mean_ms']:.1f} ms a step; {rep['comms_bytes_per_step']:.0f} bytes a step "
+                f"against {rep['dense_bytes_per_step']:.0f} dense; losses "
+                + " ".join(f"{v:.4f}" for v in tr.losses))
+            self.check(len(tr.losses) == PAR_DIST_BERT_STEPS + 1
+                       and all(np.isfinite(v) for v in tr.losses),
+                       f"parallel distributed Bert.base(): {PAR_DIST_BERT_STEPS} finite losses")
+            del net, tr
+        finally:
+            env.set_compute_dtype("float32")
+            torch.cuda.empty_cache()
+
+    def parallel_ring(self):
+        """sequence_parallel_attention over seq=4 x cuda:0 at PAR_RING_SHAPE
+        bf16 against a dense fp32 softmax."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.parallel import sequence_parallel_attention
+        from deeplearning4j_tpu_torch.runtime.mesh import create_mesh
+        mesh = create_mesh({"seq": 4}, devices_=[str(self.device)] * 4)
+        g = torch.Generator(device=self.device).manual_seed(11)
+        q, k, v = (torch.randn(PAR_RING_SHAPE, generator=g, device=self.device,
+                               dtype=torch.bfloat16) for _ in range(3))
+        d = PAR_RING_SHAPE[-1]
+        for causal in (False, True):
+            out = sequence_parallel_attention(q, k, v, mesh, causal=causal)
+            s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+            if causal:
+                t = PAR_RING_SHAPE[2]
+                s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool,
+                                              device=self.device).tril(), float("-inf"))
+            ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.float())
+            err = float((out.float() - ref).abs().max())
+            del s, ref
+            ms = cuda_ms(lambda: sequence_parallel_attention(q, k, v, mesh, causal=causal), 5)
+            log(f"parallel ring attention causal={causal} at {PAR_RING_SHAPE} bf16 over seq=4 x "
+                f"{self.device} ({self.card}): {ms:.2f} ms a call (CUDA events)")
+            self.check(err <= PAR_RING_TOL and out.dtype == torch.bfloat16,
+                       f"parallel ring attention causal={causal}: max_abs_err={err:.3g} against "
+                       f"a dense fp32 softmax (tol {PAR_RING_TOL:g})")
+        torch.cuda.empty_cache()
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -4028,6 +4459,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     smoke = Smoke(device)
+    smoke.card = card
     t0 = time.perf_counter()
     smoke.phase("build", smoke.build)
     if smoke.failures:
@@ -4096,6 +4528,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--parallel"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.parallel_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -4123,6 +4565,7 @@ def main() -> int:
         smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
         smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
         smoke.runtime_phase(workdir)
+        smoke.parallel_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

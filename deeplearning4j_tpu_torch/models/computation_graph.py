@@ -615,6 +615,13 @@ class ComputationGraph:
             self._runtime_cache["__step__"] = fn
         return fn
 
+    def _replica_loss(self, params, args, generator):
+        """One replica's training loss, for the sharded step of
+        ``parallel/sharding.py``: ``args`` are ``(inputs, labels, masks)``
+        on the replica's device; returns ``(loss, new_state)``."""
+        inputs, labels, masks = args
+        return self._loss(params, self._model_state, inputs, labels, generator, masks)
+
     _state_tree = MultiLayerNetwork._state_tree
     _set_state_tree = MultiLayerNetwork._set_state_tree
     _seed_device_generator = MultiLayerNetwork._seed_device_generator

@@ -509,6 +509,15 @@ class MultiLayerNetwork:
             self._runtime_cache["__step__"] = fn
         return fn
 
+    def _replica_loss(self, params, args, generator):
+        """One replica's training loss on its rows, for the sharded step of
+        ``parallel/sharding.py``: ``args`` are ``(x, y, fm, lm)`` on the
+        replica's device, ``params`` its tree; returns ``(loss,
+        new_state)``."""
+        x, y, fm, lm = args
+        loss, new_state, _ = self._loss(params, self._model_state, x, y, generator, fm, lm)
+        return loss, new_state
+
     def _state_tree(self):
         return {"params": self._params, "opt": self._ensure_optimizer().state,
                 "state": self._model_state}

@@ -27,6 +27,7 @@ from deeplearning4j_tpu_torch.ops.activations import get_activation, single_pass
 from deeplearning4j_tpu_torch.ops.initializers import init_weights
 from deeplearning4j_tpu_torch.ops.kernels.flash_attention import (flash_attention,
                                                                   flash_attention_compatible)
+from deeplearning4j_tpu_torch.nn.tensor_shards import TensorShards, rank_sum, to_device
 
 
 def layer_norm(x, gamma, beta, eps=1e-12):
@@ -108,6 +109,8 @@ class SelfAttentionLayer(Layer):
         return params, {}
 
     def forward(self, params, state, x, *, training=False, generator=None, mask=None):
+        if isinstance(params["W_q"], TensorShards):
+            return self._forward_sharded(params, x, mask), state
         b, t, _ = x.shape
         h = self.n_heads
         # (b, t, h*d) -> (b, h, t, d) views: the kernel reads them through
@@ -121,6 +124,32 @@ class SelfAttentionLayer(Layer):
         if self.with_projection:
             y = y @ params["W_o"] + params["b_o"]
         return y, state
+
+    def _forward_sharded(self, params, x, mask):
+        """Tensor-parallel attention: ``W_q``/``W_k``/``W_v`` (and their
+        biases) split by columns, ``W_o`` by rows, in ``k`` pieces; piece
+        ``j``'s device runs heads ``j * h/k .. (j+1) * h/k`` and its rows of
+        the output projection, and the partial outputs are summed on ``x``'s
+        device in piece order before ``b_o``."""
+        b, t, _ = x.shape
+        shards = params["W_q"]
+        k = len(shards)
+        if self.n_heads % k:
+            raise ValueError(f"SelfAttentionLayer: {self.n_heads} heads do not split over a "
+                             f"tensor-parallel group of {k}")
+        h = self.n_heads // k
+        parts = []
+        for j, dev in enumerate(shards.devices):
+            xj = to_device(x, dev)
+            mj = None if mask is None else to_device(mask, dev)[:, None, None, :].bool()
+            q, kk, v = ((xj @ params[f"W_{n}"].piece(j, x.dtype)
+                         + params[f"b_{n}"].piece(j, x.dtype)).reshape(b, t, h, -1).transpose(1, 2)
+                        for n in "qkv")
+            y = dot_product_attention(q, kk, v, mj).transpose(1, 2).reshape(b, t, -1)
+            parts.append(y @ params["W_o"].piece(j, x.dtype) if self.with_projection else y)
+        if not self.with_projection:
+            return torch.cat([p.to(x.device) for p in parts], dim=-1)
+        return rank_sum(parts, x.device) + params["b_o"]
 
 
 @register_layer
@@ -163,11 +192,26 @@ class TransformerEncoderBlock(Layer):
         a, _ = self._attn().forward(params["attn"], {}, x, mask=mask)
         x = layer_norm(x + _dropout(a, self.dropout_rate, training, generator),
                        params["ln1_gamma"], params["ln1_beta"], self.layer_norm_eps)
-        h = get_activation("gelu")(x @ params["W_ff1"] + params["b_ff1"])
-        h = h @ params["W_ff2"] + params["b_ff2"]
+        if isinstance(params["W_ff1"], TensorShards):
+            h = self._ffn_sharded(params, x)
+        else:
+            h = get_activation("gelu")(x @ params["W_ff1"] + params["b_ff1"])
+            h = h @ params["W_ff2"] + params["b_ff2"]
         x = layer_norm(x + _dropout(h, self.dropout_rate, training, generator),
                        params["ln2_gamma"], params["ln2_beta"], self.layer_norm_eps)
         return x, state
+
+    def _ffn_sharded(self, params, x):
+        """Tensor-parallel FFN: ``W_ff1``/``b_ff1`` split by columns,
+        ``W_ff2`` by rows; the partial products summed in piece order on
+        ``x``'s device before ``b_ff2``."""
+        shards = params["W_ff1"]
+        parts = []
+        for j, dev in enumerate(shards.devices):
+            hj = get_activation("gelu")(to_device(x, dev) @ shards.piece(j, x.dtype)
+                                        + params["b_ff1"].piece(j, x.dtype))
+            parts.append(hj @ params["W_ff2"].piece(j, x.dtype))
+        return rank_sum(parts, x.device) + params["b_ff2"]
 
     def regularizable_params(self):
         return ("W_ff1", "W_ff2")

@@ -1,7 +1,7 @@
 """Runtime substrate: environment, RNG, the kernels' build cache and
 captured-graph dispatch, state packing, profiling, tracing, the event
-journal and fault injection (counterpart of ``deeplearning4j_tpu.runtime``;
-its mesh discovery belongs to the parallel slice and is not ported)."""
+journal, fault injection and meshes (counterpart of
+``deeplearning4j_tpu.runtime``)."""
 
 from deeplearning4j_tpu_torch.runtime import chaos, compile_cache, journal, trace
 from deeplearning4j_tpu_torch.runtime.chaos import (
@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.runtime.chaos import (
 )
 from deeplearning4j_tpu_torch.runtime.compile_cache import AotCache
 from deeplearning4j_tpu_torch.runtime.environment import Environment, get_environment
+from deeplearning4j_tpu_torch.runtime.mesh import Mesh, MeshSpec, create_mesh
 from deeplearning4j_tpu_torch.runtime.profiler import ExchangeStats, OpProfiler, ProfilerConfig
 # as in the JAX package: the package-level name ``trace`` is the
 # distributed-tracing module, the device-trace context manager is
@@ -43,6 +44,9 @@ __all__ = [
     "HangUntilCancelled",
     "Environment",
     "get_environment",
+    "Mesh",
+    "MeshSpec",
+    "create_mesh",
     "RngManager",
     "OpProfiler",
     "ProfilerConfig",

@@ -1,8 +1,8 @@
 """Training engine: updaters, LR schedules, listeners, the overlapped feed
-path, profiling, checkpoints, fault tolerance, early stopping and gradient
-checks (counterpart of ``deeplearning4j_tpu.train``; the distributed
-trainer belongs to the parallel slice and is not ported, nor are the
-line-search solvers)."""
+path, profiling, checkpoints, fault tolerance, early stopping, gradient
+checks and the distributed trainer with threshold-encoded gradient sharing
+(counterpart of ``deeplearning4j_tpu.train``; the line-search solvers are
+not ported)."""
 
 from deeplearning4j_tpu_torch.train.updaters import (
     AMSGrad,
@@ -57,8 +57,15 @@ from deeplearning4j_tpu_torch.train.early_stopping import (
     MaxTimeIterationTerminationCondition,
     ScoreImprovementEpochTerminationCondition,
 )
+from deeplearning4j_tpu_torch.train.distributed import (
+    DistributedConfig,
+    DistributedSupervisor,
+    DistributedTrainer,
+    ExchangeError,
+)
 
 __all__ = [
+    "DistributedConfig", "DistributedSupervisor", "DistributedTrainer", "ExchangeError",
     "FaultTolerantTrainer",
     "HeartbeatMonitor",
     "TrainingFailure",

@@ -4,6 +4,10 @@
   ``chip_ab.py``, imports ``jax`` or anything of ``deeplearning4j_tpu`` (found by walking
   every ``import`` in their syntax trees, so a lazy import inside a function
   counts too).
+- Nor does any worker script that the port, ``chip_smoke.py`` or the port's
+  tests embed as a string and run in a subprocess (a module-level string
+  constant whose name holds ``WORKER``, concatenations of such constants
+  resolved).
 - With no GPU and no request for the CPU, every entry point raises; with
   the request, the same calls run on the CPU.
 """
@@ -43,6 +47,48 @@ def test_port_file_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def _worker_sources(path):
+    """``{name: source}`` of the module-level worker scripts of ``path``."""
+    consts = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            return node.value
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Add):
+            a, b = value(node.left), value(node.right)
+            return a + b if a is not None and b is not None else None
+        if isinstance(node, ast.Name):
+            return consts.get(node.id)
+        return None
+
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)):
+            v = value(node.value)
+            if v is not None:
+                consts[node.targets[0].id] = v
+    return {k: v for k, v in consts.items() if "WORKER" in k.upper()}
+
+
+WORKER_FILES = [p for p in PORT_FILES + sorted((REPO / "tests").glob("test_torch_*.py"))
+                if _worker_sources(p)]
+
+
+def test_worker_scan_finds_the_embedded_workers():
+    names = {str(p.relative_to(REPO)) for p in WORKER_FILES}
+    assert {"chip_smoke.py", "tests/test_torch_distributed.py", "tests/test_torch_multihost.py",
+            "tests/test_torch_native_codec.py"} <= names, names
+
+
+@pytest.mark.parametrize("path", WORKER_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_embedded_worker_scripts_import_no_jax(path, tmp_path):
+    for name, src in _worker_sources(path).items():
+        probe = tmp_path / f"{name}.py"
+        probe.write_text(src)
+        bad = [m for m in _imported_modules(probe) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.relative_to(REPO)}:{name} imports {bad}"
+
+
 def test_scan_sees_lazy_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("def f():\n    from deeplearning4j_tpu.nn import base\n"
@@ -73,6 +119,7 @@ def _archive(tmp_path):
 
 def _entry_points(path):
     from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.runtime.mesh import create_mesh
     from deeplearning4j_tpu_torch.serving import ModelRegistry
     from deeplearning4j_tpu_torch.zoo import Bert, ResNet50, TextGenerationLSTM
     x = np.zeros((1, 3, 10), np.float32)
@@ -91,6 +138,7 @@ def _entry_points(path):
         "MultiLayerNetwork.load": lambda: MultiLayerNetwork.load(path),
         "ModelSerializer.restore_model": lambda: ModelSerializer.restore_model(path),
         "ModelRegistry.load": lambda: ModelRegistry().load("m", path),
+        "mesh.create_mesh": lambda: create_mesh(),
     }
 
 
@@ -98,7 +146,7 @@ ENTRY_POINTS = ["zoo.init", "zoo.Bert.init", "zoo.ResNet50.init", "MultiLayerNet
                 "MultiLayerNetwork.output",
                 "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.fit",
                 "MultiLayerNetwork.load",
-                "ModelSerializer.restore_model", "ModelRegistry.load"]
+                "ModelSerializer.restore_model", "ModelRegistry.load", "mesh.create_mesh"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
