@@ -267,6 +267,43 @@ the card and exits nonzero if any phase fails:
             parameters). Ring attention over seq=4 x cuda:0 at (1, 12, 4096,
             64) bf16 against a dense fp32 softmax (<= 0.05), causal and not.
             One card measures no scaling: the replicas run one after another.
+9. zoo    : (after ``parallel``; ``--zoo`` runs the build, the conv_stats and
+            recurrent kernel checks and this phase only) the rest of config
+            #2's family. ``YOLO2()`` at the zoo's defaults (80 classes,
+            416x416x3, 5 anchors, Nesterovs(1e-3, 0.9)), bf16 over fp32
+            weights, its gradients renormalized per layer as the reference's
+            YOLO2 trains (the zoo's updater alone diverges on the summed
+            detection loss), trained by ``fit`` for 20 steps at batch 32 on one
+            synthetic detection batch (1-4 objects an image, the JAX label
+            layout): 7 conv_stats launches a step (its plain 1x1
+            convolution + BatchNormalization pairs, named) and nothing else,
+            all ``conv_stats_wgmma_kernel`` by the profiler, conv_stats'
+            share of the step's device time, step ms, img/s, peak memory, a
+            device-busy breakdown, the loss falling, every
+            BatchNormalization's statistics moving, the first 3 losses
+            against the plain conv_stats; the trained net through
+            ``ModelRegistry`` (p50 of 20 sequential 16-row requests, answers
+            against ``net.output``) and one served batch decoded by
+            ``activate_boxes``. Every other zoo CNN at its published input
+            size (SimpleCNN 48, AlexNet, VGG16/19, SqueezeNet and Darknet19
+            224, Xception 299, InceptionResNetV1 160, UNet 128, TinyYOLO
+            416): one forward and 2 ``fit`` steps at batch 2 in fp32 (TF32
+            off), card against CPU from one archive (1e-3 relative; dropout
+            retained at 1.0 in both; for Darknet19, Xception and
+            InceptionResNetV1, whose second loss parts between the CPU's own
+            two convolution paths, a second loss beyond that against the
+            CPU's float64 steps), then its forward ms at batch 32 in bf16. VGG16 (224, bf16) frozen up to its last hidden dense layer
+            with a new 5-class head (``TransferLearning``, Adam(1e-2)), 10
+            steps at batch 32: the loss falls, the frozen layers bit for bit
+            unchanged. Config #3's char-RNN as a ``ComputationGraph`` from
+            the ``MultiLayerNetwork``'s weights: ``rnn_time_step`` in 4
+            chunks of 64 against the whole sequence and against the
+            network's, tBPTT ``fit`` (length 64, 5 windows) against the
+            network's first 3 losses, the LSTM kernels counted. ResNet-50 as
+            the resnet phase trains it, 5 steps with ``set_remat(True)`` and
+            5 without from the same weights: peak memory, step ms,
+            conv_stats launches a step (a recomputed segment's pairs launch
+            again) and the losses.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -642,6 +679,49 @@ PAR_DIST_FEATURES, PAR_DIST_HIDDEN, PAR_DIST_LOCAL_B, PAR_DIST_STEPS = 512, 512,
 PAR_DIST_BERT_STEPS, PAR_DIST_MIN_RATIO = 3, 5.0
 PAR_RING_SHAPE, PAR_RING_TOL = (1, 12, 4096, 64), 0.05
 
+# The zoo phase. YOLO2 at the zoo's defaults (80 classes, 416x416x3, 5
+# anchors, Nesterovs(1e-3, 0.9)), bf16 over fp32 weights, trained by fit at
+# ZOO_YOLO_B on one synthetic detection batch for ZOO_YOLO_STEPS steps:
+# ZOO_YOLO_PAIRS conv_stats launches a step; the first ZOO_CMP_STEPS losses
+# against the plain conv_stats within ZOO_YOLO_TOL; served as 20 sequential
+# ZOO_SERVE_B-row requests, each answer within ZOO_SERVE_TOL of the net's
+# own output (relative to its largest magnitude: the raw predictions are not
+# probabilities).
+ZOO_YOLO_B, ZOO_YOLO_STEPS, ZOO_YOLO_PAIRS, ZOO_CMP_STEPS = 32, 20, 7, 3
+ZOO_YOLO_TOL, ZOO_SERVE_B, ZOO_SERVE_TOL = 2e-2, 16, 1e-3
+# Every other zoo CNN at its published input size: one forward and
+# ZOO_CPU_STEPS training steps at batch ZOO_CPU_B in fp32 (TF32 off), card
+# against the CPU from one archive within ZOO_CPU_TOL relative; forward ms
+# at batch ZOO_FWD_B in bf16.
+ZOO_CNNS = [("SimpleCNN", 48), ("AlexNet", 224), ("VGG16", 224), ("VGG19", 224),
+            ("SqueezeNet", 224), ("Darknet19", 224), ("Xception", 299),
+            ("InceptionResNetV1", 160), ("UNet", 128), ("TinyYOLO", 416)]
+ZOO_CPU_B, ZOO_CPU_STEPS, ZOO_CPU_TOL, ZOO_FWD_B = 2, 2, 1e-3, 32
+# The models whose first step crosses kinks (leaky ReLU or ReLU at 0, a
+# max-pool's argmax) by float32 rounding alone, so that the second loss
+# parts between the CPU's own two float32 convolution paths (oneDNN and the
+# native one, from one archive on the same host): Darknet19 4.167416 vs
+# 4.156012, Xception 0.074016 vs 0.073966, InceptionResNetV1 2.442764 vs
+# 2.436626, where the others agree within 3.2e-5. For these alone a second
+# loss beyond ZOO_CPU_TOL is judged against the CPU's float64 steps: the
+# card no further from them than ZOO_KINK_FACTOR times the CPU float32's
+# distance, plus ZOO_CPU_TOL (readings on the H100 box: the card 0.43-0.74
+# of the CPU's).
+# The output and the first loss are held at ZOO_CPU_TOL for every model.
+ZOO_KINKED, ZOO_KINK_FACTOR = ("Darknet19", "Xception", "InceptionResNetV1"), 3
+# Transfer learning: VGG16 (224, bf16) frozen up to its last hidden dense
+# layer, a new 5-class head, ZOO_TL_STEPS steps at batch ZOO_TL_B.
+ZOO_TL_B, ZOO_TL_HW, ZOO_TL_STEPS, ZOO_TL_CLASSES = 32, 224, 10, 5
+# The graph char-RNN (config #3's 2x512 LSTM + RnnOutputLayer(96) as a
+# ComputationGraph, bf16): rnn_time_step in chunks of ZOO_RNN_CHUNK over
+# SERVE_T at SERVE_B rows; tBPTT fit of length ZOO_RNN_TBPTT for
+# ZOO_RNN_WINDOWS windows at TRAIN_B, first ZOO_CMP_STEPS losses against the
+# MultiLayerNetwork's (TRAIN_TOL in bf16).
+ZOO_RNN_CHUNK, ZOO_RNN_TBPTT, ZOO_RNN_WINDOWS = 64, 64, 5
+# Remat: ResNet-50 as the resnet phase trains it, ZOO_REMAT_STEPS steps with
+# and without remat from the same weights; losses within ZOO_REMAT_TOL.
+ZOO_REMAT_STEPS, ZOO_REMAT_TOL = 5, 2e-2
+
 # The distributed trainer's worker, one process per rank, both on cuda:0:
 # argv rank world port threshold steps local_batch features hidden.
 DIST_WORKER = r"""
@@ -909,6 +989,18 @@ def char_batches(n, seed):
     return out
 
 
+def yolo2_conf(zoo):
+    """The zoo YOLO2's configuration with the gradients renormalized to unit
+    L2 per layer and parameter type (``RenormalizeL2PerLayer``, as the
+    reference's own YOLO2 trains): under the zoo's Nesterovs(1e-3, 0.9)
+    alone the summed detection loss diverges within a few steps (444 to NaN
+    by step 6 in float32 at batch 4), in either package."""
+    conf = zoo.conf()
+    conf.global_conf.gradient_normalization = "RenormalizeL2PerLayer"
+    conf.global_conf.gradient_normalization_threshold = 1.0
+    return conf
+
+
 def clone_tree(tree):
     from deeplearning4j_tpu_torch.runtime.trees import tree_map
     return tree_map(lambda t: t.detach().clone(), tree)
@@ -1103,6 +1195,14 @@ class Smoke:
         log(("ok   " if ok else "FAIL ") + what)
         if not ok:
             self.failures.append(what)
+
+    def add_launches(self, counts):
+        """Add a main path's launch counts to the kernels' rows (each phase
+        reads its own counts and adds them here)."""
+        for name, n in counts.items():
+            if n or name in self.kernels:
+                row = self.kernels.setdefault(name, {})
+                row["launches"] = row.get("launches", 0) + n
 
     # ------------------------------------------------------------ phases
     def phase(self, name, fn):
@@ -1664,7 +1764,7 @@ class Smoke:
         for c in (sa.counter, sa.bwd_counter, sa.btd_counter, sa.btd_bwd_counter, fd.counter,
                   fd.bwd_counter):
             want[c.name] = 1
-            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+            self.add_launches({c.name: counts[c.name]})
         self.check(counts == want, f"ops launch counts: {counts} (expected one forward and one "
                                    "backward of each of short_attention, short_attention_btd "
                                    "and fused_dropout, nothing else)")
@@ -1986,7 +2086,7 @@ class Smoke:
                    f"{tag} launch counts over the serving run: {kernel.counter.name}="
                    f"{launched} (expected {LAYERS} layers x {batches} batches), every other "
                    f"kernel 0: {counts}")
-        self.kernels.setdefault(kernel.counter.name, {})["launches"] = launched
+        self.add_launches({kernel.counter.name: launched})
         log(f"{tag} {kernel.counter.name}: {launched / max(1, len(lat)):.2f} launches per "
             f"request, {launched / max(1, batches):.2f} per batch")
         worst = 0.0
@@ -2116,7 +2216,7 @@ class Smoke:
         self.check(counts == want, f"bert launch counts over the serving run: {counts} "
                                    f"(expected {BERT_LAYERS} layers x {batches} batches of "
                                    f"{fa.counter.name}, nothing else)")
-        self.kernels.setdefault(fa.counter.name, {})["launches"] = counts[fa.counter.name]
+        self.add_launches({fa.counter.name: counts[fa.counter.name]})
         model = served.model
         worst = 0.0
         with plain_attention():
@@ -2233,7 +2333,7 @@ class Smoke:
         self.check(counts == want, f"resnet fit launch counts over {RESNET_STEPS} steps: "
                                    f"{counts} (expected {RESNET_PAIRS} conv_stats a step from "
                                    "fit itself, nothing else)")
-        self.kernels.setdefault(cs.counter.name, {})["launches"] = counts[cs.counter.name]
+        self.add_launches({cs.counter.name: counts[cs.counter.name]})
         losses = [v for _, v in scores.scores]
         tail = sum(losses[-3:]) / 3
         self.check(len(losses) == RESNET_STEPS and all(np.isfinite(v) for v in losses)
@@ -2516,8 +2616,8 @@ class Smoke:
         want[kernel.save_counter.name] = want[kernel.bwd_counter.name] = LAYERS * TRAIN_STEPS
         self.check(counts == want, f"{tag} train launch counts over {TRAIN_STEPS} steps: "
                                    f"{counts} (expected {want})")
-        for c in (kernel.save_counter, kernel.bwd_counter):
-            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+        self.add_launches({c.name: counts[c.name]
+                           for c in (kernel.save_counter, kernel.bwd_counter)})
         finite = all(np.isfinite(v) for v in losses)
         tail = sum(losses[-3:]) / 3
         self.check(finite and len(losses) == TRAIN_STEPS and tail < LOSS_FALL * losses[0],
@@ -2587,7 +2687,7 @@ class Smoke:
         want = {c.name: 0 for c in counters}
         for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
             want[c.name] = BERT_LAYERS * BERT_TRAIN_STEPS
-            self.kernels.setdefault(c.name, {})["launches"] = counts[c.name]
+            self.add_launches({c.name: counts[c.name]})
         self.check(counts == want, f"bert train launch counts over {BERT_TRAIN_STEPS} steps: "
                                    f"{counts} (expected {want})")
         finite = all(np.isfinite(v) for v in losses) and len(losses) == BERT_TRAIN_STEPS
@@ -2786,8 +2886,7 @@ class Smoke:
         want = {c.name: 0 for c in counters}
         for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
             want[c.name] = BERT_LAYERS * SD_STEPS
-            row = self.kernels.setdefault(c.name, {})
-            row["launches"] = row.get("launches", 0) + counts[c.name]
+            self.add_launches({c.name: counts[c.name]})
         self.check(counts == want, f"samediff bert launch counts over {SD_STEPS} steps: "
                                    f"{counts} (expected {want})")
         finite = len(losses) == SD_STEPS and all(np.isfinite(v) for v in losses)
@@ -2968,9 +3067,7 @@ class Smoke:
             runs[mode] = (losses, weights)
             want = {c.name: (BERT_LAYERS * RUNTIME_SD_STEPS if c in flash else 0)
                     for c in counters}
-            for c in flash:
-                row = self.kernels.setdefault(c.name, {})
-                row["launches"] = row.get("launches", 0) + counts[c.name]
+            self.add_launches({c.name: counts[c.name] for c in flash})
             self.check(counts == want and len(losses) == RUNTIME_SD_STEPS
                        and all(np.isfinite(v) for v in losses),
                        f"runtime config #4 {mode}: {RUNTIME_SD_STEPS} finite losses, launch "
@@ -3634,9 +3731,8 @@ class Smoke:
                 self.check(all(v == want for v in counts.values()),
                            f"parallel {kind}: flash launches over {PAR_STEPS} steps {counts} "
                            f"(expected {want} each: {PAR_WAYS} x 12 a step)")
-                for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
-                    row = self.kernels.setdefault(c.name, {})
-                    row["launches"] = row.get("launches", 0) + counts[c.name]
+                self.add_launches({c.name: counts[c.name] for c in (
+                    fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter)})
                 step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:]))
                 med = step_ms[len(step_ms) // 2]
                 log(f"parallel {kind} ({PAR_WAYS} x {self.device}, {self.card}): "
@@ -3877,6 +3973,534 @@ class Smoke:
             self.check(err <= PAR_RING_TOL and out.dtype == torch.bfloat16,
                        f"parallel ring attention causal={causal}: max_abs_err={err:.3g} against "
                        f"a dense fp32 softmax (tol {PAR_RING_TOL:g})")
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ zoo
+    def zoo_phase(self, workdir):
+        """The rest of config #2's family: YOLO2 trained through conv_stats
+        and served, every other zoo CNN at its published size against the
+        CPU, VGG16 transfer learning, the graph char-RNN against the
+        network one, and ResNet-50 with and without remat."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        t0 = time.perf_counter()
+        try:
+            for name, part in (("yolo2", self.zoo_yolo2),
+                               ("cnns", lambda: self.zoo_cnns(workdir)),
+                               ("transfer learning", self.zoo_transfer),
+                               ("graph rnn", self.zoo_graph_rnn),
+                               ("remat", self.zoo_remat)):
+                self.phase(f"zoo {name}", part)
+        finally:
+            env.set_remat(False)
+            env.allow_bfloat16()
+        log(f"zoo: the phase took {time.perf_counter() - t0:.1f} s")
+
+    def zoo_yolo2(self):
+        """YOLO2 at the zoo's defaults trained by ``fit`` (bf16 over fp32
+        weights) on one synthetic detection batch: the main path, counted,
+        ZOO_YOLO_PAIRS conv_stats launches a step and nothing else, all of
+        them ``conv_stats_wgmma_kernel``; step ms, img/s, peak memory, a
+        device-busy breakdown and conv_stats' share; the loss falls, every
+        BatchNormalization's statistics move; the first steps against the
+        plain conv_stats; then served through ``ModelRegistry`` and decoded
+        with ``activate_boxes``."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ComputationGraph
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo import YOLO2
+        from deeplearning4j_tpu_torch.zoo.yolo2 import synthetic_labels
+        get_environment().allow_bfloat16()
+        torch.cuda.empty_cache()
+        zoo = YOLO2()
+        t0 = time.perf_counter()
+        net = ComputationGraph(yolo2_conf(zoo), device=self.device).init()
+        torch.cuda.synchronize()
+        pairs = net.fused_pairs
+        log(f"zoo yolo2: YOLO2({zoo.num_classes} classes, {zoo.height}x{zoo.width}, "
+            f"{len(zoo.anchors)} anchors, {net.conf.global_conf.updater.to_dict()}, gradients "
+            f"renormalized per layer) init {time.perf_counter() - t0:.1f} s, "
+            f"{net.num_params()} parameters, fused pairs {sorted(pairs.items())}")
+        self.check(sorted(pairs) == ["c3b", "c4b", "c5b", "c5d", "c6b", "c6d", "pt_conv"],
+                   f"zoo yolo2 fused 1x1 conv + BatchNormalization pairs: {sorted(pairs)} "
+                   f"(expected the {ZOO_YOLO_PAIRS} of zoo/yolo2.py)")
+        grid = zoo.height // 32
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.normal(0, 1, (ZOO_YOLO_B, zoo.height, zoo.width, 3))
+                             .astype(np.float32)).to(self.device).to(torch.bfloat16)
+        y = torch.from_numpy(synthetic_labels(rng, ZOO_YOLO_B, grid, grid, zoo.anchors,
+                                              zoo.num_classes)).to(self.device)
+        state0 = clone_tree(net._model_state)
+        snaps = []
+        scores, stamps = CollectScoresListener(), []
+        net.set_listeners(scores, StepStamps(stamps))
+        counters = all_counters()
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        for i in range(ZOO_YOLO_STEPS):
+            if i < ZOO_CMP_STEPS:
+                snaps.append((clone_tree(net.params()), clone_tree(net._model_state)))
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {c.name: 0 for c in counters}
+        want[cs.counter.name] = ZOO_YOLO_PAIRS * ZOO_YOLO_STEPS
+        self.check(counts == want, f"zoo yolo2 fit launch counts over {ZOO_YOLO_STEPS} steps: "
+                                   f"{counts} (expected {ZOO_YOLO_PAIRS} conv_stats a step, "
+                                   "nothing else)")
+        self.add_launches(counts)
+        losses = [v for _, v in scores.scores]
+        tail = sum(losses[-3:]) / 3
+        self.check(len(losses) == ZOO_YOLO_STEPS and all(np.isfinite(v) for v in losses)
+                   and tail < losses[0],
+                   f"zoo yolo2 bf16 loss on the repeated batch: first {losses[0]:.4f}, mean of "
+                   f"the last 3 {tail:.4f} (must be below the first): "
+                   + " ".join(f"{v:.4f}" for v in losses))
+        moved = {name: max(float((net._model_state[name][k] - st[k]).abs().max())
+                           for k in ("mean", "var")) for name, st in state0.items()}
+        still = sorted(n for n, v in moved.items() if not v > 0.0)
+        self.check(not still, f"zoo yolo2 running statistics of all {len(moved)} "
+                              f"BatchNormalizations moved (least max |change| "
+                              f"{min(moved.values()):.3g}); unmoved: {still}")
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        log(f"zoo yolo2 train: {ZOO_YOLO_STEPS} steps of batch {ZOO_YOLO_B} at "
+            f"{zoo.height}x{zoo.width} bf16 in {wall:.3f} s; step ms after the first: median "
+            f"{med:.2f} (min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}); "
+            f"{ZOO_YOLO_B / med * 1e3:.1f} img/s at the median; first step "
+            f"{1e3 * (stamps[0] - t0):.1f} ms; peak memory {peak:.2f} GiB ({self.card})")
+        net.set_listeners()
+        per = self.device_breakdown(lambda: net.fit(x, y),
+                                    f"zoo yolo2 fit step (batch {ZOO_YOLO_B})", reps=3,
+                                    step_ms=med)
+        for _ in range(3):  # a session that lost a launch is taken again
+            new, old, ms = self.conv_stats_in(per)
+            if new == ZOO_YOLO_PAIRS and old == 0:
+                break
+            per, _ = self.profile_kernels(lambda: net.fit(x, y), 1)
+        busy = sum(t for t, _ in per.values())
+        self.check(new == ZOO_YOLO_PAIRS and old == 0,
+                   f"zoo yolo2 fit step: the profiler sees {new:g} conv_stats_wgmma_kernel and "
+                   f"{old:g} conv_stats_kernel launches a step (expected {ZOO_YOLO_PAIRS} and 0)")
+        log(f"zoo yolo2 fit step: conv_stats (tile and column-sum kernels) {ms:.3f} ms, "
+            f"{100 * ms / max(busy, 1e-9):.1f}% of the step's device busy time {busy:.3f} ms "
+            f"(profiler; {self.card})")
+
+        # ---- serving: the trained net through the registry (the archive
+        # route is the resnet phase's and the CPU tests')
+        reg = ModelRegistry()
+        served = reg.register("yolo2", net, max_batch_size=ZOO_SERVE_B)
+        reqs = [rng.normal(0, 1, (ZOO_SERVE_B, zoo.height, zoo.width, 3)).astype(np.float32)
+                for _ in range(4)]
+        reg.predict("yolo2", reqs[0])  # warm-up
+        for c in counters:
+            c.reset()
+        ms, answers = [], []
+        for i in range(20):
+            t_req = time.perf_counter()
+            answers.append(reg.predict("yolo2", reqs[i % len(reqs)]))
+            ms.append(1e3 * (time.perf_counter() - t_req))
+        counts = {c.name: c.value for c in counters}
+        ms.sort()
+        p50 = ms[len(ms) // 2]
+        log(f"zoo yolo2 serving (bf16): 20 sequential {ZOO_SERVE_B}-row requests: p50 "
+            f"{p50:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
+            f"{ZOO_SERVE_B / p50 * 1e3:.1f} img/s at p50 ({self.card})")
+        self.check(all(v == 0 for v in counts.values()),
+                   f"zoo yolo2 serving launches nothing of the port (inference runs the pairs "
+                   f"unfused): {counts}")
+        with torch.inference_mode():
+            own = [net.output(r).float().cpu().numpy() for r in reqs]
+        scale = max(float(np.abs(o).max()) for o in own)
+        err = max(float(np.abs(np.asarray(a, np.float32) - own[i % len(reqs)]).max())
+                  for i, a in enumerate(answers))
+        self.check(err <= ZOO_SERVE_TOL * max(scale, 1.0)
+                   and all(tuple(a.shape) == own[0].shape for a in answers),
+                   f"zoo yolo2 20 answers served by the registry vs the trained net's own "
+                   f"output: max_abs_err={err:.3g} on raw predictions of magnitude up to "
+                   f"{scale:.3g}, tol={ZOO_SERVE_TOL:g} x max(1, magnitude)")
+        head = net.conf.node("yolo").obj
+        xy, wh, obj, cls = head.activate_boxes(torch.as_tensor(np.asarray(answers[0],
+                                                                         np.float32)))
+        a = len(zoo.anchors)
+        shapes = [tuple(t.shape) for t in (xy, wh, obj, cls)]
+        want_shapes = [(ZOO_SERVE_B, grid, grid, a, 2), (ZOO_SERVE_B, grid, grid, a, 2),
+                       (ZOO_SERVE_B, grid, grid, a, 1), (ZOO_SERVE_B, grid, grid, a,
+                                                         zoo.num_classes)]
+        finite = all(bool(torch.isfinite(t).all()) for t in (xy, wh, obj, cls))
+        self.check(shapes == want_shapes and finite
+                   and float((cls.sum(-1) - 1).abs().max()) < 1e-4
+                   and 0 <= float(obj.min()) and float(obj.max()) <= 1,
+                   f"zoo yolo2 activate_boxes of one served batch: shapes {shapes}, finite "
+                   f"{finite}, objectness in [{float(obj.min()):.3f}, {float(obj.max()):.3f}]")
+        reg.shutdown()
+        del net, served, reg
+        torch.cuda.empty_cache()
+
+        # ---- the kernel vs the plain version, at the weights of each of the
+        # first ZOO_CMP_STEPS steps
+        plain = ComputationGraph(yolo2_conf(zoo), device=self.device).init(params=snaps[0][0])
+        plain_scores = CollectScoresListener()
+        plain.set_listeners(plain_scores)
+        with plain_conv_stats():
+            for params, state in snaps:
+                plain.set_params(params)
+                plain._model_state = state
+                plain.fit(x, y)
+        want_l = [v for _, v in plain_scores.scores]
+        got = losses[:ZOO_CMP_STEPS]
+        err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(got, want_l))
+        self.check(err <= ZOO_YOLO_TOL,
+                   f"zoo yolo2 bf16 losses of the first {ZOO_CMP_STEPS} steps, kernel "
+                   f"{' '.join(f'{v:.5f}' for v in got)} vs plain conv_stats from the same "
+                   f"weights {' '.join(f'{v:.5f}' for v in want_l)}: max relative err "
+                   f"{err:.3g}, tol={ZOO_YOLO_TOL:g}")
+        del plain, snaps, state0, x, y
+        torch.cuda.empty_cache()
+
+    def zoo_cnns(self, workdir):
+        """Every other zoo CNN at its published input size: one forward and
+        ZOO_CPU_STEPS ``fit`` steps at batch ZOO_CPU_B in fp32 on the card
+        (the graphs' fused pairs through conv_stats, counted) against the
+        same on the CPU from one archive, dropout retained at 1.0 in both
+        (the two devices draw different masks); then the forward ms at
+        batch ZOO_FWD_B in bf16."""
+        import numpy as np
+        torch = self.torch
+        import deeplearning4j_tpu_torch.zoo as tzoo
+        from deeplearning4j_tpu_torch.models import (ComputationGraph,
+                                                     ComputationGraphConfiguration,
+                                                     ModelSerializer, MultiLayerNetwork)
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.zoo.base import without_dropout
+        from deeplearning4j_tpu_torch.zoo.yolo2 import synthetic_labels
+        env = get_environment()
+        counters = all_counters()
+        rows = []
+        for k, (name, size) in enumerate(ZOO_CNNS):
+            t_model = time.perf_counter()
+            env.set_compute_dtype("float32")
+            torch.cuda.empty_cache()
+            zoo = getattr(tzoo, name)(height=size, width=size)
+            conf = without_dropout(zoo.conf())
+            graph = isinstance(conf, ComputationGraphConfiguration)
+            net = (ComputationGraph if graph else MultiLayerNetwork)(conf,
+                                                                     device=self.device).init()
+            path = os.path.join(workdir, f"{name}.zip")
+            net.save(path)
+            cpu = ModelSerializer.restore_model(path, device="cpu")
+            rng = np.random.default_rng(100 + k)
+            x = rng.normal(0, 1, (ZOO_CPU_B, size, size, 3)).astype(np.float32)
+            want = cpu.output(x).numpy()
+            got = net.output(x).float().cpu().numpy()
+            out_err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+            if name == "TinyYOLO":
+                g = want.shape[1]
+                y = synthetic_labels(rng, ZOO_CPU_B, g, g, zoo.anchors, zoo.num_classes)
+            elif name == "UNet":
+                y = (rng.random(want.shape) > 0.5).astype(np.float32)
+            else:
+                y = np.eye(want.shape[-1], dtype=np.float32)[rng.integers(0, want.shape[-1],
+                                                                          ZOO_CPU_B)]
+            card_scores, cpu_scores = CollectScoresListener(), CollectScoresListener()
+            net.set_listeners(card_scores)
+            cpu.set_listeners(cpu_scores)
+            pairs = len(getattr(net, "fused_pairs", {}))
+            # ---- the main path: counts from 0 just before, read just after
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            for _ in range(ZOO_CPU_STEPS):
+                net.fit(x, y)
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            # ----
+            expect = {c.name: 0 for c in counters}
+            expect[cs.counter.name] = pairs * ZOO_CPU_STEPS
+            self.check(counts == expect, f"zoo {name} fp32 fit launch counts over "
+                                         f"{ZOO_CPU_STEPS} steps: {counts} (expected {pairs} "
+                                         "conv_stats a step, nothing else)")
+            self.add_launches(counts)
+            for _ in range(ZOO_CPU_STEPS):
+                cpu.fit(x, y)
+            a = [v for _, v in card_scores.scores]
+            b = [v for _, v in cpu_scores.scores]
+            loss_err = max(abs(u - v) / max(abs(v), 1e-30) for u, v in zip(a, b))
+            judged, ok_loss = "", loss_err <= ZOO_CPU_TOL
+            if (not ok_loss and name in ZOO_KINKED
+                    and abs(a[0] - b[0]) <= ZOO_CPU_TOL * abs(b[0])):
+                # a later step parted: judge both against the CPU in float64
+                exact = self.zoo_float64_losses(path, x, y)
+                dev = [max(abs(u - v) / abs(v) for u, v in zip(w, exact)) for w in (a, b)]
+                judged = (f"; the float64 CPU steps {' '.join(f'{v:.6f}' for v in exact)}: "
+                          f"card {dev[0]:.3g} from them, CPU fp32 {dev[1]:.3g}, must be within "
+                          f"{ZOO_KINK_FACTOR}x the CPU's + {ZOO_CPU_TOL:g}")
+                ok_loss = dev[0] <= ZOO_KINK_FACTOR * dev[1] + ZOO_CPU_TOL
+            self.check(out_err <= ZOO_CPU_TOL and ok_loss and len(a) == len(b)
+                       == ZOO_CPU_STEPS and all(np.isfinite(a)),
+                       f"zoo {name} at {size}x{size}, {net.num_params()} parameters, fp32 card vs "
+                       f"CPU from one archive: output max err {out_err:.3g} of its largest "
+                       f"magnitude, losses card {' '.join(f'{v:.6f}' for v in a)} vs CPU "
+                       f"{' '.join(f'{v:.6f}' for v in b)} (max relative err {loss_err:.3g}); "
+                       f"tol {ZOO_CPU_TOL:g}{judged}")
+            del cpu
+            env.allow_bfloat16()
+            gen = torch.Generator(device=self.device).manual_seed(k)
+            xb = torch.randn(ZOO_FWD_B, size, size, 3, generator=gen,
+                             device=self.device).to(torch.bfloat16)
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: net.output(xb), reps=5)
+            rows.append((name, size, fwd))
+            log(f"zoo {name}: {time.perf_counter() - t_model:.1f} s with the CPU's part")
+            del net, xb
+        torch.cuda.empty_cache()
+        log(f"zoo forward ms at batch {ZOO_FWD_B} in bf16 ({self.card}): "
+            + "; ".join(f"{n} {s}x{s} {ms:.2f} ms ({ZOO_FWD_B / ms * 1e3:.0f} img/s)"
+                        for n, s, ms in rows))
+
+    def zoo_float64_losses(self, path, x, y):
+        """The ZOO_CPU_STEPS losses of the archive's net fitted on the CPU
+        in float64, oneDNN off (its convolution backward is the less exact
+        one): an ill-conditioned step's reference."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.runtime.trees import tree_map
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        env = get_environment()
+        saved = env.default_dtype, env.compute_dtype
+        env.set_default_dtype("float64").set_compute_dtype("float64")
+        try:
+            ref = ModelSerializer.restore_model(path, device="cpu")
+            ref.set_params(tree_map(lambda t: t.double(), ref.params()))
+            scores = CollectScoresListener()
+            ref.set_listeners(scores)
+            with torch.backends.mkldnn.flags(enabled=False):
+                for _ in range(ZOO_CPU_STEPS):
+                    ref.fit(x, y)
+        finally:
+            env.default_dtype, env.compute_dtype = saved
+        return [v for _, v in scores.scores]
+
+    def zoo_transfer(self):
+        """VGG16 (224, bf16) frozen up to its last hidden dense layer, its
+        output replaced by a ZOO_TL_CLASSES-class OutputLayer (fine-tuned
+        under Adam(1e-2)): ZOO_TL_STEPS steps at batch ZOO_TL_B, the loss
+        falls and every frozen parameter is unchanged bit for bit."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import FineTuneConfiguration, TransferLearning
+        from deeplearning4j_tpu_torch.nn import OutputLayer
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.train.updaters import Adam
+        from deeplearning4j_tpu_torch.zoo import VGG16
+        get_environment().allow_bfloat16()
+        torch.cuda.empty_cache()
+        base = VGG16(height=ZOO_TL_HW, width=ZOO_TL_HW).init(device=self.device)
+        last = max(i for i, l in enumerate(base.layers) if type(l).__name__ == "DenseLayer")
+        net = (TransferLearning.builder(base)
+               .fine_tune_configuration(FineTuneConfiguration(updater=Adam(1e-2)))
+               .set_feature_extractor(last)
+               .remove_output_layer()
+               .add_layer(OutputLayer(n_out=ZOO_TL_CLASSES, activation="softmax",
+                                      loss="mcxent"))
+               .build())
+        del base
+        frozen_keys = [f"layer_{i}" for i, l in enumerate(net.layers) if l.frozen]
+        frozen = {k: clone_tree(net.params()[k]) for k in frozen_keys if k in net.params()}
+        self.check(len(frozen_keys) == last + 1 and not net.layers[-1].frozen,
+                   f"zoo transfer: VGG16 layers 0..{last} frozen ({len(frozen)} with "
+                   f"parameters), a new {ZOO_TL_CLASSES}-class head")
+        rng = np.random.default_rng(21)  # host arrays: fit(x, y) takes them as a DataSet
+        x = rng.normal(0, 1, (ZOO_TL_B, ZOO_TL_HW, ZOO_TL_HW, 3)).astype(np.float32)
+        y = np.eye(ZOO_TL_CLASSES, dtype=np.float32)[rng.integers(0, ZOO_TL_CLASSES, ZOO_TL_B)]
+        scores, stamps = CollectScoresListener(), []
+        net.set_listeners(scores, StepStamps(stamps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_TL_STEPS):
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        losses = [v for _, v in scores.scores]
+        tail = sum(losses[-3:]) / 3
+        same = [k for k, p in frozen.items()
+                if all(torch.equal(p[n], net.params()[k][n]) for n in p)]
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        log(f"zoo transfer: {ZOO_TL_STEPS} steps of batch {ZOO_TL_B} bf16 in "
+            f"{time.perf_counter() - t0:.2f} s, step ms after the first median {med:.2f} "
+            f"({ZOO_TL_B / med * 1e3:.1f} img/s; {self.card})")
+        self.check(all(np.isfinite(losses)) and tail < losses[0] and len(same) == len(frozen),
+                   f"zoo transfer: loss {losses[0]:.4f} -> mean of the last 3 {tail:.4f} (must "
+                   f"fall): {' '.join(f'{v:.4f}' for v in losses)}; frozen layers bit for bit "
+                   f"unchanged: {len(same)} of {len(frozen)}")
+        del net, frozen, x, y
+        torch.cuda.empty_cache()
+
+    def zoo_graph_rnn(self):
+        """Config #3's char-RNN built as a ComputationGraph (bf16) from the
+        MultiLayerNetwork char-RNN's weights: ``rnn_time_step`` in chunks
+        against the whole sequence and against the network's
+        ``rnn_time_step``; tBPTT ``fit`` against the network's; the main
+        path counted (rows 3-4: the plain LSTM's inference, saving and
+        backward kernels)."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ComputationGraph, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.models.computation_graph import GraphBuilder
+        from deeplearning4j_tpu_torch.nn import InputType, Layer
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        get_environment().allow_bfloat16()
+        mconf = char_rnn_conf("lstm", ZOO_RNN_TBPTT)
+        mln = MultiLayerNetwork(mconf, device=self.device).init()
+        init = clone_tree(mln.params())
+        g = GraphBuilder(dataclasses.replace(mconf.global_conf)).add_inputs("in")
+        prev = "in"
+        for i, layer in enumerate(mconf.layers):
+            g.add_layer(f"layer_{i}", Layer.from_dict(layer.to_dict()), prev)
+            prev = f"layer_{i}"
+        conf = (g.set_outputs(prev).set_input_types(InputType.recurrent(VOCAB))
+                .tbptt_fwd_length(ZOO_RNN_TBPTT).build())
+        cg = ComputationGraph(conf, device=self.device).init(params=clone_tree(init))
+        (x0, y0), (x1, y1) = char_batches(2, seed=31)
+        x = torch.from_numpy(x0).to(self.device).to(torch.bfloat16)
+        chunks = range(0, x.shape[1], ZOO_RNN_CHUNK)
+        counters = all_counters()
+        T = ZOO_RNN_TBPTT * ZOO_RNN_WINDOWS
+        xt = np.concatenate([x0, x1], 1)[:, :T]
+        yt = np.concatenate([y0, y1], 1)[:, :T]
+        cg_scores = CollectScoresListener()
+        cg.set_listeners(cg_scores)
+
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        whole = cg.output(x)
+        parts = [cg.rnn_time_step(x[:, t:t + ZOO_RNN_CHUNK]) for t in chunks]
+        cg.fit(xt, yt)
+        torch.cuda.synchronize()
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        want[fused_lstm.counter.name] = LAYERS * (1 + len(chunks))
+        want[fused_lstm.save_counter.name] = LAYERS * ZOO_RNN_WINDOWS
+        want[fused_lstm.bwd_counter.name] = LAYERS * ZOO_RNN_WINDOWS
+        self.check(counts == want, f"zoo graph rnn launch counts (one whole-sequence output, "
+                                   f"{len(chunks)} rnn_time_step chunks, {ZOO_RNN_WINDOWS} "
+                                   f"tBPTT windows): {counts} (expected {want})")
+        self.add_launches(counts)
+        err = float((torch.cat(parts, 1).float() - whole.float()).abs().max())
+        self.check(err <= CHUNK_TOL,
+                   f"zoo graph rnn bf16 rnn_time_step in {len(chunks)} chunks of "
+                   f"{ZOO_RNN_CHUNK} vs the whole sequence (B={x.shape[0]}, T={x.shape[1]}): "
+                   f"max_abs_err={err:.3g} tol={CHUNK_TOL:g}")
+        mparts = [mln.rnn_time_step(x[:, t:t + ZOO_RNN_CHUNK]) for t in chunks]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(parts, mparts))
+        self.check(err <= CHUNK_TOL,
+                   f"zoo graph rnn rnn_time_step chunks vs the MultiLayerNetwork's: "
+                   f"max_abs_err={err:.3g} tol={CHUNK_TOL:g}")
+        mln_scores = CollectScoresListener()
+        mln.set_listeners(mln_scores)
+        mln.fit(xt, yt)
+        got = [v for _, v in cg_scores.scores][:ZOO_CMP_STEPS]
+        want_l = [v for _, v in mln_scores.scores][:ZOO_CMP_STEPS]
+        err = max(abs(a - b) for a, b in zip(got, want_l))
+        self.check(len(cg_scores.scores) == ZOO_RNN_WINDOWS and err <= TRAIN_TOL["bfloat16"],
+                   f"zoo graph rnn bf16 tBPTT (length {ZOO_RNN_TBPTT}, {ZOO_RNN_WINDOWS} "
+                   f"windows at B={TRAIN_B}): first {ZOO_CMP_STEPS} losses, graph "
+                   f"{' '.join(f'{v:.5f}' for v in got)} vs network "
+                   f"{' '.join(f'{v:.5f}' for v in want_l)}: max_abs_err={err:.3g} "
+                   f"tol={TRAIN_TOL['bfloat16']:g}")
+        del mln, cg
+
+    def zoo_remat(self):
+        """ResNet-50 as the resnet phase trains it, ZOO_REMAT_STEPS steps
+        with ``set_remat(True)`` and as many without, from the same weights:
+        peak memory, step ms, conv_stats launches a step (a fused pair in a
+        recomputed segment launches again) and the losses."""
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ComputationGraph
+        from deeplearning4j_tpu_torch.ops.kernels import conv_stats as cs
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+        from deeplearning4j_tpu_torch.train.updaters import Nesterovs
+        from deeplearning4j_tpu_torch.zoo import ResNet50
+        env = get_environment()
+        env.allow_bfloat16()
+        torch.cuda.empty_cache()
+        zoo = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW, width=RESNET_HW,
+                       updater=Nesterovs(0.1, momentum=0.9))
+        init = clone_tree(zoo.init(device=self.device).params())
+        g = torch.Generator(device=self.device).manual_seed(0)
+        x = torch.randn(RESNET_B, RESNET_HW, RESNET_HW, 3, generator=g,
+                        device=self.device).to(torch.bfloat16)
+        labels = torch.randint(0, RESNET_CLASSES, (RESNET_B,), generator=g, device=self.device)
+        y = torch.nn.functional.one_hot(labels, RESNET_CLASSES).float()
+        counters = all_counters()
+        runs = {}
+        for remat in (False, True):
+            env.set_remat(remat)
+            net = ComputationGraph(zoo.conf(), device=self.device).init(params=clone_tree(init))
+            segs = net._remat_segments()
+            recomputed = sum(1 for k, seg in enumerate(segs) if 0 < len(seg) - 1
+                             and k < len(segs) - 1 for n in seg if n in net.fused_pairs)
+            scores, stamps = CollectScoresListener(), []
+            net.set_listeners(scores, StepStamps(stamps))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.reset()
+            for _ in range(ZOO_REMAT_STEPS):
+                net.fit(x, y)
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            self.add_launches(counts)
+            step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+            runs[remat] = ([v for _, v in scores.scores], step_ms[len(step_ms) // 2], peak,
+                           counts[cs.counter.name] / ZOO_REMAT_STEPS, recomputed, len(segs))
+            want = len(net.fused_pairs) + (recomputed if remat else 0)
+            self.check(counts[cs.counter.name] == want * ZOO_REMAT_STEPS,
+                       f"zoo remat={remat}: {counts[cs.counter.name] / ZOO_REMAT_STEPS:g} "
+                       f"conv_stats launches a step (expected {len(net.fused_pairs)} pairs"
+                       + (f" + {recomputed} recomputed in the backward pass" if remat else "")
+                       + ")")
+            del net
+            torch.cuda.empty_cache()
+        env.set_remat(False)
+        (l0, ms0, peak0, n0, _, nseg), (l1, ms1, peak1, n1, rec, _) = runs[False], runs[True]
+        err = max(abs(a - b) for a, b in zip(l0, l1))
+        log(f"zoo remat: ResNet-50 batch {RESNET_B} bf16, {nseg} segments ({rec} fused pairs "
+            f"recomputed): without remat step {ms0:.2f} ms, peak {peak0:.2f} GiB, {n0:g} "
+            f"conv_stats a step; with remat step {ms1:.2f} ms, peak {peak1:.2f} GiB, {n1:g} "
+            f"conv_stats a step ({self.card})")
+        self.check(len(l0) == len(l1) == ZOO_REMAT_STEPS and err <= ZOO_REMAT_TOL,
+                   f"zoo remat losses, without {' '.join(f'{v:.5f}' for v in l0)}, with "
+                   f"{' '.join(f'{v:.5f}' for v in l1)}: max_abs_err={err:.3g} "
+                   f"({'bit for bit' if l0 == l1 else 'not bit for bit'}), tol={ZOO_REMAT_TOL:g}")
+        self.check(peak1 < peak0, f"zoo remat peak memory {peak1:.2f} GiB below "
+                                  f"{peak0:.2f} GiB without")
+        del x, y, init
         torch.cuda.empty_cache()
 
     def times_phase(self):
@@ -4538,6 +5162,18 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--zoo"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
+            smoke.phase("kernels recurrent", smoke.recurrent_checks)
+            smoke.zoo_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -4566,6 +5202,7 @@ def main() -> int:
         smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
         smoke.runtime_phase(workdir)
         smoke.parallel_phase(workdir)
+        smoke.zoo_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

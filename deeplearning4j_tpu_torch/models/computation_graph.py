@@ -37,11 +37,23 @@ layers are added to the loss (JAX ``_reg_score``). In training a layer with
 update the layers' constraints project the parameters (JAX ``:356``,
 ``:566``). ``fit`` takes ``DataSet``s and ``MultiDataSet``s.
 
-Not ported yet, and raising by name: rematerialized segments, packed and
-unrolled steps, ``fit_external``, ``backprop_gradient``, truncated BPTT and
-the stateful RNN API (``rnn_time_step``, ``rnn_time_step_external``,
-``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
-``rnn_clear_previous_state``) on a graph.
+Truncated BPTT (``tbptt_fwd_length``), the stateful RNN API
+(``rnn_time_step``, ``rnn_time_step_external``, ``rnn_get_state``/
+``rnn_set_state``/``rnn_zero_state``/``rnn_clear_previous_state``) and the
+external-errors mode (``backprop_gradient``, ``fit_external``) run the
+graph's recurrent layers on explicit carries (JAX ``_exec_node``'s
+``carries`` path), so a graph LSTM reaches the same kernels as a
+``MultiLayerNetwork`` one. With ``get_environment().set_remat(True)`` the
+training forward checkpoints each multi-node segment between single-tensor
+cut points (JAX ``_remat_segments``/``_forward_remat``) with
+``torch.utils.checkpoint``; a recomputed segment replays its forward's
+dropout masks (:class:`~..runtime.rng.DrawTape`), keeps the forward's
+BatchNormalization statistics, and launches its fused pairs' ``conv_stats``
+again.
+
+Not ported yet, and raising by name: the solver optimization algorithms
+(``optimization_algo`` other than SGD) and ``fit`` on anything but
+``DataSet``s and ``MultiDataSet``s.
 """
 
 from __future__ import annotations
@@ -55,22 +67,24 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.models._tbptt import is_sequence_array
+from deeplearning4j_tpu_torch.models._tbptt import carry_dtype, is_sequence_array, slice_time
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, cast_floating
 from deeplearning4j_tpu_torch.nn.config import auto_preprocessor
 from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conv_layers import BatchNormalization, ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.graph_vertices import GraphVertex
+from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.initializers import WeightInit
 from deeplearning4j_tpu_torch.ops.kernels.conv_stats import conv_stats
 from deeplearning4j_tpu_torch.runtime.environment import (coerce_dtype, dtype_name,
                                                           get_environment)
-from deeplearning4j_tpu_torch.models.multi_layer_network import MultiLayerNetwork
-from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.models.multi_layer_network import (MultiLayerNetwork,
+                                                                 leaf_gradients, trained_leaves)
+from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for, recomputed
 from deeplearning4j_tpu_torch.runtime.state_packing import assign_state
-from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
+from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.train.listeners import TrainingListener
 from deeplearning4j_tpu_torch.train.prefetch import as_device_tensor
 from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
@@ -275,11 +289,6 @@ def _cg_group_compatible(a, b) -> bool:
     return True
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"ComputationGraph.{what} is not ported to "
-                               "deeplearning4j_tpu_torch yet")
-
-
 class ComputationGraph:
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
@@ -304,6 +313,8 @@ class ComputationGraph:
         # the training runtime's per-graph cache (see MultiLayerNetwork)
         self._runtime_cache: Dict[str, Any] = {}
         self._device_gen: Optional[torch.Generator] = None
+        self._rnn_carries: Optional[Dict[str, Any]] = None
+        self._remat_segs: Optional[List[List[str]]] = None
 
     @property
     def layers(self) -> List[Layer]:
@@ -337,6 +348,8 @@ class ComputationGraph:
         self._restored_updater_leaves = None
         self._fused = self._fused_pairs()
         self._runtime_cache = {}
+        self._rnn_carries = None  # stale hidden state must not cross inits
+        self._remat_segs = None
         return self
 
     def _fused_pairs(self) -> Dict[str, str]:
@@ -377,10 +390,12 @@ class ComputationGraph:
 
     # --------------------------------------------------------------- forward
     def _exec_node(self, name, acts, last_inputs, new_state, pending, params, model_state,
-                   *, training, generator, masks, output_set) -> None:
+                   *, training, generator, masks, output_set, carries=None) -> None:
         """Execute one node in topological order (JAX ``:339-382``),
         filling ``acts``, ``last_inputs`` and ``new_state``. In training a
-        fused convolution leaves its normalization's sums in ``pending``."""
+        fused convolution leaves its normalization's sums in ``pending``.
+        Given ``carries`` (``{node: carry}``), a recurrent layer runs from its
+        carry and leaves its new one there."""
         node = self._nodes[name]
         ins = [acts[k] for k in node.inputs]
         if node.kind == "vertex":
@@ -397,6 +412,12 @@ class ComputationGraph:
             acts[name] = layer.activate(p, x)
             return
         last_inputs[name] = x
+        if carries is not None and isinstance(layer, BaseRecurrentLayer):
+            x = layer._apply_input_dropout(x, layer._g, training, generator)
+            acts[name], carries[name] = layer.forward_with_carry(
+                p, carries[name], x, training=training, generator=generator,
+                mask=None if masks is None else masks.get(name))
+            return
         if training and name in self._fused:
             bn = self._fused[name]
             xs = layer.subsample(x)
@@ -418,11 +439,15 @@ class ComputationGraph:
         acts[name] = y
 
     def _forward_all(self, params, model_state, inputs: Dict[str, torch.Tensor], *,
-                     training: bool, generator=None, masks=None):
+                     training: bool, generator=None, masks=None, carries=None):
         """Execute the DAG; returns ``(acts, last_inputs, new_state)``:
         every node's activation, each output layer's input after its input
-        dropout, and the layers' state after the pass."""
-        cdt = get_environment().compute_dtype
+        dropout, and the layers' state after the pass; and the new carries
+        as a fourth item when ``carries`` are given (the graph's
+        ``rnnTimeStep`` path). A training pass with ``remat_segments`` on,
+        no carries and no masks runs :meth:`_forward_remat`."""
+        env = get_environment()
+        cdt = env.compute_dtype
         params = cast_floating(params, cdt)
         acts: Dict[str, Any] = {}
         for name, x in inputs.items():
@@ -431,21 +456,105 @@ class ComputationGraph:
         new_state = dict(model_state)
         pending: Dict[str, Any] = {}
         output_set = set(self.conf.outputs)
+        if env.remat_segments and training and carries is None and masks is None:
+            self._forward_remat(acts, last_inputs, new_state, pending, params, model_state,
+                                generator, output_set)
+            return acts, last_inputs, new_state
+        if carries is not None:
+            carries = dict(carries)
         for name in self.conf.topo_order:
             self._exec_node(name, acts, last_inputs, new_state, pending, params, model_state,
                             training=training, generator=generator, masks=masks,
-                            output_set=output_set)
+                            output_set=output_set, carries=carries)
+        if carries is not None:
+            return acts, last_inputs, new_state, carries
         return acts, last_inputs, new_state
 
+    def _remat_segments(self) -> List[List[str]]:
+        """``topo_order`` cut into segments at single-tensor cut points (JAX
+        ``:384-418``): after a node whose output is then the only value still
+        live. In a ResNet the cuts land on the blocks' outputs, so a
+        checkpointed segment keeps one boundary activation instead of every
+        tensor inside the block. The tail segment (the output layers and
+        their inputs, which the loss reads) is never rematerialized."""
+        if self._remat_segs is not None:
+            return self._remat_segs
+        topo = self.conf.topo_order
+        node_inputs = {n: list(self._nodes[n].inputs) for n in topo}
+        last_use: Dict[str, int] = {}
+        for idx, n in enumerate(topo):
+            for t in node_inputs[n]:
+                last_use[t] = idx
+        inf = len(topo) + 1
+        for o in self.conf.outputs:  # the outputs and their inputs feed the loss
+            last_use[o] = inf
+            for t in node_inputs.get(o, []):
+                last_use[t] = inf
+        live = {t for t in self.conf.inputs if last_use.get(t, -1) >= 0}
+        segs: List[List[str]] = []
+        cur: List[str] = []
+        for idx, n in enumerate(topo):
+            cur.append(n)
+            live = {t for t in live if last_use.get(t, -1) > idx}
+            if last_use.get(n, -1) > idx:
+                live.add(n)
+            if live == {n} and idx < len(topo) - 1:
+                segs.append(cur)
+                cur = []
+        if cur:
+            segs.append(cur)
+        self._remat_segs = segs
+        return segs
+
+    def _forward_remat(self, acts, last_inputs, new_state, pending, params, model_state,
+                       generator, output_set) -> None:
+        """The training forward with each segment of two or more nodes
+        (except the tail) run by :func:`~..runtime.rng.recomputed`
+        (``torch.utils.checkpoint(use_reentrant=False)``), one call per
+        segment (JAX ``_forward_remat``): only the segment's output (and the
+        sums of a fused pair cut after its convolution) is kept; the
+        backward pass runs the segment again, replaying the forward's random
+        draws, and the layers' new state is taken from the first run only.
+        A fused pair inside a recomputed segment launches ``conv_stats``
+        once more."""
+        segs = self._remat_segments()
+        for k, seg in enumerate(segs):
+            if k == len(segs) - 1 or len(seg) < 2:
+                for n in seg:
+                    self._exec_node(n, acts, last_inputs, new_state, pending, params,
+                                    model_state, training=True, generator=generator,
+                                    masks=None, output_set=output_set)
+                continue
+            seg_set = set(seg)
+            ext = sorted({t for n in seg for t in self._nodes[n].inputs if t not in seg_set})
+            pend_in = {n: pending.pop(n) for n in seg if n in pending}
+
+            def seg_fn(*ext_acts, _seg=seg, _ext=ext, _pend=pend_in):
+                a = dict(zip(_ext, ext_acts))
+                li: Dict[str, Any] = {}
+                ns: Dict[str, Any] = {}
+                pend = dict(_pend)
+                for n in _seg:
+                    self._exec_node(n, a, li, ns, pend, params, model_state, training=True,
+                                    generator=generator, masks=None, output_set=output_set)
+                return a[_seg[-1]], ns, pend
+
+            y, seg_state, pend_out = recomputed(seg_fn, *[acts[t] for t in ext])
+            acts[seg[-1]] = y
+            new_state.update(seg_state)
+            pending.update(pend_out)
+
     def _loss(self, params, model_state, inputs, labels, generator=None, masks=None,
-              training: bool = True):
+              training: bool = True, carries=None):
         """The sum of the output layers' losses (JAX ``:500-543``); returns
-        ``(loss, new_state)``. In training the forward and the losses see
+        ``(loss, new_state)``, and the new carries as a third item when
+        ``carries`` are given. In training the forward and the losses see
         the weights perturbed by the layers' weight noise."""
         if training:
             params = self._perturbed(params, generator)
-        acts, last_inputs, new_state = self._forward_all(
-            params, model_state, inputs, training=training, generator=generator, masks=masks)
+        out = self._forward_all(params, model_state, inputs, training=training,
+                                generator=generator, masks=masks, carries=carries)
+        acts, last_inputs, new_state = out[:3]
         cdt = get_environment().compute_dtype
         total = None
         for out_name, y in zip(self.conf.outputs, labels):
@@ -461,6 +570,8 @@ class ComputationGraph:
                         params, self.conf.global_conf)
         if reg is not None:
             total = total + reg
+        if carries is not None:
+            return total, new_state, out[3]
         return total, new_state
 
     # ------------------------------------------------------------------- fit
@@ -561,7 +672,11 @@ class ComputationGraph:
                 for inputs, labels, masks in src:
                     if self.conf.tbptt_fwd_length and any(
                             is_sequence_array(v) for v in inputs.values()):
-                        raise _unported("fit with truncated BPTT")
+                        gd.flush()
+                        drain()  # tBPTT notifies listeners inline (ordered)
+                        ploop.sync(release=True)
+                        self._fit_tbptt(inputs, labels, masks)
+                        continue
                     submit_timed(gd, (inputs, labels, self._step_generator(), masks),
                                  profiler)
             finally:
@@ -572,32 +687,56 @@ class ComputationGraph:
                 lst.on_epoch_end(self, self._epoch)
             self._epoch += 1
 
-    def _train_step(self, inputs, labels, masks, generator=None):
-        """One step: loss, gradients of the float parameters through the
-        compute-dtype cast, the optimizer's update in place, and the layers'
-        new state copied into the old (in place, as a captured step needs).
-        Returns the detached loss."""
+    def _train_step(self, inputs, labels, masks, generator=None, carries=None):
+        """One step: loss, gradients of the float parameters (those of
+        frozen layers excepted) through the compute-dtype cast, the
+        optimizer's update in place, and the layers' new state copied into
+        the old (in place, as a captured step needs). Returns the detached
+        loss, and the new carries too when ``carries`` are given."""
         optimizer = self._ensure_optimizer()
         leaves = tree_leaves(self._params)
-        trained = [t for t in leaves if t.is_floating_point()]
+        trained = trained_leaves(self._params, [n.name for n in self.conf.nodes
+                                                if n.kind == "layer" and n.obj.frozen])
         for t in trained:
             t.requires_grad_(True)
         try:
-            loss, new_state = self._loss(
+            out = self._loss(
                 self._params, self._model_state, inputs, labels,
-                generator if generator is not None else self.rng.next_generator(), masks)
-            grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
+                generator if generator is not None else self.rng.next_generator(), masks,
+                carries=carries)
+            grads = torch.autograd.grad(out[0], trained, allow_unused=True)
         finally:
             for t in trained:
                 t.requires_grad_(False)
-        per_leaf = []
-        for t in leaves:
-            g = next(grads) if t.is_floating_point() else None
-            per_leaf.append(torch.zeros_like(t) if g is None else g)
-        optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
+        optimizer.step(self._params, leaf_gradients(self._params, leaves, trained, grads))
         self._apply_constraints()
-        self._model_state = assign_state(self._model_state, new_state)
-        return loss.detach()
+        self._model_state = assign_state(self._model_state, out[1])
+        if carries is not None:
+            return out[0].detach(), out[2]
+        return out[0].detach()
+
+    def _fit_tbptt(self, inputs, labels, masks) -> None:
+        """Truncated BPTT on the graph (JAX ``:611-657``): the time axis in
+        ``tbptt_fwd_length`` windows, every recurrent layer's carry handed
+        from one window to the next with the gradient cut; eager, one step
+        and one listener call a window. Labels with a time axis and masks of
+        the sequence's length are windowed too."""
+        L = int(self.conf.tbptt_fwd_length)
+        seqs = [v for v in inputs.values() if is_sequence_array(v)]
+        T = max(v.shape[1] for v in seqs)
+        first = next(iter(inputs.values()))
+        carries = self._zero_carries(first.shape[0],
+                                     carry_dtype(first, get_environment().compute_dtype))
+        for t0 in range(0, T, L):
+            ci = {k: slice_time(v, t0, L) for k, v in inputs.items()}
+            cl = [y[:, t0:t0 + L] if y.dim() == 3 else y for y in labels]
+            cm = None if masks is None else {
+                k: (m[:, t0:t0 + L] if m is not None and m.dim() >= 2 and m.shape[1] == T
+                    else m) for k, m in masks.items()}
+            loss, carries = self._train_step(ci, cl, cm, generator=self._step_generator(),
+                                             carries=carries)
+            carries = tree_map(lambda t: t.detach(), carries)
+            self._iteration_done(loss)
 
     # ------------------------------------------------------------- runtime
     def _train_step_fn(self):
@@ -705,29 +844,142 @@ class ComputationGraph:
                                  training=False)
         return float(loss)
 
+    def _coerce_inputs(self, inputs) -> Dict[str, torch.Tensor]:
+        """A dict by input name, one array (a single-input graph), or a
+        list/tuple zipped against ``conf.inputs`` (JAX ``:831-843``), as
+        tensors on the graph's device."""
+        if isinstance(inputs, dict):
+            return {k: self._as_input(v) for k, v in inputs.items()}
+        if isinstance(inputs, (list, tuple)):
+            if len(inputs) != len(self.conf.inputs):
+                raise ValueError(f"graph has {len(self.conf.inputs)} inputs "
+                                 f"{self.conf.inputs}; got {len(inputs)} arrays")
+            return {n: self._as_input(v) for n, v in zip(self.conf.inputs, inputs)}
+        return {self.conf.inputs[0]: self._as_input(inputs)}
+
+    def _external_vjp(self, inputs, epsilons, generator):
+        """The training forward of ``inputs`` (dropout and weight noise from
+        ``generator``, none without one) and its vjp with ``epsilons`` =
+        dL/dOutput per output: ``(param_grads, {input: dL/dInput},
+        new_state)``, the gradients nested as the parameters; an input
+        that is not floating (token ids) has no gradient."""
+        inputs = {k: v.detach() for k, v in self._coerce_inputs(inputs).items()}
+        if not isinstance(epsilons, (list, tuple)):
+            epsilons = [epsilons]
+        leaves = tree_leaves(self._params)
+        trained = [t for t in leaves if t.is_floating_point()]
+        float_in = [k for k, v in inputs.items() if v.is_floating_point()]
+        for t in trained:
+            t.requires_grad_(True)
+        for k in float_in:
+            inputs[k].requires_grad_(True)
+        try:
+            acts, _, new_state = self._forward_all(
+                self._perturbed(self._params, generator), self._model_state, inputs,
+                training=True, generator=generator)
+            outs = [acts[o] for o in self.conf.outputs]
+            eps = [self._as_input(e).to(o.dtype) for e, o in zip(epsilons, outs)]
+            wrt = trained + [inputs[k] for k in float_in]
+            grads = list(torch.autograd.grad(outs, wrt, grad_outputs=eps, allow_unused=True))
+        finally:
+            for t in trained:
+                t.requires_grad_(False)
+        g_in = {k: (g if g is not None else torch.zeros_like(inputs[k])).detach()
+                for k, g in zip(float_in, grads[len(trained):])}
+        return (leaf_gradients(self._params, leaves, trained, grads[:len(trained)]), g_in,
+                new_state)
+
     def backprop_gradient(self, inputs, epsilons):
-        raise _unported("backprop_gradient")
+        """Reference external-errors mode (JAX ``:845-868``): given
+        dL/dOutput for each output, computed outside the graph, the
+        ``(param_gradients, {input_name: dL/dInput})`` of a training forward
+        without dropout. No update."""
+        self._ensure_init()
+        gp, g_in, _ = self._external_vjp(inputs, epsilons, None)
+        return gp, g_in
 
     def fit_external(self, inputs, epsilons):
-        raise _unported("fit_external")
+        """An external-errors training step (JAX ``:870-900``): backprop the
+        output cotangents through a training forward (dropout, weight noise)
+        and apply the configured updater; the layers' new state replaces the
+        old. Returns ``{input_name: dL/dInput}``."""
+        self._ensure_init()
+        optimizer = self._ensure_optimizer()
+        gp, g_in, new_state = self._external_vjp(inputs, epsilons, self.rng.next_generator())
+        optimizer.step(self._params, gp)
+        self._model_state = assign_state(self._model_state,
+                                         tree_map(lambda t: t.detach(), new_state))
+        self._iteration += 1
+        return g_in
+
+    def _zero_carries(self, batch: int, dtype) -> Dict[str, Any]:
+        return {n.name: n.obj.init_carry(batch, dtype, self.device)
+                for n in self.conf.nodes
+                if n.kind == "layer" and isinstance(n.obj, BaseRecurrentLayer)}
+
+    def _rnn_step(self, carries, inputs):
+        """One chunk of inference from ``carries``: ``(out, new_carries)``,
+        the output as :meth:`output` gives it."""
+        with torch.inference_mode():
+            acts, _, _, new_carries = self._forward_all(
+                self._params, self._model_state, inputs, training=False, carries=carries)
+            outs = [acts[o] for o in self.conf.outputs]
+        return (outs[0] if len(outs) == 1 else outs), new_carries
+
+    def _stream_inputs(self, xs):
+        inputs = {n: self._as_input(x) for n, x in zip(self.conf.inputs, xs)}
+        first = next(iter(inputs.values()))
+        return inputs, first.shape[0], carry_dtype(first, get_environment().compute_dtype)
 
     def rnn_time_step(self, *xs):
-        raise _unported("rnn_time_step")
+        """Stateful inference (reference ``ComputationGraph.rnnTimeStep``,
+        JAX ``:902-919``): one chunk per input, the recurrent state carried
+        across calls until :meth:`rnn_clear_previous_state`."""
+        self._ensure_init()
+        inputs, batch, dt = self._stream_inputs(xs)
+        if self._rnn_carries is None:
+            self._rnn_carries = self._zero_carries(batch, dt)
+        out, self._rnn_carries = self._rnn_step(self._rnn_carries, inputs)
+        return out
 
     def rnn_time_step_external(self, *xs, state):
-        raise _unported("rnn_time_step_external")
+        """Pure-functional ``rnnTimeStep``: advance ``state`` (from
+        :meth:`rnn_get_state`/:meth:`rnn_zero_state`, or ``None`` for a
+        fresh stream) by one chunk without touching the stored state.
+        Returns ``(out, new_state)``."""
+        self._ensure_init()
+        inputs, batch, dt = self._stream_inputs(xs)
+        if state is None:
+            state = self._zero_carries(batch, dt)
+        else:
+            state = tree_map(lambda t: torch.as_tensor(t).to(self.device), state)
+        return self._rnn_step(state, inputs)
 
     def rnn_clear_previous_state(self) -> None:
-        raise _unported("rnn_clear_previous_state")
+        self._rnn_carries = None
 
     def rnn_get_state(self):
-        raise _unported("rnn_get_state")
+        """Copy of the stored recurrent state: ``{node: carry}`` of CPU
+        tensors in the carries' own dtypes, or ``None``. Round-trips
+        exactly through :meth:`rnn_set_state`."""
+        if self._rnn_carries is None:
+            return None
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), self._rnn_carries)
 
     def rnn_set_state(self, state) -> None:
-        raise _unported("rnn_set_state")
+        """Install a state from :meth:`rnn_get_state` (tensors or numpy
+        arrays); ``None`` clears."""
+        self._ensure_init()
+        self._rnn_carries = (None if state is None else
+                             tree_map(lambda t: torch.as_tensor(t).to(self.device), state))
 
     def rnn_zero_state(self, batch: int, like=None):
-        raise _unported("rnn_zero_state")
+        """Fresh zero state for a ``batch``-row stream; ``like`` (an example
+        input) pins the carry dtype as the stateful path does."""
+        self._ensure_init()
+        dt = (get_environment().compute_dtype if like is None else
+              carry_dtype(self._as_input(like), get_environment().compute_dtype))
+        return self._zero_carries(batch, dt)
 
     def evaluate(self, iterator, output_index: int = 0):
         """Classification evaluation of one output over an iterator of

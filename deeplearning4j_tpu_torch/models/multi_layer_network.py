@@ -2,7 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/models/multi_layer_network.py``:
 ``init``, ``fit`` (with truncated BPTT), ``score``, ``output``,
-``feed_forward``, ``evaluate`` (and its regression and ROC forms),
+``feed_forward``, ``evaluate`` (and its regression and ROC forms), mask
+propagation (a layer with ``transform_mask`` realigns the features mask
+for the layers after it, and the default labels mask of per-timestep labels
+is the mask at the output, JAX ``:212-214``, ``:592-602``),
 listeners, the stateful RNN API (``rnn_time_step``,
 ``rnn_time_step_external``, ``rnn_activate_using_stored_state``,
 ``rnn_get_state``/``rnn_set_state``/``rnn_zero_state``/
@@ -59,7 +62,7 @@ from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.recurrent_layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
-from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for
+from deeplearning4j_tpu_torch.runtime.rng import RngManager, generator_for, recomputed
 from deeplearning4j_tpu_torch.runtime.state_packing import assign_state
 from deeplearning4j_tpu_torch.runtime.trees import tree_leaves, tree_map, tree_unflatten_like
 from deeplearning4j_tpu_torch.train.listeners import PerformanceListener, TrainingListener
@@ -69,6 +72,22 @@ from deeplearning4j_tpu_torch.train.updaters import NetworkOptimizer, reg_score
 
 def _layer_key(i: int, layer: Layer) -> str:
     return layer.name or f"layer_{i}"
+
+
+def trained_leaves(params, frozen_keys) -> List[torch.Tensor]:
+    """The floating-point leaves of ``params`` that take a gradient: not
+    those of a frozen layer, whose update is zero (the ``NoOp`` updater),
+    so the backward pass stops at the first layer that trains."""
+    frozen = {id(t) for k in frozen_keys for t in tree_leaves(params.get(k, {}))}
+    return [t for t in tree_leaves(params) if t.is_floating_point() and id(t) not in frozen]
+
+
+def leaf_gradients(params, leaves, trained, grads):
+    """The gradient of every leaf, nested as ``params``: ``grads`` (in
+    ``trained`` order) where there is one, zeros elsewhere."""
+    by_id = dict(zip((id(t) for t in trained), grads))
+    return tree_unflatten_like(params, [by_id.get(id(t)) if by_id.get(id(t)) is not None
+                                        else torch.zeros_like(t) for t in leaves])
 
 
 def _group_compatible(a, b) -> bool:
@@ -161,6 +180,10 @@ class MultiLayerNetwork:
         new_state = dict(model_state)
         last_in = x
         n = len(self.layers)
+        # a chain: every layer boundary is a cut point, so with remat on each
+        # hidden layer is recomputed in the backward pass (JAX :171-176)
+        remat = (get_environment().remat_segments and training and carries is None
+                 and n > 2)
         for i, layer in enumerate(self.layers):
             k = _layer_key(i, layer)
             if i in self.conf.preprocessors:
@@ -176,11 +199,31 @@ class MultiLayerNetwork:
                     p, carries[k], x, training=training, generator=generator, mask=fmask)
             else:
                 s = model_state.get(k, {})
-                x, s_new = layer.forward(p, s, x, training=training, generator=generator,
-                                         mask=fmask)
+                if remat:
+                    x, s_new = recomputed(
+                        lambda x_, l_=layer, p_=p, s_=s, m_=fmask: l_.forward(
+                            p_, s_, x_, training=True, generator=generator, mask=m_), x)
+                else:
+                    x, s_new = layer.forward(p, s, x, training=training, generator=generator,
+                                             mask=fmask)
                 if s:
                     new_state[k] = s_new
+            if fmask is not None and hasattr(layer, "transform_mask"):
+                # a layer that changes the time axis realigns the mask
+                fmask = layer.transform_mask(fmask)
         return x, last_in, new_state, new_carries
+
+    def _output_time_mask(self, fmask):
+        """The features mask carried through every layer that changes the
+        time axis (JAX ``:592-602``): the default labels mask of
+        per-timestep labels lines up with the output's time axis, not the
+        input's."""
+        if fmask is None:
+            return None
+        for layer in self.layers:
+            if hasattr(layer, "transform_mask"):
+                fmask = layer.transform_mask(fmask)
+        return fmask
 
     def _perturbed(self, params, generator):
         """``params`` cast to ``compute_dtype``, with each layer that has
@@ -374,7 +417,7 @@ class MultiLayerNetwork:
         x, y = self._as_input(ds.features, staged), self._as_input(ds.labels, staged)
         fm = None if ds.features_mask is None else self._as_input(ds.features_mask, staged)
         lm = self._as_input(ds.labels_mask, staged) if ds.labels_mask is not None \
-            else (fm if y.dim() == 3 else None)
+            else (self._output_time_mask(fm) if y.dim() == 3 else None)
         return x, y, fm, lm
 
     def _fit_epochs(self, iterator, epochs: int, ploop, prefetch_buffer: int = 0,
@@ -472,7 +515,7 @@ class MultiLayerNetwork:
         loss and the new carries."""
         optimizer = self._ensure_optimizer()
         leaves = tree_leaves(self._params)
-        trained = [t for t in leaves if t.is_floating_point()]
+        trained = trained_leaves(self._params, self._frozen_keys())
         for t in trained:
             t.requires_grad_(True)
         try:
@@ -484,14 +527,13 @@ class MultiLayerNetwork:
         finally:
             for t in trained:
                 t.requires_grad_(False)
-        per_leaf = []
-        for t in leaves:
-            g = next(grads) if t.is_floating_point() else None
-            per_leaf.append(torch.zeros_like(t) if g is None else g)
-        optimizer.step(self._params, tree_unflatten_like(self._params, per_leaf))
+        optimizer.step(self._params, leaf_gradients(self._params, leaves, trained, grads))
         self._apply_constraints()
         self._model_state = assign_state(self._model_state, new_state)
         return loss.detach(), new_carries
+
+    def _frozen_keys(self) -> List[str]:
+        return [_layer_key(i, l) for i, l in enumerate(self.layers) if l.frozen]
 
     # ------------------------------------------------------------- runtime
     def _train_step_fn(self):
@@ -688,12 +730,16 @@ class MultiLayerNetwork:
     def evaluate(self, iterator):
         """Classification evaluation over an iterator (reference
         ``evaluate(DataSetIterator)``, JAX ``:762-775``): the labels mask, or
-        else the features mask, selects the timesteps of sequence output."""
+        else the features mask carried to the output's time axis
+        (:meth:`_output_time_mask`), selects the timesteps of sequence
+        output."""
         from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
         ev = Evaluation()
         iterator.reset()
         for batch in iterator:
-            m = batch.labels_mask if batch.labels_mask is not None else batch.features_mask
+            m = batch.labels_mask
+            if m is None and batch.features_mask is not None:
+                m = self._output_time_mask(self._as_input(batch.features_mask)).cpu().numpy()
             ev.eval(np.asarray(batch.labels), self._predictions(batch, batch.features_mask),
                     mask=None if m is None else np.asarray(m))
         return ev

@@ -6,9 +6,14 @@ from deeplearning4j_tpu_torch.nn.attention_layers import (BertEmbeddingLayer, Cl
                                                           TransformerEncoderBlock,
                                                           TransformerEncoderStack)
 from deeplearning4j_tpu_torch.nn.base import GlobalConfig, Layer, register_layer
-from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, ConvolutionLayer,
-                                                     GlobalPoolingLayer, PoolingType,
-                                                     SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conv_layers import (BatchNormalization, Convolution1DLayer,
+                                                     ConvolutionLayer, Deconvolution2D,
+                                                     GlobalPoolingLayer,
+                                                     LocalResponseNormalization, PoolingType,
+                                                     SeparableConvolution2D, SpaceToDepthLayer,
+                                                     SubsamplingLayer, Upsampling2D,
+                                                     ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.extra_layers import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.nn.config import (MultiLayerConfiguration,
                                                 NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.constraints import (DropConnect, MaxNormConstraint,
@@ -27,12 +32,15 @@ from deeplearning4j_tpu_torch.nn.recurrent_layers import (GRU, LSTM, BaseRecurre
 
 __all__ = [
     "ActivationLayer", "BaseRecurrentLayer", "BatchNormalization", "BertEmbeddingLayer",
-    "Bidirectional", "ClsPoolingLayer", "ConvolutionLayer", "DenseLayer", "DropConnect",
-    "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer", "GRU", "GlobalConfig",
-    "GlobalPoolingLayer", "GravesLSTM", "InputType", "LSTM", "LastTimeStep", "Layer",
-    "LearnedPositionalEmbeddingLayer", "LossLayer", "MaxNormConstraint",
-    "MinMaxNormConstraint", "MultiLayerConfiguration", "NeuralNetConfiguration",
-    "NonNegativeConstraint", "OutputLayer", "PoolingType", "RnnOutputLayer",
-    "SelfAttentionLayer", "SimpleRnn", "SubsamplingLayer", "TransformerEncoderBlock",
-    "TransformerEncoderStack", "UnitNormConstraint", "WeightNoise", "register_layer",
+    "Bidirectional", "ClsPoolingLayer", "Convolution1DLayer", "ConvolutionLayer",
+    "Deconvolution2D", "DenseLayer", "DropConnect", "DropoutLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "GRU", "GlobalConfig", "GlobalPoolingLayer", "GravesLSTM",
+    "InputType", "LSTM", "LastTimeStep", "Layer", "LearnedPositionalEmbeddingLayer",
+    "LocalResponseNormalization", "LossLayer", "MaxNormConstraint", "MinMaxNormConstraint",
+    "MultiLayerConfiguration", "NeuralNetConfiguration", "NonNegativeConstraint",
+    "OutputLayer", "PoolingType", "RnnOutputLayer", "SelfAttentionLayer",
+    "SeparableConvolution2D", "SimpleRnn", "SpaceToDepthLayer", "SubsamplingLayer",
+    "TransformerEncoderBlock", "TransformerEncoderStack", "UnitNormConstraint",
+    "Upsampling2D", "WeightNoise", "Yolo2OutputLayer", "ZeroPaddingLayer",
+    "register_layer",
 ]

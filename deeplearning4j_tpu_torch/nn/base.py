@@ -68,10 +68,14 @@ def keep_mask(x: torch.Tensor, keep: float, generator: torch.Generator) -> torch
     package's stream (and between CPU and device), as every draw of the two
     packages does. A generator already on ``x``'s CUDA device (a fit's
     stream, :func:`~..runtime.rng.device_generator`) is drawn from
-    directly."""
-    from deeplearning4j_tpu_torch.runtime.rng import device_generator
-    device_gen = device_generator(generator, x.device)
-    return torch.rand(x.shape, generator=device_gen, device=x.device) < keep
+    directly. The draw is :func:`~..runtime.rng.taped`: a rematerialized
+    segment's recomputation gets the mask its forward drew."""
+    from deeplearning4j_tpu_torch.runtime.rng import device_generator, taped
+
+    def draw():
+        device_gen = device_generator(generator, x.device)
+        return torch.rand(x.shape, generator=device_gen, device=x.device) < keep
+    return taped(draw)
 
 
 @dataclasses.dataclass

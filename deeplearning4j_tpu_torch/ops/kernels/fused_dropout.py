@@ -106,9 +106,12 @@ def seed_bits(seed: Seed) -> int:
 
 def seed_from_key(generator: torch.Generator) -> torch.Tensor:
     """One int32 seed drawn from ``generator`` (JAX ``seed_from_key``, which
-    folds a PRNG key down to the kernel's scalar seed)."""
-    return torch.randint(-2 ** 31, 2 ** 31, (), generator=generator, dtype=torch.int64,
-                         device=generator.device).to(torch.int32)
+    folds a PRNG key down to the kernel's scalar seed); taped, as
+    ``keep_mask``'s draws are."""
+    from deeplearning4j_tpu_torch.runtime.rng import taped
+    return taped(lambda: torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
+                                       dtype=torch.int64,
+                                       device=generator.device).to(torch.int32))
 
 
 def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,7 +15,8 @@ The training runtime's switches are those of the JAX package
 ``dispatch_unroll`` (``DL4J_TPU_DISPATCH_UNROLL``), ``aot_dispatch``
 (``DL4J_TPU_AOT_DISPATCH=0``), the kernels' build cache
 (``DL4J_TPU_COMPILE_CACHE``, :meth:`Environment.set_compile_cache`) and
-``nan_panic`` (``DL4J_TPU_NAN_PANIC=1``).
+``nan_panic`` (``DL4J_TPU_NAN_PANIC=1``), and ``remat_segments``
+(``DL4J_TPU_REMAT=1``, :meth:`Environment.set_remat`).
 """
 
 from __future__ import annotations
@@ -73,6 +74,12 @@ class Environment:
       the device every step).
     - ``cache_compiled``: the kernels' build directory when
       :meth:`set_compile_cache` moved it, else ``None`` (``_build/``).
+    - ``remat_segments``: a training forward keeps only the activations at
+      its single-tensor cut points (a ``ComputationGraph``'s, or every
+      hidden layer's boundary in a ``MultiLayerNetwork``) and recomputes
+      what lies between them in the backward pass
+      (``torch.utils.checkpoint``): memory traded for recomputation (JAX
+      ``environment.py:61-65``); off by default.
     """
 
     default_dtype: torch.dtype = torch.float32
@@ -83,6 +90,7 @@ class Environment:
     aot_dispatch: bool = True
     nan_panic: bool = False
     cache_compiled: Optional[str] = None
+    remat_segments: bool = False
 
     def set_default_dtype(self, dtype) -> "Environment":
         self.default_dtype = coerce_dtype(dtype)
@@ -111,6 +119,10 @@ class Environment:
         self.aot_dispatch = bool(enabled)
         return self
 
+    def set_remat(self, enabled: bool = True) -> "Environment":
+        self.remat_segments = bool(enabled)
+        return self
+
     def set_nan_panic(self, enabled: bool) -> "Environment":
         self.nan_panic = bool(enabled)
         return self
@@ -129,7 +141,8 @@ class Environment:
                 "device": self.device, "packed_state": self.packed_state,
                 "dispatch_unroll": self.dispatch_unroll,
                 "aot_dispatch": self.aot_dispatch, "nan_panic": self.nan_panic,
-                "cache_compiled": self.cache_compiled}
+                "cache_compiled": self.cache_compiled,
+                "remat_segments": self.remat_segments}
 
     def set_device(self, device: Optional[Union[str, torch.device]]) -> "Environment":
         """``"cuda"``/``"cuda:N"``, ``"cpu"``, or ``None`` for the default
@@ -166,7 +179,8 @@ def get_environment() -> Environment:
     """The process-wide :class:`Environment`. The first call reads
     ``DL4J_TPU_DTYPE``, ``DL4J_TPU_COMPUTE_DTYPE``, ``DL4J_TPU_NAN_PANIC``,
     ``DL4J_TPU_PACKED_STATE``, ``DL4J_TPU_DISPATCH_UNROLL``,
-    ``DL4J_TPU_AOT_DISPATCH`` and ``DL4J_TPU_COMPILE_CACHE``."""
+    ``DL4J_TPU_AOT_DISPATCH``, ``DL4J_TPU_COMPILE_CACHE`` and
+    ``DL4J_TPU_REMAT``."""
     global _instance
     with _lock:
         if _instance is None:
@@ -177,6 +191,8 @@ def get_environment() -> Environment:
                 env.set_compute_dtype(os.environ[_ENV_PREFIX + "COMPUTE_DTYPE"])
             if os.environ.get(_ENV_PREFIX + "NAN_PANIC", "").lower() in ("1", "true"):
                 env.nan_panic = True
+            env.remat_segments = os.environ.get(
+                _ENV_PREFIX + "REMAT", "").lower() in ("1", "true")
             if os.environ.get(_ENV_PREFIX + "PACKED_STATE", "").lower() in ("0", "false"):
                 env.packed_state = False
             if os.environ.get(_ENV_PREFIX + "DISPATCH_UNROLL", "").isdigit():

@@ -15,12 +15,22 @@ of each fit from the network's key (:meth:`RngManager.peek_seed`). A
 captured CUDA graph registers it, so every replay advances its Philox
 offset and draws fresh masks, and a K-step graph consumes the stream as K
 eager steps do: the masks do not depend on how the steps are grouped.
+
+A :class:`DrawTape` makes a region's draws repeatable: the layers draw
+their dropout masks and seeds through :func:`taped`, which records each
+draw while a tape records and hands the recorded results back, in order,
+while it replays. A rematerialized graph segment runs once under a
+recording tape and is recomputed in the backward pass under the same tape
+replaying, so the recomputation sees the forward's masks (the generators'
+own states, which ``torch.utils.checkpoint`` does not restore, are never
+rewound).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -113,3 +123,61 @@ def device_generator(generator: torch.Generator, device) -> torch.Generator:
         return generator
     seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
     return torch.Generator(device=device).manual_seed(seed)
+
+
+class DrawTape:
+    """The random draws of one region, recorded on its first run and
+    replayed on every later run (see :func:`taped`)."""
+
+    __slots__ = ("draws", "_pos", "_runs")
+
+    def __init__(self):
+        self.draws: List[Any] = []
+        self._pos = 0
+        self._runs = 0
+
+    @contextlib.contextmanager
+    def run(self):
+        """One run of the region: the first records, the later ones replay
+        from the start."""
+        prev = getattr(_tape_local, "tape", None)
+        self._pos, self._runs = 0, self._runs + 1
+        _tape_local.tape = self
+        try:
+            yield self
+        finally:
+            _tape_local.tape = prev
+
+    def _next(self, draw: Callable[[], Any]):
+        if self._runs == 1:
+            v = draw()
+            self.draws.append(v)
+            return v
+        v = self.draws[self._pos]
+        self._pos += 1
+        return v
+
+
+_tape_local = threading.local()
+
+
+def taped(draw: Callable[[], Any]):
+    """``draw()``, or inside a :class:`DrawTape`'s run, the draw recorded
+    at this position of its first run."""
+    tape = getattr(_tape_local, "tape", None)
+    return draw() if tape is None else tape._next(draw)
+
+
+def recomputed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint(use_reentrant=False)``:
+    only its inputs and outputs are kept, and the backward pass runs it
+    again, replaying its first run's random draws from a :class:`DrawTape`
+    (checkpoint restores no explicit generator). What ``fn`` returns is
+    taken from the first run."""
+    from torch.utils.checkpoint import checkpoint
+    tape = DrawTape()
+
+    def run(*a):
+        with tape.run():
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

@@ -275,6 +275,13 @@ def step_args_signature(args) -> tuple:
     return tuple(leaf(a) for a in args)
 
 
+def _step_mode() -> tuple:
+    """The environment switches a captured step's program depends on
+    (rematerialization), part of every graph's key."""
+    from deeplearning4j_tpu_torch.runtime.environment import get_environment
+    return ("remat", get_environment().remat_segments)
+
+
 class PackedStepLoop:
     """Drives a network's train step inside ``fit``, packed and through its
     :class:`~.compile_cache.AotCache` (``net._runtime_cache["__aot__"]``,
@@ -351,8 +358,8 @@ class PackedStepLoop:
             self._set_sig(("plain",) + state_signature(tree_leaves(self._net._state_tree())))
         elif self._packed is None:
             self._pack()
-        loss = self._aot.call((self._sig[0], self._sig, step_args_signature(rest_args)),
-                              self._net._train_step_fn(), *rest_args)
+        loss = self._aot.call((self._sig[0], self._sig, step_args_signature(rest_args),
+                               _step_mode()), self._net._train_step_fn(), *rest_args)
         self._check(loss)
         return (loss,)
 
@@ -370,8 +377,8 @@ class PackedStepLoop:
         fns = self._net._runtime_cache.setdefault("__unrolled__", {})
         if k not in fns:
             fns[k] = make_unrolled_packed_step(self._net._train_step_fn(), None, k)
-        losses = self._aot.call(("packed-group", self._sig, k, step_args_signature(group[0])),
-                                fns[k], [tuple(args) for args in group])
+        losses = self._aot.call(("packed-group", self._sig, k, step_args_signature(group[0]),
+                                 _step_mode()), fns[k], [tuple(args) for args in group])
         self._check(losses)
         return [losses[i] for i in range(k)]
 

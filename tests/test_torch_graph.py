@@ -181,10 +181,17 @@ def test_unported_parts_raise_by_name():
     net = ComputationGraph(ComputationGraphConfiguration.from_json(_jax_conf().to_json()),
                            device="cpu").init()
     x, _ = _batch(0)
-    for call in (lambda: net.backprop_gradient(x, x), lambda: net.fit_external(x, x),
-                 lambda: net.rnn_time_step(x), lambda: net.rnn_time_step_external(x, state=None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    # the external-errors mode and the stateful API, once refused here, run
+    # (held against the JAX package in test_torch_graph_rnn.py)
+    eps = np.ones((B, 5), np.float32)
+    gp, g_in = net.backprop_gradient(x, eps)
+    assert set(gp) == set(net.params()) and tuple(g_in["in"].shape) == x.shape
+    assert tuple(net.fit_external(x, eps)["in"].shape) == x.shape
+    out, state = net.rnn_time_step_external(x, state=None)
+    assert state == {} and tuple(out.shape) == (B, 5)
+    with pytest.raises(NotImplementedError, match="optimization_algo"):
+        net.conf.global_conf.optimization_algo = "LBFGS"
+        net.fit(x, eps)
 
 
 def test_output_matches_jax(jax_graph):

@@ -231,11 +231,13 @@ def test_configuration_json_is_the_same_schema(graves):
 def test_unported_layer_and_preprocessor_are_named():
     from deeplearning4j_tpu.nn.config import NeuralNetConfiguration as JNN
     from deeplearning4j_tpu.nn.core_layers import OutputLayer as JOut
-    from deeplearning4j_tpu.nn.conv_layers import LocalResponseNormalization as JLrn
-    conf = (JNN.builder().list().layer(JLrn())
+    # LocalResponseNormalization, the layer refused here before, is ported;
+    # PReLULayer is not yet
+    from deeplearning4j_tpu.nn.misc_layers import PReLULayer as JPrelu
+    conf = (JNN.builder().list().layer(JPrelu())
             .layer(jrec.RnnOutputLayer(n_out=3)).set_input_type(JInputType.recurrent(5))
             .build())
-    with pytest.raises(KeyError, match="LocalResponseNormalization"):
+    with pytest.raises(KeyError, match="PReLULayer"):
         tconfig.MultiLayerConfiguration.from_json(conf.to_json())
     # the preprocessor half, once refused by name: an image into an output
     # layer now gets the JAX package's flattening preprocessor

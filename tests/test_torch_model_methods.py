@@ -215,9 +215,13 @@ def test_graph_clone(tmp_path):
                                          ("rnn_set_state", (None,)),
                                          ("rnn_zero_state", (2,))])
 def test_graph_rnn_state_methods_raise_by_name(method, args, tmp_path):
+    # once refused by name, the stored-state methods now run (held against
+    # JAX on an LSTM graph in test_torch_graph_rnn.py); this graph holds no
+    # recurrent layer, so its state is empty
     net = _both(_jax_graph(), tmp_path)
-    with pytest.raises(NotImplementedError, match=method):
-        getattr(net, method)(*args)
+    got = getattr(net, method)(*args)
+    assert got == ({} if method == "rnn_zero_state" else None)
+    assert net.rnn_get_state() is None
 
 
 @pytest.mark.parametrize("what", ["Nadam", "AdaGrad", "schedule", "gradient_normalization",
