@@ -305,6 +305,33 @@ the card and exits nonzero if any phase fails:
             conv_stats launches a step (a recomputed segment's pairs launch
             again) and the losses.
 
+10. serving: (after ``zoo``; ``--serving`` runs the build and this phase only)
+            serving's device side. ``Bert.base()`` bf16 from an archive
+            through ``ModelRegistry.load`` with a warm-up example, buckets
+            1-64, 2 replicas on cuda:0 (``devices=[cuda:0, cuda:0]``), 2
+            batches in flight: one captured CUDA graph per (bucket,
+            replica) after warm-up and the same count after traffic; 8
+            clients x 3 requests of 1-64 rows against the plain attention's
+            forward (<= 2e-2), 12 flash launches a batch through replays;
+            answers bit for bit across the replicas, against depth 0,
+            against eager ``output`` at the bucket shape, and under 8
+            clients of full-bucket requests with both replicas replaying at
+            once; p50 of 20 sequential 64-row requests, its device busy
+            time (``torch.profiler``) and host share, and samples/s with
+            p50/max latency of 8 clients, beside the synchronous eager arm
+            (depth 0, ``aot_dispatch`` off, one replica). The GravesLSTM
+            and GRU char-RNNs (rows 1 and 5) the same way, 2 launches a
+            batch. ``SessionStore`` over the LSTM char-RNN (row 3): 16
+            streams x 8 steps of 32 tokens at the session bucket 16, every
+            stream bit for bit its serial ``rnn_time_step`` loop padded to
+            16 rows, 2 launches a step batch, step p50. The lifecycle: a
+            1 ms deadline, a burst past ``queue_limit=4`` (``Overloaded``
+            with ``retry_after_ms``), a forward chaos fault failing only its
+            batch, the breaker open / half-open / closed, a hot-swap under
+            8 clients capturing nothing on traffic, a saved manifest
+            replayed by a fresh registry, ``add_replica``/``remove_replica``
+            under traffic, ``undeploy`` draining.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
 and the backward of each LSTM cell and of the GRU, the inference and saving flash
@@ -722,6 +749,20 @@ ZOO_RNN_CHUNK, ZOO_RNN_TBPTT, ZOO_RNN_WINDOWS = 64, 64, 5
 # and without remat from the same weights; losses within ZOO_REMAT_TOL.
 ZOO_REMAT_STEPS, ZOO_REMAT_TOL = 5, 2e-2
 
+# serving (the device side of the served path): every model of the phase is
+# served from SERVING_REPLICAS parameter copies on cuda:0 with SERVING_DEPTH
+# batches in flight, warmed before traffic over the buckets 1-64 (one
+# captured CUDA graph per bucket and replica); SERVING_SEQ sequential 64-row
+# requests give the p50, SERVING_CONC = (clients, requests each) of 1-64 rows
+# the concurrent samples/s, beside an A/B arm of the synchronous eager path
+# (pipeline_depth 0, aot_dispatch off, one replica).
+SERVING_REPLICAS, SERVING_DEPTH, SERVING_SEQ, SERVING_CONC = 2, 2, 20, (8, 4)
+# Sessions over the LSTM char-RNN: SESSION_STREAMS concurrent streams of
+# SESSION_STEPS steps of SESSION_T one-hot tokens, every step batch at the one
+# session bucket SESSION_BUCKET; each stream bit for bit against a serial
+# rnn_time_step loop padded to that bucket (the stream in row 0).
+SESSION_BUCKET, SESSION_STREAMS, SESSION_STEPS, SESSION_T = 16, 16, 8, 32
+
 # The distributed trainer's worker, one process per rank, both on cuda:0:
 # argv rank world port threshold steps local_batch features hidden.
 DIST_WORKER = r"""
@@ -845,6 +886,12 @@ def char_rnn_conf(cell, tbptt_length):
             .tbptt_fwd_length(tbptt_length).tbptt_back_length(tbptt_length).build())
 
 
+def aot_replays():
+    """CUDA graph replays of every ``AotCache`` so far."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+    return compile_cache.stats()["aot_replays"]
+
+
 def all_counters():
     """Every kernel wrapper's launch counter."""
     from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
@@ -936,6 +983,14 @@ def bits_equal(a, b):
     as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     return a.shape == b.shape and a.dtype == b.dtype and \
         torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
+
+
+def arrays_equal(a, b):
+    """Bitwise equality of two numpy arrays (so -0.0 differs from +0.0)."""
+    import numpy as np
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
 
 
 def attention_pairs(b, h, t_q, t_k, mask, causal):
@@ -4503,6 +4558,741 @@ class Smoke:
         del x, y, init
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ serving
+    def serving_phase(self, workdir):
+        """Serving's device side at full width: BERT-base and two char-RNNs
+        from replicas on captured CUDA graphs (2 parameter copies on cuda:0,
+        2 batches in flight, warmed before traffic), sessions over the LSTM
+        char-RNN, and the lifecycle (deadlines, admission, a chaos fault, the
+        breaker, a hot-swap, a manifest replay, a resize, undeploy); each
+        part a phase of its own."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        try:
+            for name, part in (("bert", lambda: self.serving_bert(workdir)),
+                               ("graves", lambda: self.serving_char_rnn("graves", workdir)),
+                               ("gru", lambda: self.serving_char_rnn("gru", workdir)),
+                               ("sessions", lambda: self.serving_sessions(workdir)),
+                               ("lifecycle", lambda: self.serving_lifecycle(workdir))):
+                self.phase(f"serving {name}", part)
+        finally:
+            env.set_aot_dispatch(True)
+            env.allow_bfloat16()
+
+    @staticmethod
+    def serve_clients(reg, name, reqs, timeout_ms=None):
+        """One thread per list of ``reqs`` sending its requests in turn:
+        ``(answers, latencies s, wall s, errors)``."""
+        answers = [[None] * len(r) for r in reqs]
+        lat, errors = [], []
+        lock = threading.Lock()
+
+        def client(c):
+            for k, x in enumerate(reqs[c]):
+                t0 = time.perf_counter()
+                try:
+                    answers[c][k] = reg.predict(name, x, timeout_ms=timeout_ms)
+                except Exception as e:
+                    with lock:
+                        errors.append(e)
+                    continue
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=client, args=(c,), name=f"smoke-serve-{c}")
+                   for c in range(len(reqs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            errors.append(RuntimeError("a client thread hung"))
+        return answers, lat, wall, errors
+
+    def serving_times(self, reg, name, x_full, conc, tag):
+        """p50 of SERVING_SEQ sequential full-bucket requests, the device busy
+        time of one (``torch.profiler``) and the host share (p50 less busy),
+        and samples/s with p50/max latency of the concurrent requests
+        ``conc``. Returns the numbers."""
+        import numpy as np
+        reg.predict(name, x_full)
+        ms = []
+        for _ in range(SERVING_SEQ):
+            t0 = time.perf_counter()
+            reg.predict(name, x_full)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        p50 = float(np.median(ms))
+        per, _ = self.profile_kernels(lambda: reg.predict(name, x_full), 5)
+        busy = sum(t for t, _ in per.values())
+        _, lat, wall, errors = self.serve_clients(reg, name, conc)
+        rows = sum(x.shape[0] for r in conc for x in r)
+        lat_ms = sorted(1e3 * v for v in lat)
+        out = {"p50_ms": p50, "busy_ms": busy, "host_ms": p50 - busy,
+               "host_share": (p50 - busy) / p50, "samples_s": rows / wall,
+               "conc_p50_ms": lat_ms[len(lat_ms) // 2] if lat_ms else float("nan"),
+               "conc_max_ms": lat_ms[-1] if lat_ms else float("nan")}
+        self.check(not errors, f"{tag}: concurrent timing requests answered, errors={errors[:3]}")
+        log(f"{tag}: one {x_full.shape[0]}-row request at a time, {SERVING_SEQ} requests: p50 "
+            f"{p50:.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}); device busy "
+            f"{busy:.3f} ms a request (torch.profiler), host {p50 - busy:.3f} ms = "
+            f"{100 * (p50 - busy) / p50:.1f}% of the p50; {SERVING_CONC[0]} clients x "
+            f"{SERVING_CONC[1]} requests of 1-{x_full.shape[0]} rows ({rows} rows): "
+            f"{rows / wall:.1f} samples/s, latency p50 {out['conc_p50_ms']:.3f} ms, max "
+            f"{out['conc_max_ms']:.3f} ms [{self.card}]")
+        return out
+
+    def serving_exactness(self, reg, names, model, probe, pad_to, tag):
+        """Bit-for-bit checks on sequential requests (each alone in its
+        bucket): the first entry of ``names`` serves every request of
+        ``probe`` twice (round robin: one on each replica), the others
+        (depth 0) once; all must equal bit for bit, and are held against the
+        model's eager ``output`` at the bucket shape (reported)."""
+        import numpy as np
+        first = reg.get(names[0])
+        before = dict(first.metrics.snapshot()["replica_batches"])
+        ans = [[reg.predict(names[0], x), reg.predict(names[0], x)] for x in probe]
+        after = first.metrics.snapshot()["replica_batches"]
+        moved = {r: after.get(r, 0) - before.get(r, 0) for r in after}
+        self.check(sorted(moved.values()) == [len(probe)] * SERVING_REPLICAS,
+                   f"{tag}: {len(probe)} sequential requests twice went to each of the "
+                   f"{SERVING_REPLICAS} replicas once: batches per replica {moved}")
+        same = all(arrays_equal(a, b) for a, b in ans)
+        self.check(same, f"{tag}: answers bit for bit across the {SERVING_REPLICAS} replicas "
+                         f"({len(probe)} requests of {[x.shape[0] for x in probe]} rows)")
+        # full-bucket requests from 8 threads: each alone in its batch, both
+        # replicas replaying at once with batches in flight, every answer the
+        # sequential one bit for bit
+        full = probe[-1]
+        conc, _, _, errors = self.serve_clients(reg, names[0], [[full] * 3 for _ in range(8)])
+        same = not errors and all(a is not None and arrays_equal(a, ans[-1][0])
+                                  for r in conc for a in r)
+        self.check(same, f"{tag}: 8 clients x 3 full-bucket requests, replicas replaying at "
+                         f"once, bit for bit the sequential answer (errors={errors[:3]})")
+        for other in names[1:]:
+            got = [reg.predict(other, x) for x in probe]
+            self.check(all(arrays_equal(g, a[0]) for g, a in zip(got, ans)),
+                       f"{tag}: pipeline_depth {reg.get(other).batcher.pipeline_depth} "
+                       f"({other}) bit for bit against depth {first.batcher.pipeline_depth}")
+        worst, exact = 0.0, True
+        for x, a in zip(probe, ans):
+            n = x.shape[0]
+            eager = model.output(pad_to(x, next(b for b in first.batcher.buckets if b >= n)))
+            eager = eager.float().cpu().numpy()[:n]
+            exact = exact and arrays_equal(eager, a[0])
+            worst = max(worst, float(np.abs(eager - a[0]).max()))
+        log(f"{tag}: replayed answers against the model's eager output at the bucket shape: "
+            f"{'bit for bit' if exact else 'NOT bit for bit'}, max |difference| {worst:.3g}")
+        self.check(exact, f"{tag}: replayed answers bit for bit against eager model.output at "
+                          f"the bucket shape (max |difference| {worst:.3g})")
+        return ans
+
+    def serving_bert(self, workdir):
+        """``Bert.base()`` bf16 from an archive through ``ModelRegistry.load``
+        with a warm-up example, buckets 1-64, 2 replicas on cuda:0, 2 batches
+        in flight: captures = buckets x replicas after warm-up and after
+        traffic; 8 clients x 3 requests of 1-64 rows against the plain
+        attention; 12 flash launches a batch through replays; bit for bit
+        across replicas, against depth 0 and against eager ``output``; times
+        beside the synchronous eager arm."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.zoo import Bert
+        env = get_environment()
+        env.allow_bfloat16()
+        path = os.path.join(workdir, "bert-base.zip")
+        if not os.path.exists(path):
+            net = Bert.base().init(device=self.device)
+            ModelSerializer.write_model(net, path)
+            del net
+        rng = np.random.default_rng(2121)
+        example = rng.integers(0, BERT_VOCAB, (1, BERT_T))
+        reg = ModelRegistry()
+        try:
+            t0 = time.perf_counter()
+            served = reg.load("bert", path, device=self.device, max_batch_size=BERT_B,
+                              batch_timeout_ms=5.0, warmup_example=example,
+                              devices=[self.device] * SERVING_REPLICAS, replicas=SERVING_REPLICAS,
+                              pipeline_depth=SERVING_DEPTH, replay_manifest=False,
+                              save_manifest=False)
+            b = served.batcher
+            pairs = len(b.buckets) * SERVING_REPLICAS
+            log(f"serving bert: load + warm-up {time.perf_counter() - t0:.1f} s "
+                f"(serving_warmup_seconds {served.metrics.snapshot().get('warmup_seconds')}), "
+                f"buckets {b.buckets}, {b.replica_count} replicas, "
+                f"{b._pool.state_bytes() / 1e6:.0f} MB of parameter copies")
+            self.check(b.compile_count() == pairs,
+                       f"serving bert: {b.compile_count()} graphs after warm-up (expected "
+                       f"{len(b.buckets)} buckets x {SERVING_REPLICAS} replicas = {pairs})")
+            rows = rng.integers(1, BERT_B + 1, (CLIENTS, REQUESTS_PER_CLIENT))
+            rows[0, 0], rows[1, 0] = 1, BERT_B
+            reqs = [[rng.integers(0, BERT_VOCAB, (int(n), BERT_T)) for n in r] for r in rows]
+            counters = all_counters()
+            batches0, replays0 = b.batches, aot_replays()
+            # ---- the main path: counts from 0 just before, read just after
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            answers, lat, wall, errors = self.serve_clients(reg, "bert", reqs)
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            # ----
+            batches, replays = b.batches - batches0, aot_replays() - replays0
+            self.check(not errors, f"serving bert: {len(lat)} requests answered, "
+                                   f"errors={errors[:3]}")
+            self.check(replays == batches,
+                       f"serving bert: {replays} graph replays over the traffic's {batches} "
+                       f"batches (one each: no batch ran eagerly)")
+            want = {c.name: 0 for c in counters}
+            want[fa.counter.name] = BERT_LAYERS * batches
+            self.check(counts == want,
+                       f"serving bert: launches over the traffic {counts[fa.counter.name]} "
+                       f"{fa.counter.name} through replays (expected {BERT_LAYERS} x {batches} "
+                       f"batches), nothing else: {counts}")
+            self.add_launches({fa.counter.name: counts[fa.counter.name]})
+            self.check(b.compile_count() == pairs,
+                       f"serving bert: {b.compile_count()} graphs after traffic (nothing "
+                       f"captured on live traffic; expected {pairs})")
+            model = served.model
+            worst = 0.0
+            with plain_attention():
+                for c in range(CLIENTS):
+                    for k, x in enumerate(reqs[c]):
+                        got, n = answers[c][k], x.shape[0]
+                        bucket = next(bk for bk in b.buckets if bk >= n)
+                        padded = np.zeros((bucket, BERT_T), x.dtype)
+                        padded[:n] = x
+                        ref = model.output(padded).float().cpu().numpy()[:n]
+                        ok = got is not None and got.shape == (n, 2) and \
+                            bool(np.isfinite(got).all())
+                        worst = max(worst, float(np.abs(got - ref).max()) if ok else float("inf"))
+            self.check(worst <= BERT_TOL,
+                       f"serving bert: {CLIENTS * REQUESTS_PER_CLIENT} answers vs the plain "
+                       f"attention's forward: max_abs_err={worst:.3g} tol={BERT_TOL:g}")
+            lat_ms = sorted(1e3 * v for v in lat)
+            log(f"serving bert traffic: {len(lat)} requests, {int(rows.sum())} rows in "
+                f"{wall:.3f} s over {batches} batches (buckets {b.bucket_counts}); latency p50 "
+                f"{lat_ms[len(lat_ms) // 2]:.2f} ms, max {lat_ms[-1]:.2f} ms; "
+                f"{rows.sum() / wall:.0f} samples/s [{self.card}]")
+
+            def pad_ids(x, bucket):
+                out = np.zeros((bucket, BERT_T), x.dtype)
+                out[:x.shape[0]] = x
+                return out
+
+            reg.register("bert-d0", model, max_batch_size=BERT_B, batch_timeout_ms=5.0,
+                         warmup_example=example, devices=[self.device], pipeline_depth=0)
+            probe = [rng.integers(0, BERT_VOCAB, (n, BERT_T))
+                     for n in (1, 7, BERT_B // 2 + 1, BERT_B)]
+            self.serving_exactness(reg, ["bert", "bert-d0"], model, probe, pad_ids,
+                                   "serving bert")
+            reg.undeploy("bert-d0")
+            # times: the pipelined graphs beside the synchronous eager arm
+            conc = [[rng.integers(0, BERT_VOCAB, (int(n), BERT_T))
+                     for n in rng.integers(1, BERT_B + 1, SERVING_CONC[1])]
+                    for _ in range(SERVING_CONC[0])]
+            x_full = rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T))
+            graphs = self.serving_times(reg, "bert", x_full, conc,
+                                        f"serving bert graphs (depth {SERVING_DEPTH}, "
+                                        f"{SERVING_REPLICAS} replicas)")
+            reg.register("bert-sync", model, max_batch_size=BERT_B, batch_timeout_ms=5.0,
+                         devices=[self.device], pipeline_depth=0)
+            env.set_aot_dispatch(False)
+            try:
+                eager = self.serving_times(reg, "bert-sync", x_full, conc,
+                                           "serving bert A/B arm (depth 0, aot_dispatch off, "
+                                           "1 replica)")
+            finally:
+                env.set_aot_dispatch(True)
+            log(f"serving bert A/B: p50 {graphs['p50_ms']:.3f} vs {eager['p50_ms']:.3f} ms, "
+                f"host {graphs['host_ms']:.3f} vs {eager['host_ms']:.3f} ms "
+                f"({100 * graphs['host_share']:.1f}% vs {100 * eager['host_share']:.1f}%), "
+                f"{graphs['samples_s']:.1f} vs {eager['samples_s']:.1f} samples/s [{self.card}]")
+            self.check(b.compile_count() == pairs,
+                       f"serving bert: {b.compile_count()} graphs after every run (expected "
+                       f"{pairs})")
+        finally:
+            reg.shutdown()
+
+    def serving_char_rnn(self, cell, workdir):
+        """The char-RNN of ``cell`` served as BERT is: from an archive with a
+        warm-up example, buckets 1-64, 2 replicas on cuda:0, 2 in flight;
+        answers against the plain forward, 2 launches a batch through
+        replays, bit for bit across replicas, depth 0 and eager ``output``;
+        times (beside the synchronous eager arm for GravesLSTM)."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        env = get_environment()
+        env.allow_bfloat16()
+        tag = f"serving {CHAR_RNN_TAGS[cell]}"
+        kernel = self.cell_module(CHAR_RNN_KERNELS[cell])
+        net = MultiLayerNetwork(char_rnn_conf(cell, SERVE_T), device=self.device).init()
+        path = os.path.join(workdir, f"serving-{cell}.zip")
+        ModelSerializer.write_model(net, path)
+        del net
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(CHAR_RNN_SEEDS[cell] + 77)
+        ids = lambda n: eye[rng.integers(0, VOCAB, (int(n), SERVE_T))]  # noqa: E731
+        reg = ModelRegistry()
+        try:
+            t0 = time.perf_counter()
+            served = reg.load("char-rnn", path, device=self.device, max_batch_size=SERVE_B,
+                              batch_timeout_ms=5.0, warmup_example=ids(1),
+                              devices=[self.device] * SERVING_REPLICAS, replicas=SERVING_REPLICAS,
+                              pipeline_depth=SERVING_DEPTH, replay_manifest=False,
+                              save_manifest=False)
+            b = served.batcher
+            pairs = len(b.buckets) * SERVING_REPLICAS
+            log(f"{tag}: load + warm-up {time.perf_counter() - t0:.1f} s")
+            self.check(b.compile_count() == pairs,
+                       f"{tag}: {b.compile_count()} graphs after warm-up (expected {pairs})")
+            rows = rng.integers(1, SERVE_B + 1, (CLIENTS, REQUESTS_PER_CLIENT))
+            rows[0, 0], rows[1, 0] = 1, SERVE_B
+            reqs = [[ids(n) for n in r] for r in rows]
+            counters = all_counters()
+            batches0, replays0 = b.batches, aot_replays()
+            # ---- the main path: counts from 0 just before, read just after
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            answers, lat, wall, errors = self.serve_clients(reg, "char-rnn", reqs)
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            # ----
+            batches, replays = b.batches - batches0, aot_replays() - replays0
+            self.check(not errors, f"{tag}: {len(lat)} requests answered, errors={errors[:3]}")
+            self.check(replays == batches,
+                       f"{tag}: {replays} graph replays over the traffic's {batches} batches "
+                       f"(one each: no batch ran eagerly)")
+            want = {c.name: 0 for c in counters}
+            want[kernel.counter.name] = LAYERS * batches
+            self.check(counts == want,
+                       f"{tag}: launches over the traffic {counts[kernel.counter.name]} "
+                       f"{kernel.counter.name} (expected {LAYERS} x {batches} batches), "
+                       f"nothing else: {counts}")
+            self.add_launches({kernel.counter.name: counts[kernel.counter.name]})
+            self.check(b.compile_count() == pairs,
+                       f"{tag}: {b.compile_count()} graphs after traffic (expected {pairs})")
+            worst = 0.0
+            for c in range(CLIENTS):
+                for k, x in enumerate(reqs[c]):
+                    got, n = answers[c][k], x.shape[0]
+                    bucket = next(bk for bk in b.buckets if bk >= n)
+                    padded = np.zeros((bucket,) + x.shape[1:], np.float32)
+                    padded[:n] = x
+                    ref = self.plain_forward(served.model, padded)[:n]
+                    ok = got is not None and got.shape == (n, SERVE_T, VOCAB) and \
+                        bool(np.isfinite(got).all())
+                    worst = max(worst, float(np.abs(got - ref).max()) if ok else float("inf"))
+            self.check(worst <= SERVE_TOL,
+                       f"{tag}: {CLIENTS * REQUESTS_PER_CLIENT} answers vs the plain forward: "
+                       f"max_abs_err={worst:.3g} tol={SERVE_TOL:g}")
+            lat_ms = sorted(1e3 * v for v in lat)
+            log(f"{tag} traffic: {len(lat)} requests in {wall:.3f} s over {batches} batches "
+                f"(buckets {b.bucket_counts}); latency p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, "
+                f"max {lat_ms[-1]:.2f} ms [{self.card}]")
+
+            def pad(x, bucket):
+                out = np.zeros((bucket,) + x.shape[1:], x.dtype)
+                out[:x.shape[0]] = x
+                return out
+
+            reg.register("char-rnn-d0", served.model, max_batch_size=SERVE_B,
+                         batch_timeout_ms=5.0, warmup_example=ids(1), devices=[self.device],
+                         pipeline_depth=0)
+            self.serving_exactness(reg, ["char-rnn", "char-rnn-d0"], served.model,
+                                   [ids(n) for n in (1, 5, SERVE_B // 2 + 1, SERVE_B)], pad, tag)
+            reg.undeploy("char-rnn-d0")
+            conc = [[ids(n) for n in rng.integers(1, SERVE_B + 1, SERVING_CONC[1])]
+                    for _ in range(SERVING_CONC[0])]
+            x_full = ids(SERVE_B)
+            graphs = self.serving_times(reg, "char-rnn", x_full, conc,
+                                        f"{tag} graphs (depth {SERVING_DEPTH}, "
+                                        f"{SERVING_REPLICAS} replicas)")
+            if cell == "graves":
+                reg.register("char-rnn-sync", served.model, max_batch_size=SERVE_B,
+                             batch_timeout_ms=5.0, devices=[self.device], pipeline_depth=0)
+                env.set_aot_dispatch(False)
+                try:
+                    eager = self.serving_times(reg, "char-rnn-sync", x_full, conc,
+                                               f"{tag} A/B arm (depth 0, aot_dispatch off, "
+                                               f"1 replica)")
+                finally:
+                    env.set_aot_dispatch(True)
+                log(f"{tag} A/B: p50 {graphs['p50_ms']:.3f} vs {eager['p50_ms']:.3f} ms, host "
+                    f"{graphs['host_ms']:.3f} vs {eager['host_ms']:.3f} ms "
+                    f"({100 * graphs['host_share']:.1f}% vs {100 * eager['host_share']:.1f}%), "
+                    f"{graphs['samples_s']:.1f} vs {eager['samples_s']:.1f} samples/s "
+                    f"[{self.card}]")
+            expect = {CHAR_RNN_RAN[cell][0]: LAYERS}
+            ran = self.recurrent_kernels(lambda: reg.predict("char-rnn", x_full), expect)
+            self.check(ran == expect, f"{tag}: one replayed {SERVE_B}-row request ran {ran} by "
+                                      f"the profiler (expected {expect})")
+        finally:
+            reg.shutdown()
+
+    def serving_sessions(self, workdir):
+        """``SessionStore`` over the LSTM char-RNN (2 replicas on cuda:0):
+        SESSION_STREAMS concurrent streams of SESSION_STEPS steps, each
+        stream bit for bit against a serial ``rnn_time_step`` loop padded to
+        SESSION_BUCKET, 2 launches a step batch through replays, step p50."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import ModelRegistry, SessionStore
+        get_environment().allow_bfloat16()
+        net = MultiLayerNetwork(char_rnn_conf("lstm", SERVE_T), device=self.device).init()
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(3131)
+        chunks = {f"s{i}": [eye[rng.integers(0, VOCAB, (1, SESSION_T))]
+                            for _ in range(SESSION_STEPS)] for i in range(SESSION_STREAMS)}
+        reg = ModelRegistry()
+        store = None
+        try:
+            served = reg.register("lstm", net, max_batch_size=SERVE_B,
+                                  devices=[self.device] * SERVING_REPLICAS, replicas=SERVING_REPLICAS,
+                                  pipeline_depth=SERVING_DEPTH, batch_timeout_ms=5.0)
+            b = served.batcher
+            b.enable_sessions(np.zeros((1, SESSION_T, VOCAB), np.float32),
+                              session_bucket=SESSION_BUCKET)
+            graphs = b.compile_count()
+            self.check(graphs == SERVING_REPLICAS,
+                       f"serving sessions: {graphs} session graphs after enable_sessions "
+                       f"(expected one per replica: {SERVING_REPLICAS})")
+            spill = os.path.join(workdir, "sessions")
+            store = SessionStore(reg, spill, worker_id="smoke", start_evictor=False)
+            for sid in chunks:
+                store.create("lstm", session_id=sid)
+            results = {sid: [] for sid in chunks}
+            step_lat, errors = [], []
+            lock = threading.Lock()
+
+            def stream(sid):
+                try:
+                    for i, c in enumerate(chunks[sid]):
+                        t0 = time.perf_counter()
+                        out, step, replayed = store.step("lstm", sid, c, client_step=i)
+                        with lock:
+                            step_lat.append(time.perf_counter() - t0)
+                        results[sid].append(out)
+                except Exception as e:
+                    errors.append((sid, e))
+
+            threads = [threading.Thread(target=stream, args=(sid,), name=f"smoke-stream-{sid}")
+                       for sid in chunks]
+            counters = all_counters()
+            b0, replays0 = b.metrics.snapshot()["batches_total"], aot_replays()
+            # ---- the main path: counts from 0 just before, read just after
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            # ----
+            step_batches = b.metrics.snapshot()["batches_total"] - b0
+            replays = aot_replays() - replays0
+            self.check(not errors and not any(t.is_alive() for t in threads),
+                       f"serving sessions: {SESSION_STREAMS} streams x {SESSION_STEPS} steps "
+                       f"answered, errors={errors[:3]}")
+            self.check(replays == step_batches,
+                       f"serving sessions: {replays} graph replays over {step_batches} step "
+                       f"batches (one each: no step batch ran eagerly)")
+            want = {c.name: 0 for c in counters}
+            want[fused_lstm.counter.name] = LAYERS * step_batches
+            self.check(counts == want,
+                       f"serving sessions: {counts[fused_lstm.counter.name]} "
+                       f"{fused_lstm.counter.name} launches (expected {LAYERS} x {step_batches} "
+                       f"step batches), nothing else: {counts}")
+            self.add_launches({fused_lstm.counter.name: counts[fused_lstm.counter.name]})
+            self.check(b.compile_count() == graphs,
+                       f"serving sessions: {b.compile_count()} graphs after the streams "
+                       f"(expected {graphs}: nothing captured on traffic)")
+            exact, worst = True, 0.0
+            for sid, cs in chunks.items():
+                net.rnn_clear_previous_state()
+                for i, c in enumerate(cs):
+                    xb = np.zeros((SESSION_BUCKET, SESSION_T, VOCAB), np.float32)
+                    xb[0] = c[0]
+                    want_out = net.rnn_time_step(xb).float().cpu().numpy()[:1]
+                    got = results[sid][i] if i < len(results[sid]) else None
+                    ok = got is not None and arrays_equal(got, want_out)
+                    exact = exact and ok
+                    if got is not None:
+                        worst = max(worst, float(np.abs(got - want_out).max()))
+            net.rnn_clear_previous_state()
+            self.check(exact, f"serving sessions: every stream bit for bit against its serial "
+                              f"rnn_time_step loop padded to {SESSION_BUCKET} rows (max "
+                              f"|difference| {worst:.3g})")
+            ms = sorted(1e3 * v for v in step_lat)
+            log(f"serving sessions: {len(ms)} steps in {wall:.3f} s over {step_batches} step "
+                f"batches ({len(ms) / max(1, step_batches):.1f} streams a batch); step p50 "
+                f"{ms[len(ms) // 2]:.3f} ms, max {ms[-1]:.3f} ms; "
+                f"{len(ms) * SESSION_T / wall:.0f} tokens/s [{self.card}]")
+            snap = store.snapshot()
+            self.check(snap["counters"]["steps_total"] == SESSION_STREAMS * SESSION_STEPS
+                       and snap["spilled_files"] == SESSION_STREAMS,
+                       f"serving sessions: store counters {snap['counters']}, "
+                       f"{snap['spilled_files']} spill files")
+        finally:
+            if store is not None:
+                store.shutdown(spill=False)
+            reg.shutdown()
+
+    def serving_lifecycle(self, workdir):
+        """The rest of the lifecycle on the LSTM char-RNN (buckets 1-16, 2
+        replicas on cuda:0): a 1 ms deadline, queue_limit 4 under a burst,
+        a forward chaos fault, the breaker's open / half-open / closed, a
+        hot-swap under 8 clients, a manifest saved and replayed by a fresh
+        registry, add_replica/remove_replica under traffic, undeploy."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm
+        from deeplearning4j_tpu_torch.runtime.chaos import (AddLatency, ChaosController,
+                                                            ChaosError, FailNth)
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import (CircuitBreaker, CircuitOpen,
+                                                      DeadlineExceeded, ModelRegistry,
+                                                      Overloaded, RetryPolicy,
+                                                      ServingShutdown, WarmupManifest,
+                                                      manifest_path)
+        get_environment().allow_bfloat16()
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(4141)
+        ids = lambda n: eye[rng.integers(0, VOCAB, (int(n), SERVE_T))]  # noqa: E731
+        conf = lambda: char_rnn_conf("lstm", SERVE_T)  # noqa: E731
+        net = MultiLayerNetwork(conf(), device=self.device).init()
+        path = os.path.join(workdir, "lifecycle.zip")
+        ModelSerializer.write_model(net, path)
+        dev2 = [self.device] * SERVING_REPLICAS
+        kw = dict(max_batch_size=16, batch_timeout_ms=2.0, warmup_example=ids(1), devices=dev2,
+                  replicas=SERVING_REPLICAS, pipeline_depth=SERVING_DEPTH)
+        reg = ModelRegistry()
+        reg2 = None
+        try:
+            served = reg.register("life", net, **kw)
+            b = served.batcher
+            pairs = b.compile_count()
+            # a 1 ms deadline behind a slowed forward expires at coalesce
+            with ChaosController() as c:
+                c.on("serving.batcher.forward", AddLatency(0.05))
+                parked = threading.Thread(target=lambda: reg.predict("life", ids(1)),
+                                          name="smoke-parked")
+                parked.start()
+                time.sleep(0.01)
+                try:
+                    reg.predict("life", ids(1), timeout_ms=1.0)
+                    err = None
+                except DeadlineExceeded as e:
+                    err = e
+                parked.join(timeout=30)
+            snap = b.metrics.snapshot()
+            self.check(err is not None and "coalesce" in str(err)
+                       and snap["rejected_deadline"] == 1,
+                       f"lifecycle: a 1 ms deadline raised DeadlineExceeded ({err}); "
+                       f"rejected_deadline={snap['rejected_deadline']}")
+            # queue_limit=4 under a burst of 12: Overloaded with retry_after_ms
+            reg.register("life-q", net, max_batch_size=1, batch_timeout_ms=1.0,
+                         warmup_example=ids(1), devices=[self.device], pipeline_depth=1,
+                         queue_limit=4)
+            outcomes, hints = [], []
+            lock = threading.Lock()
+
+            def burst():
+                try:
+                    reg.predict("life-q", ids(1))
+                    r = "ok"
+                except Overloaded as e:
+                    r = "overloaded"
+                    hints.append(e.retry_after_ms)
+                with lock:
+                    outcomes.append(r)
+
+            with ChaosController() as c:
+                c.on("serving.batcher.forward", AddLatency(0.05))
+                ths = [threading.Thread(target=burst, name=f"smoke-burst-{i}") for i in range(12)]
+                for t in ths:
+                    t.start()
+                for t in ths:
+                    t.join(timeout=60)
+            self.check(len(outcomes) == 12 and "overloaded" in outcomes and "ok" in outcomes
+                       and all(h is not None and h > 0 for h in hints),
+                       f"lifecycle: queue_limit 4 under a burst of 12: {outcomes.count('ok')} "
+                       f"served, {outcomes.count('overloaded')} Overloaded with retry_after_ms "
+                       f"{[round(h, 2) for h in hints]}")
+            reg.undeploy("life-q")
+            # a forward chaos fault fails only its batch
+            # (through the batcher: the registry's retry policy would absorb it)
+            x = ids(2)
+            r1 = b.submit(x)
+            with ChaosController() as c:
+                c.on("serving.batcher.forward", FailNth(2))
+                a = b.submit(x)
+                try:
+                    b.submit(x)
+                    failed = False
+                except ChaosError:
+                    failed = True
+                r3 = b.submit(x)
+            self.check(failed and arrays_equal(a, r1) and arrays_equal(r3, r1),
+                       "lifecycle: a serving.batcher.forward fault failed only its batch (the "
+                       "batches before and after it bit for bit)")
+            # the breaker: open after its threshold, half-open after the reset, closed
+            reg.register("life-b", net, max_batch_size=1, batch_timeout_ms=1.0,
+                         warmup_example=ids(1), devices=[self.device],
+                         breaker=CircuitBreaker(failure_threshold=2, reset_timeout_s=0.2),
+                         retry=RetryPolicy(max_attempts=1))
+            brk = reg.get("life-b").breaker
+            states = [brk.state.name]
+            with ChaosController() as c:
+                c.on("serving.batcher.forward", FailNth(1, every=True))
+                for _ in range(2):
+                    try:
+                        reg.predict("life-b", ids(1))
+                    except ChaosError:
+                        pass
+                states.append(brk.state.name)
+                try:
+                    reg.predict("life-b", ids(1))
+                    shed = False
+                except CircuitOpen:
+                    shed = True
+            time.sleep(0.25)
+            states.append(brk.state.name)
+            reg.predict("life-b", ids(1))
+            states.append(brk.state.name)
+            self.check(shed and states == ["CLOSED", "OPEN", "HALF_OPEN", "CLOSED"],
+                       f"lifecycle: breaker states {states}, shed while open: {shed}")
+            reg.undeploy("life-b")
+            # a hot-swap to v2 while 8 clients send: nothing fails, v2 captures
+            # nothing on traffic
+            reqs = [[ids(n) for n in rng.integers(1, 17, 6)] for _ in range(8)]
+            swap = {}
+
+            def hot_swap():
+                time.sleep(0.02)
+                v2 = reg.register("life", MultiLayerNetwork(conf(), device=self.device).init(),
+                                  devices=dev2, replicas=SERVING_REPLICAS)
+                swap["v2"], swap["graphs"] = v2, v2.batcher.compile_count()
+
+            sw = threading.Thread(target=hot_swap, name="smoke-hot-swap")
+            sw.start()
+            _, _, _, errors = self.serve_clients(reg, "life", reqs)
+            sw.join(timeout=120)
+            v2 = swap.get("v2")
+            after = [reg.predict("life", x) for r in reqs for x in r[:1]]
+            self.check(not errors and v2 is not None and v2.version == 2
+                       and swap["graphs"] == pairs and v2.batcher.compile_count() == pairs
+                       and all(a_ is not None for a_ in after),
+                       f"lifecycle: hot-swap to v{v2.version if v2 else '?'} under 8 clients: "
+                       f"errors={errors[:3]}, v2 graphs {swap.get('graphs')} at the swap and "
+                       f"{v2.batcher.compile_count() if v2 else '?'} after traffic (expected "
+                       f"{pairs}); the replaced batcher stopped: "
+                       f"{not b._worker.is_alive()}")
+            # v2's graphs were captured while v1 replayed: each replay of them
+            # counts its own launches and none of v1's
+            counters = all_counters()
+            batches0 = v2.batcher.batches if v2 is not None else 0
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            for r in reqs:
+                reg.predict("life", r[0])
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            batches = v2.batcher.batches - batches0 if v2 is not None else 0
+            want = {c.name: 0 for c in counters}
+            want[fused_lstm.counter.name] = LAYERS * batches
+            self.check(v2 is not None and counts == want,
+                       f"lifecycle: after the hot-swap, {counts[fused_lstm.counter.name]} "
+                       f"{fused_lstm.counter.name} launches over v2's {batches} batches "
+                       f"(expected {LAYERS} a batch), nothing else: {counts}")
+            # save_manifest, then a fresh registry replays it: exactly its pairs
+            mpath = reg.save_manifest("life", path)
+            manifest = WarmupManifest.load(manifest_path(path))
+            reg2 = ModelRegistry()
+            t0 = time.perf_counter()
+            s2 = reg2.load("life", path, device=self.device, devices=dev2,
+                           pipeline_depth=SERVING_DEPTH)
+            replay_s = time.perf_counter() - t0
+            got_pairs = s2.batcher.compile_count()
+            self.serve_clients(reg2, "life", reqs)
+            self.check(mpath is not None and got_pairs == len(manifest.pairs)
+                       and s2.batcher.compile_count() == got_pairs
+                       and s2.batcher.buckets == manifest.buckets,
+                       f"lifecycle: manifest {os.path.basename(mpath or '?')} replayed by a fresh "
+                       f"registry in {replay_s:.1f} s: {got_pairs} graphs for its "
+                       f"{len(manifest.pairs)} pairs, {s2.batcher.compile_count()} after traffic")
+            # add_replica / remove_replica under traffic capture nothing on traffic
+            resize = {}
+
+            def resizer():
+                resize["add"] = s2.batcher.add_replica()
+                resize["after_add"] = s2.batcher.compile_count()
+                resize["remove"] = s2.batcher.remove_replica()
+                resize["after_remove"] = s2.batcher.compile_count()
+
+            rz = threading.Thread(target=resizer, name="smoke-resize")
+            rz.start()
+            _, _, _, errors = self.serve_clients(reg2, "life", reqs)
+            rz.join(timeout=120)
+            nb = len(s2.batcher.buckets)
+            self.check(not errors and resize.get("add") == SERVING_REPLICAS + 1
+                       and resize.get("after_add") == got_pairs + nb
+                       and resize.get("remove") == SERVING_REPLICAS
+                       and resize.get("after_remove") == got_pairs
+                       and s2.batcher.compile_count() == got_pairs,
+                       f"lifecycle: add_replica/remove_replica under traffic: {resize}, "
+                       f"{s2.batcher.compile_count()} graphs after (expected {got_pairs}), "
+                       f"errors={errors[:3]}")
+            # undeploy drains: queued and in-flight requests are answered
+            res = []
+
+            def sender():
+                try:
+                    res.append(("ok", reg2.predict("life", ids(4))))
+                except (KeyError, ServingShutdown) as e:
+                    res.append((type(e).__name__, e))
+
+            ths = [threading.Thread(target=sender, name=f"smoke-undeploy-{i}") for i in range(8)]
+            with ChaosController() as c:
+                c.on("serving.batcher.forward", AddLatency(0.02))
+                for t in ths:
+                    t.start()
+                time.sleep(0.01)
+                reg2.undeploy("life")
+                for t in ths:
+                    t.join(timeout=60)
+            try:
+                reg2.predict("life", ids(1))
+                gone = False
+            except KeyError:
+                gone = True
+            kinds = [k for k, _ in res]
+            self.check(len(res) == 8 and kinds.count("ok") >= 1 and gone
+                       and not s2.batcher._worker.is_alive(),
+                       f"lifecycle: undeploy drained: {kinds}, predict after it KeyError={gone}")
+        finally:
+            reg.shutdown()
+            if reg2 is not None:
+                reg2.shutdown()
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -5174,6 +5964,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--serving"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.serving_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -5203,6 +6003,7 @@ def main() -> int:
         smoke.runtime_phase(workdir)
         smoke.parallel_phase(workdir)
         smoke.zoo_phase(workdir)
+        smoke.serving_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

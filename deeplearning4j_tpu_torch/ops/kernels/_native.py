@@ -13,6 +13,7 @@ package on a machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,14 +31,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 _COUNTERS: List["LaunchCounter"] = []
+# (device, stream handle, counts) of each recording under way
+_RECORDINGS: List[tuple] = []
+_RECORDINGS_LOCK = threading.Lock()  # guards: _RECORDINGS
 
 
 class LaunchCounter:
     """Count of kernel launches made by one wrapper. The wrapper adds one
     where it launches its kernel and nowhere else, so a run can show that
     its main path went through the kernel. Every counter is registered
-    (:func:`counter_values`): a captured CUDA graph takes back the counts
-    its capture made and adds them at each replay."""
+    (:func:`counter_values`). While a CUDA graph captures, the adds made on
+    its stream go into its recording (:func:`recording`) instead: the
+    capture launched nothing, and the graph adds them at each replay."""
 
     def __init__(self, name: str):
         self.name = name
@@ -46,8 +51,12 @@ class LaunchCounter:
         _COUNTERS.append(self)
 
     def add(self, n: int = 1) -> None:
+        rec = _recording_here() if _RECORDINGS else None
         with self._lock:
-            self._n += n
+            if rec is not None:
+                rec[self] = rec.get(self, 0) + n
+            else:
+                self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -60,6 +69,33 @@ class LaunchCounter:
 
 def counter_values() -> Dict["LaunchCounter", int]:
     return {c: c.value for c in _COUNTERS}
+
+
+def _recording_here():
+    """The counts of the recording whose stream is the current one here."""
+    import torch
+    for device, stream, counts in list(_RECORDINGS):
+        if torch.cuda.current_stream(device).cuda_stream == stream:
+            return counts
+    return None
+
+
+@contextlib.contextmanager
+def recording(stream):
+    """Collect, for the duration, the launches counted while ``stream`` (a
+    ``torch.cuda.Stream``) is the current stream into the dict yielded,
+    instead of the counters, whichever thread counts them: a captured
+    backward runs on autograd's device thread, on the capture's stream.
+    Launches on other streams meanwhile, such as another graph's replays,
+    count as usual."""
+    entry = (stream.device, stream.cuda_stream, {})
+    with _RECORDINGS_LOCK:
+        _RECORDINGS.append(entry)
+    try:
+        yield entry[2]
+    finally:
+        with _RECORDINGS_LOCK:
+            _RECORDINGS[:] = [e for e in _RECORDINGS if e is not entry]
 
 
 def build_dir() -> Path:

@@ -215,6 +215,8 @@ def _clone_out(out):
         return out.clone()
     if isinstance(out, (list, tuple)):
         return type(out)(_clone_out(v) for v in out)
+    if isinstance(out, dict):
+        return {k: _clone_out(v) for k, v in out.items()}
     return out
 
 
@@ -271,8 +273,9 @@ class AotCache:
     fresh numbers), then replays it; every later call copies and replays.
     Outputs are cloned after a replay, since the next replay overwrites the
     graph's own. A launch counter of ``ops/kernels/_native.py`` counts in
-    Python, so at capture time: the capture's count is taken back and each
-    replay adds it.
+    Python, so at capture time: the capture records the counts made on its
+    stream, by its thread or autograd's, apart (launches on other streams
+    meanwhile count as usual) and each replay adds them.
 
     On the CPU the same static-buffer protocol runs, but ``fn`` is called
     on the buffers instead of a replay.
@@ -280,8 +283,9 @@ class AotCache:
     ``fn`` must keep its state in place (the graph reads and writes fixed
     addresses) and must not read the device from the host. The caller's key
     must change when the state ``fn`` reads moves (see
-    :class:`~.state_packing.PackedStepLoop`). Not locked: every call site
-    dispatches from one thread.
+    :class:`~.state_packing.PackedStepLoop`). Not locked: a call site that
+    calls from more than one thread holds its own lock around every call
+    (the serving replica pool does).
     """
 
     __slots__ = ("name", "_entries", "_stream", "_warm", "generators")
@@ -363,7 +367,6 @@ class AotCache:
         g = torch.cuda.CUDAGraph()
         for gen in self.generators:
             g.register_generator_state(gen)
-        before = _native.counter_values()
         t0 = time.perf_counter()
         s.wait_stream(torch.cuda.current_stream(dev))
         # a graph that the cyclic garbage collector destroyed mid-capture would
@@ -376,17 +379,14 @@ class AotCache:
             # thread_local: the completion thread of the fit may read an
             # earlier step's loss meanwhile, which a process-wide capture
             # would refuse
-            with torch.cuda.graph(g, pool=pool, stream=s, capture_error_mode="thread_local"):
+            with _native.recording(s) as launches, torch.cuda.graph(
+                    g, pool=pool, stream=s, capture_error_mode="thread_local"):
                 out = fn(*entry.args())
         finally:
             if collecting:
                 gc.enable()
         STATS.record("aot_compiles", time.perf_counter() - t0)
-        after = _native.counter_values()
-        entry.launches = {c: after[c] - before.get(c, 0) for c in after
-                          if after[c] != before.get(c, 0)}
-        for c, n in entry.launches.items():
-            c.add(-n)  # the capture launched nothing
+        entry.launches = launches
         entry.graph, entry.out = g, out
 
     def _replay(self, entry: _Entry):

@@ -1,11 +1,69 @@
-"""Model serving, core path (counterpart of ``deeplearning4j_tpu.serving``)."""
+"""Model serving on the card (counterpart of ``deeplearning4j_tpu.serving``).
 
-from deeplearning4j_tpu_torch.serving.batcher import (ContinuousBatcher,
-                                                      ServingError,
-                                                      ServingShutdown,
-                                                      default_buckets)
-from deeplearning4j_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
-from deeplearning4j_tpu_torch.serving.registry import ModelRegistry, ServedModel
+- :class:`ModelRegistry` (``registry.py``) — named/versioned models from
+  live nets, ``ModelSerializer`` archives or the zoo; hot-swap with
+  pre-warmed replacements and graceful drain; breakers, retries, health.
+- :class:`ContinuousBatcher` (``batcher.py``) — coalesces concurrent
+  requests into power-of-two row buckets captured as CUDA graphs at warm-up,
+  a pipelined in-flight window, deadlines at coalesce and dispatch,
+  admission, and the fixed-bucket session-step path.
+- :class:`ReplicaPool` (``replica.py``) — N parameter copies of one model,
+  least-loaded routing, one stream and one captured graph per bucket each.
+- :class:`AdmissionController` (``admission.py``) — deadlines, queue limits,
+  load shedding with ``Retry-After``.
+- :class:`CircuitBreaker` / :class:`RetryPolicy` / :class:`HealthState`
+  (``resilience.py``).
+- :class:`WarmupManifest` (``manifest.py``) — the replayable record of
+  every warmed (bucket, replica, dtype) pair, in the JAX package's format.
+- :class:`SessionStore` (``sessions.py``) — server-side ``rnnTimeStep``
+  state with CRC-framed spills.
+- :class:`ServingMetrics` / :class:`LatencyHistogram` (``metrics.py``).
 
-__all__ = ["ContinuousBatcher", "LatencyHistogram", "ModelRegistry", "ServedModel",
-           "ServingError", "ServingMetrics", "ServingShutdown", "default_buckets"]
+Exports resolve lazily (PEP 562), as in the JAX package.
+"""
+
+import importlib
+
+_EXPORTS = {
+    "AdmissionController": "admission",
+    "DeadlineExceeded": "admission",
+    "HBMBudgetExceeded": "admission",
+    "Overloaded": "admission",
+    "PagingInProgress": "admission",
+    "ServingError": "admission",
+    "ServingShutdown": "admission",
+    "page_in_retry_after_ms": "admission",
+    "ContinuousBatcher": "batcher",
+    "default_buckets": "batcher",
+    "LatencyHistogram": "metrics",
+    "ServingMetrics": "metrics",
+    "ModelRegistry": "registry",
+    "ServedModel": "registry",
+    "WarmupManifest": "manifest",
+    "manifest_path": "manifest",
+    "Session": "sessions",
+    "SessionLost": "sessions",
+    "SessionStepConflict": "sessions",
+    "SessionStore": "sessions",
+    "Replica": "replica",
+    "ReplicaPool": "replica",
+    "CircuitBreaker": "resilience",
+    "CircuitOpen": "resilience",
+    "CircuitState": "resilience",
+    "HealthState": "resilience",
+    "RetryPolicy": "resilience",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    submodule = _EXPORTS.get(name)
+    if submodule is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    mod = importlib.import_module(f"{__name__}.{submodule}")
+    return getattr(mod, name)
+
+
+def __dir__():
+    return __all__

@@ -122,6 +122,38 @@ def test_every_launch_counter_is_registered():
         assert c in values
 
 
+def test_a_recording_takes_the_launches_on_its_stream_only(monkeypatch):
+    """A capture records the launches counted on its stream by any thread
+    (a captured backward runs on autograd's device thread); launches on
+    another stream meanwhile, say another graph's replays, count as usual."""
+    import threading
+    import types
+    current = threading.local()
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: current.stream)
+    capture, other = (types.SimpleNamespace(device="cuda:0", cuda_stream=h) for h in (1, 2))
+    c = _native.LaunchCounter("test.recording")
+
+    def elsewhere(stream, n):
+        def run():
+            current.stream = stream
+            c.add(n)
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+
+    try:
+        with _native.recording(capture) as rec:
+            current.stream = capture
+            c.add(2)                 # the capturing thread
+            elsewhere(capture, 1)    # autograd's thread, on the capture's stream
+            elsewhere(other, 5)      # another pool's replay
+        assert rec == {c: 3} and c.value == 5 and not _native._RECORDINGS
+        c.add(rec[c])                # a replay adds them
+        assert c.value == 8
+    finally:
+        _native._COUNTERS.remove(c)
+
+
 def test_aot_cache_protocol_on_the_cpu():
     aot = AotCache("t")
     seen = []
