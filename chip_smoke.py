@@ -332,6 +332,44 @@ the card and exits nonzero if any phase fails:
             replayed by a fresh registry, ``add_replica``/``remove_replica``
             under traffic, ``undeploy`` draining.
 
+11. residency: (after ``serving``; ``--residency`` runs the build and this phase only)
+            serving's device side, second half. Paging: two ``Bert.base()``
+            archives of different seeds and a byte copy of each (m0-m3),
+            bf16, T=128, registered cold (``load(resident=False)``), 1
+            replica each at buckets 1, 8, 64, under a budget of 2.5 x one
+            model's ledger bytes from an unbudgeted probe registry; 3
+            threads x 8 requests of 1-64 rows rotating over the names: the
+            ledger after every request within the budget, no request
+            failed, every answer bit for bit its model's before any
+            eviction at a bucket it may be served at, graphs captured = the
+            manifest's 3 pairs x page-ins (nothing on traffic), 12 flash
+            launches a replay; a 30 ms deadline on a cold model
+            (``PagingInProgress``, ``retry_after_ms`` >= the measured
+            page-in cost less the time spent); 5 evict/page-in cycles of
+            m0 (each eviction frees at least the ledger's bytes of
+            ``memory_allocated``, which after the last is within 16 MiB of
+            the first). Quantized deploys: ``quantize_archive`` of m0
+            (weights only, ``quantized_buckets=[]``) in both residencies;
+            f32, dequantized and int8 residency each: ledger and
+            ``memory_allocated`` bytes with the graphs, p50 of 20 sequential
+            64-row requests, answers vs the same model's forward from the
+            plain versions (<= 2e-2), flash launches; ``deploy_quantized``
+            over the serving f32 m0 with gates of max_delta -1 (refused, f32
+            serving 4 clients on) and 1 (deployed), top-1 agreement on 256
+            golden rows through the serving paths. int8 request rows: the
+            GravesLSTM, LSTM and GRU char-RNNs (rows 1, 3, 5) calibrated on
+            one-hot rows, 8 clients of f32 and int8 rows: the dtypes
+            coalesce apart, bit for bit, nothing captured on traffic; int8
+            against f32 64-row p50 and host share. Plan slices: parallel_pipe's
+            dense net under compose(data=2, pipe=4, microbatches=2) over 8 x
+            cuda:0 fp32 (bit for bit ``net.output`` at the bucket, graphs =
+            buckets x 2, the manifest replayed, refused flat and admitted
+            sliced under a per-position budget of 0.6 of a copy); BERT-base
+            under compose(data=2, tensor=2) over 4 x cuda:0 (<= 2e-2, 12
+            flash launches per tensor piece a batch, 64-row p50).
+            ``ParallelInference.builder(bert).workers(2)`` clamps to 1
+            worker and answers bit for bit the registry.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
 and the backward of each LSTM cell and of the GRU, the inference and saving flash
@@ -762,6 +800,22 @@ SERVING_REPLICAS, SERVING_DEPTH, SERVING_SEQ, SERVING_CONC = 2, 2, 20, (8, 4)
 # session bucket SESSION_BUCKET; each stream bit for bit against a serial
 # rnn_time_step loop padded to that bucket (the stream in row 0).
 SESSION_BUCKET, SESSION_STREAMS, SESSION_STEPS, SESSION_T = 16, 16, 8, 32
+
+# Serving's device side, second half (phase residency). Paging: four BERT-base
+# names (two seeds, each twice) registered cold under a budget of
+# RESIDENCY_BUDGET_MODELS x one model's measured ledger bytes (the JAX drill's
+# rule, bench.py:3270), 1 replica each at RESIDENCY_BUCKETS; RESIDENCY_CLIENTS
+# threads x RESIDENCY_REQUESTS requests of 1-64 rows rotating over the names;
+# RESIDENCY_CYCLES evict/page-in cycles of one model, memory_allocated after
+# the last eviction within RESIDENCY_LEAK of the first. Quantized deploys:
+# the gate on RESIDENCY_GOLDEN golden rows.
+RESIDENCY_SEED, RESIDENCY_BUCKETS, RESIDENCY_BUDGET_MODELS = 321, (1, 8, 64), 2.5
+RESIDENCY_CLIENTS, RESIDENCY_REQUESTS, RESIDENCY_CYCLES = 3, 8, 5
+RESIDENCY_LEAK, RESIDENCY_GOLDEN = 16 * 2**20, 256
+# The pipe drill at microbatches 2 runs the trunk on half the rows, where
+# cuBLAS may order a row's fp32 sums otherwise than at the bucket's rows
+# (1.19e-7 in the first run): its probabilities against net.output's.
+PIPE_MB_TOL = 1e-6
 
 # The distributed trainer's worker, one process per rank, both on cuda:0:
 # argv rank world port threshold steps local_batch features hidden.
@@ -5293,6 +5347,769 @@ class Smoke:
             if reg2 is not None:
                 reg2.shutdown()
 
+    # ------------------------------------------------------------ residency
+    def residency_phase(self, workdir):
+        """Serving's device side, second half: BERT-base paging under a
+        budget, quantized deploys behind the gate and the three weight
+        residencies' device bytes, int8 request rows on the char-RNNs, plan
+        slices, ``ParallelInference``; each part a phase of its own."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        env.allow_bfloat16()
+        d = os.path.join(workdir, "residency")
+        os.makedirs(d, exist_ok=True)
+        try:
+            self.phase("residency archives", lambda: self.residency_archives(workdir, d))
+            for name, part in (("paging", lambda: self.residency_paging(d)),
+                               ("quantized", lambda: self.residency_quantized(d)),
+                               ("int8 rows", self.residency_rows),
+                               ("plan", lambda: self.residency_plan(d)),
+                               ("parallel inference", lambda: self.residency_inference(d))):
+                self.phase(f"residency {name}", part)
+        finally:
+            env.set_aot_dispatch(True)
+            env.allow_bfloat16()
+
+    def residency_archives(self, workdir, d):
+        """The paging drill's models: two ``Bert.base()`` archives of
+        different seeds (the first the other phases' archive where it was
+        written already) and a byte copy of each, m0-m3."""
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.zoo import Bert
+        t0 = time.perf_counter()
+        shared = os.path.join(workdir, "bert-base.zip")
+        for i, seed in enumerate((123, RESIDENCY_SEED)):
+            path = os.path.join(d, f"m{i}.zip")
+            if seed == 123 and os.path.exists(shared):
+                shutil.copyfile(shared, path)
+            else:
+                net = Bert.base(seed=seed).init(device=self.device)
+                ModelSerializer.write_model(net, path)
+                del net
+            shutil.copyfile(path, os.path.join(d, f"m{i + 2}.zip"))
+        log(f"residency archives: m0-m3 in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(os.path.join(d, 'm0.zip')) / 1e6:.0f} MB each)")
+
+    def residency_kw(self):
+        import numpy as np
+        example = np.random.default_rng(2222).integers(0, BERT_VOCAB, (1, BERT_T))
+        return dict(max_batch_size=BERT_B, buckets=list(RESIDENCY_BUCKETS),
+                    batch_timeout_ms=5.0, replicas=1, devices=[self.device],
+                    warmup_example=example)
+
+    def allocated(self):
+        """``torch.cuda.memory_allocated()`` once every queued kernel has run."""
+        self.torch.cuda.synchronize()
+        return self.torch.cuda.memory_allocated()
+
+    def graph_pool_bytes(self):
+        """Bytes the caching allocator holds in the CUDA graphs' private
+        pools (the segments of ``torch.cuda.memory_snapshot()`` whose pool
+        id is not the default pool's), or None where the snapshot does not
+        say a segment's pool. What the graphs keep reserved; their
+        intermediates, freed inside the capture, are not in
+        ``memory_allocated``."""
+        segments = self.torch.cuda.memory_snapshot()
+        if segments and "segment_pool_id" not in segments[0]:
+            return None
+        return sum(int(seg["total_size"]) for seg in segments
+                   if tuple(seg["segment_pool_id"]) != (0, 0))
+
+    @staticmethod
+    def at_bucket(batcher, x, bucket):
+        """``x`` padded to ``bucket`` rows through the batcher's first replica
+        (its graph at that bucket): the answer a batch of that bucket gives
+        ``x``'s rows."""
+        import numpy as np
+        padded = np.zeros((bucket,) + x.shape[1:], x.dtype)
+        padded[:x.shape[0]] = x
+        pool = batcher._pool
+        rep = pool.acquire()
+        try:
+            out = pool.dispatch(rep, padded).wait()
+        finally:
+            pool.release(rep)
+        return out[:x.shape[0]]
+
+    def residency_paging(self, d):
+        """Four BERT-base names (two seeds, each twice) through
+        ``load(resident=False)`` under a budget of 2.5 models; 3 threads x 8
+        requests rotating over them: the ledger never over the budget, every
+        answer bit for bit its model's at its bucket, page-ins capture only
+        their manifest's pairs; a 30 ms deadline on a cold model; 5
+        evict/page-in cycles of one model against ``memory_allocated``."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime import compile_cache
+        from deeplearning4j_tpu_torch.serving import ModelRegistry, PagingInProgress
+        kw = self.residency_kw()
+        paths = [os.path.join(d, f"m{i}.zip") for i in range(4)]
+        rng = np.random.default_rng(2323)
+        names = ["m0", "m1", "m2", "m3"]
+        rows = rng.integers(1, BERT_B + 1, (RESIDENCY_CLIENTS, RESIDENCY_REQUESTS))
+        reqs = [[rng.integers(0, BERT_VOCAB, (int(n), BERT_T)) for n in r] for r in rows]
+        route = [[names[(c + k // 2) % 4] for k in range(RESIDENCY_REQUESTS)]
+                 for c in range(RESIDENCY_CLIENTS)]
+        # the answers before any eviction: each model at every bucket a
+        # request may land in (alone, or coalesced with another thread's)
+        probe = ModelRegistry()
+        refs = {}
+        try:
+            for i in (0, 1):
+                t0 = time.perf_counter()
+                served = probe.load(f"m{i}", paths[i], device=self.device, **kw)
+                dt = probe.residency_snapshot()["models"][f"m{i}"]["dtype_bytes"]
+                log(f"residency paging: probe load of m{i} {time.perf_counter() - t0:.2f} s, "
+                    f"ledger {served.device_bytes / 2**20:.1f} MiB "
+                    f"{ {k: round(v / 2**20, 1) for k, v in sorted(dt.items())} } MiB")
+                for c in range(RESIDENCY_CLIENTS):
+                    for k, x in enumerate(reqs[c]):
+                        if int(route[c][k][1]) % 2 == i:
+                            refs[(c, k)] = [self.at_bucket(served.batcher, x, b)
+                                            for b in kw["buckets"] if b >= x.shape[0]]
+            one = probe.get("m0").device_bytes
+            same = probe.get("m0").model.output(reqs[0][0]).float().cpu().numpy()
+            other = probe.get("m1").model.output(reqs[0][0]).float().cpu().numpy()
+        finally:
+            probe.shutdown()
+        self.check(not np.array_equal(same, other),
+                   "residency paging: m0 and m1 (different seeds) answer differently")
+        budget = int(RESIDENCY_BUDGET_MODELS * one)
+        reg = ModelRegistry(hbm_budget_bytes=budget)
+        try:
+            for name, path in zip(names, paths):
+                reg.load(name, path, resident=False, device=self.device, **kw)
+            self.check(reg.resident_bytes() == 0 and reg.names() == names,
+                       f"residency paging: 4 names registered cold, {reg.resident_bytes()} "
+                       f"resident bytes")
+            answers = [[None] * RESIDENCY_REQUESTS for _ in range(RESIDENCY_CLIENTS)]
+            errors, peak = [], [0]
+            lock = threading.Lock()
+
+            def client(c):
+                import traceback
+                for k, x in enumerate(reqs[c]):
+                    try:
+                        answers[c][k] = reg.predict(route[c][k], x)
+                    except Exception as e:
+                        with lock:
+                            if not errors:
+                                log("residency paging: the first failed request:\n"
+                                    + "".join(traceback.format_exception(e)))
+                            errors.append(e)
+                    r = reg.residency_snapshot()["resident_bytes"]
+                    with lock:
+                        peak[0] = max(peak[0], r)
+
+            counters = all_counters()
+            stats0 = compile_cache.stats()
+            # ---- the main path: counts from 0 just before, read just after
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            ths = [threading.Thread(target=client, args=(c,), name=f"smoke-page-{c}")
+                   for c in range(RESIDENCY_CLIENTS)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {c.name: c.value for c in counters}
+            # ----
+            stats1 = compile_cache.stats()
+            captures = stats1["aot_compiles"] - stats0["aot_compiles"]
+            replays = stats1["aot_replays"] - stats0["aot_replays"]
+            pg = reg.paging.snapshot()
+            self.check(not errors and not any(t.is_alive() for t in ths),
+                       f"residency paging: {RESIDENCY_CLIENTS} x {RESIDENCY_REQUESTS} requests "
+                       f"over 4 names answered, errors={errors[:3]}")
+            self.check(peak[0] <= budget,
+                       f"residency paging: resident bytes after every request at most "
+                       f"{peak[0]} <= budget {budget} ({RESIDENCY_BUDGET_MODELS} x {one})")
+            self.check(pg["page_ins_total"] >= 3 and pg["evictions_total"] >= 3,
+                       f"residency paging: {pg['page_ins_total']} page-ins, "
+                       f"{pg['evictions_total']} evictions (at least 3 each)")
+            bad = [(c, k) for c in range(RESIDENCY_CLIENTS) for k in range(RESIDENCY_REQUESTS)
+                   if answers[c][k] is None
+                   or not any(np.array_equal(answers[c][k], r) for r in refs[(c, k)])]
+            self.check(not bad, f"residency paging: every answer bit for bit its model's own "
+                                f"at a bucket it may be served at, before any eviction "
+                                f"(mismatches {bad[:5]})")
+            pairs = len(kw["buckets"])
+            self.check(captures == pairs * pg["page_ins_total"],
+                       f"residency paging: {captures} graphs captured over the traffic = "
+                       f"{pairs} manifest pairs x {pg['page_ins_total']} page-ins (nothing "
+                       f"captured on traffic)")
+            want = {c.name: 0 for c in counters}
+            want[fa.counter.name] = BERT_LAYERS * (replays + captures)
+            self.check(counts == want,
+                       f"residency paging: {counts[fa.counter.name]} {fa.counter.name} "
+                       f"launches = {BERT_LAYERS} x ({replays} replays + {captures} capture "
+                       f"warm-ups), nothing else: {counts}")
+            self.add_launches({fa.counter.name: counts[fa.counter.name]})
+            snap = reg.residency_snapshot()
+            page_in_s = sorted(m["page_in_s"] for m in snap["models"].values()
+                               if m["page_in_s"])
+            log(f"residency paging traffic: {RESIDENCY_CLIENTS * RESIDENCY_REQUESTS} requests "
+                f"in {wall:.2f} s; {pg['page_ins_total']} page-ins (p50 "
+                f"{1e3 * (pg['page_in_p50_s'] or 0):.0f} ms, p99 bucket "
+                f"{1e3 * (pg['page_in_p99_s'] or 0):.0f} ms; per-model decayed "
+                f"{[round(1e3 * s) for s in page_in_s]} ms), {pg['evictions_total']} "
+                f"evictions, hit rate {reg.paging.hit_rate():.3f}, queue waits "
+                f"{pg['page_in_queue_waits_total']}, peak ledger {peak[0] / 2**20:.1f} MiB of "
+                f"{budget / 2**20:.1f} [{self.card}]")
+            # a 30 ms deadline on a cold model while its page-in is under way
+            cold = next(n for n in names if snap["models"][n]["state"] == "cold")
+            est_ms = 1e3 * (snap["models"][cold]["page_in_s"] or 1.0)
+            leader = {}
+
+            def lead():
+                try:
+                    leader["out"] = reg.predict(cold, reqs[0][0])
+                except Exception as e:
+                    leader["err"] = e
+
+            lt = threading.Thread(target=lead, name="smoke-page-leader")
+            t0 = time.monotonic()
+            lt.start()
+            while cold not in reg._flights and time.monotonic() - t0 < 60:
+                time.sleep(0.001)
+            fl = reg._flights.get(cold)
+            try:
+                reg.predict(cold, reqs[0][0], timeout_ms=30.0)
+                err = None
+            except PagingInProgress as e:
+                err = e
+            elapsed_ms = 1e3 * (time.monotonic() - (fl.started_at if fl else t0))
+            lt.join(timeout=120)
+            self.check(err is not None and "err" not in leader
+                       and err.retry_after_ms >= est_ms - elapsed_ms,
+                       f"residency paging: a 30 ms deadline on cold {cold} got PagingInProgress "
+                       f"retry_after_ms={getattr(err, 'retry_after_ms', None)} >= measured "
+                       f"page-in {est_ms:.0f} ms less the {elapsed_ms:.0f} ms already spent; the "
+                       f"leader answered ({leader.get('err')})")
+            # 5 evict/page-in cycles of m0 alone
+            for n in names:
+                reg.evict(n)
+            reg.page_in("m0")
+            after, freed, evict_ms, page_ms, ledger = [], [], [], [], []
+            for i in range(RESIDENCY_CYCLES):
+                reg.predict("m0", reqs[0][0])
+                ledger.append(reg.get("m0").device_bytes)
+                before = self.allocated()
+                t0 = time.perf_counter()
+                reg.evict("m0")
+                evict_ms.append(1e3 * (time.perf_counter() - t0))
+                after.append(self.allocated())
+                freed.append(before - after[-1])
+                t0 = time.perf_counter()
+                reg.page_in("m0")
+                page_ms.append(1e3 * (time.perf_counter() - t0))
+            reserved = torch.cuda.memory_reserved()
+            self.check(all(f >= l for f, l in zip(freed, ledger)),
+                       f"residency paging: each eviction freed {[f // 2**20 for f in freed]} "
+                       f"MiB of memory_allocated >= the ledger's {ledger[0] // 2**20} MiB")
+            self.check(abs(after[-1] - after[0]) <= RESIDENCY_LEAK,
+                       f"residency paging: memory_allocated after the {RESIDENCY_CYCLES} "
+                       f"evictions {[a // 2**20 for a in after]} MiB: the last within 16 MiB "
+                       f"of the first ({(after[-1] - after[0]) / 2**20:+.2f} MiB); "
+                       f"memory_reserved {reserved / 2**20:.0f} MiB")
+            log(f"residency paging cycles: evict {[round(e, 1) for e in evict_ms]} ms, page-in "
+                f"{[round(p) for p in page_ms]} ms (p50 {np.median(page_ms):.0f}, max "
+                f"{max(page_ms):.0f}); ledger {ledger[0]} bytes against "
+                f"{[f for f in freed]} freed [{self.card}]")
+        finally:
+            reg.shutdown()
+            gc.collect()
+
+    def residency_quantized(self, d):
+        """``quantize_archive`` of m0 in both weight residencies (weights
+        only: token ids are never int8 rows); each residency's ledger and
+        ``memory_allocated`` with its graphs, p50 of 20 sequential 64-row
+        requests, answers against the same model's forward built from the
+        plain versions; the gate refusing (f32 serving on under 4 clients)
+        and deploying."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.serving.quantize import (AccuracyGate,
+                                                               AccuracyGateFailed,
+                                                               quantize_archive)
+        kw = self.residency_kw()
+        m0 = os.path.join(d, "m0.zip")
+        qpaths = {}
+        for res in ("dequantized", "int8"):
+            qpaths[res] = os.path.join(d, f"m0.{res}.zip")
+            t0 = time.perf_counter()
+            _, report = quantize_archive(m0, qpaths[res], None, weight_residency=res,
+                                         quantized_buckets=[])
+            log(f"residency quantized: quantize_archive ({res}) {time.perf_counter() - t0:.1f} "
+                f"s: {report['weights_quantized']} of {report['leaves_total']} leaves int8, "
+                f"{report['params_bytes_quantized'] / 2**20:.1f} MiB of "
+                f"{report['params_bytes_f32'] / 2**20:.1f}, archive "
+                f"{report['archive_bytes_dst'] / 1e6:.0f} MB")
+        rng = np.random.default_rng(2424)
+        probe = [rng.integers(0, BERT_VOCAB, (n, BERT_T)) for n in (1, 7, BERT_B // 2 + 1, BERT_B)]
+        full = [rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T)) for _ in range(SERVING_SEQ)]
+        answers = {}
+        for tag, path in (("f32", m0), ("dequantized", qpaths["dequantized"]),
+                          ("int8", qpaths["int8"])):
+            gc.collect()
+            a0 = self.allocated()
+            g0 = self.graph_pool_bytes()
+            torch.cuda.reset_peak_memory_stats()
+            reg = ModelRegistry()
+            try:
+                served = reg.load(tag, path, device=self.device, replay_manifest=False,
+                                  save_manifest=False, **kw)
+                a1 = self.allocated()
+                g1 = self.graph_pool_bytes()
+                peak = torch.cuda.max_memory_allocated()
+                b = served.batcher
+                counters = all_counters()
+                batches0 = b.batches
+                torch.cuda.synchronize()
+                for c in counters:
+                    c.reset()
+                got = [reg.predict(tag, x) for x in probe]
+                torch.cuda.synchronize()
+                counts = {c.name: c.value for c in counters}
+                batches = b.batches - batches0
+                want = {c.name: 0 for c in counters}
+                want[fa.counter.name] = BERT_LAYERS * batches
+                self.check(counts == want,
+                           f"residency quantized {tag}: {counts[fa.counter.name]} "
+                           f"{fa.counter.name} over {batches} batches ({BERT_LAYERS} a batch), "
+                           f"nothing else")
+                self.add_launches({fa.counter.name: counts[fa.counter.name]})
+                worst = 0.0
+                with plain_attention():
+                    for x, g in zip(probe, got):
+                        n = x.shape[0]
+                        bucket = next(bk for bk in b.buckets if bk >= n)
+                        padded = np.zeros((bucket, BERT_T), x.dtype)
+                        padded[:n] = x
+                        ref = served.model.output(padded).float().cpu().numpy()[:n]
+                        worst = max(worst, float(np.abs(g - ref).max()))
+                self.check(worst <= BERT_TOL,
+                           f"residency quantized {tag}: answers vs the same model's forward "
+                           f"built from the plain versions: max_abs_err={worst:.3g} "
+                           f"tol={BERT_TOL:g}")
+                answers[tag] = [reg.predict(tag, x) for x in full[:4]]
+                ms = []
+                for x in full:
+                    t0 = time.perf_counter()
+                    reg.predict(tag, x)
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                dt = reg.residency_snapshot()["models"][tag]["dtype_bytes"]
+                pools = ("not measured" if g0 is None or g1 is None
+                         else f"+{(g1 - g0) / 2**20:.1f} MiB")
+                log(f"residency quantized {tag}: ledger {served.device_bytes / 2**20:.1f} MiB "
+                    f"{ {k: round(v / 2**20, 1) for k, v in sorted(dt.items())} } MiB; "
+                    f"memory_allocated +{(a1 - a0) / 2**20:.1f} MiB with its "
+                    f"{b.compile_count()} graphs (peak during the load +"
+                    f"{(peak - a0) / 2**20:.1f} MiB), their private pools reserve {pools}; "
+                    f"p50 of {SERVING_SEQ} sequential "
+                    f"{BERT_B}-row requests {np.median(ms):.3f} ms (min {min(ms):.3f}, max "
+                    f"{max(ms):.3f}) [{self.card}]")
+            finally:
+                reg.shutdown()
+        for tag in ("dequantized", "int8"):
+            err = max(float(np.abs(a - f).max()) for a, f in zip(answers[tag], answers["f32"]))
+            log(f"residency quantized: {tag} against f32 on {4 * BERT_B} rows: max |difference| "
+                f"of probabilities {err:.4g} (a finding, not checked)")
+        same = all(np.array_equal(a, b) for a, b in zip(answers["int8"], answers["dequantized"]))
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(answers["int8"], answers["dequantized"]))
+        log(f"residency quantized: int8-resident against dequantized-resident: "
+            f"{'bit for bit' if same else 'NOT bit for bit'} (max |difference| {err:.3g}; bf16 "
+            f"rounds the scale before the product in one, the dequantized weight in the other)")
+        # the gate, before the hot-swap, through both serving paths
+        golden = rng.integers(0, BERT_VOCAB, (RESIDENCY_GOLDEN, BERT_T))
+        reg = ModelRegistry()
+        try:
+            reg.load("m0", m0, device=self.device, replay_manifest=False, save_manifest=False,
+                     **kw)
+            v1 = reg.get("m0")
+            before = reg.predict("m0", probe[1])
+            stop, errors, served_n = threading.Event(), [], [0]
+            lock = threading.Lock()
+
+            def client(c):
+                crng = np.random.default_rng(c)
+                while not stop.is_set():
+                    x = crng.integers(0, BERT_VOCAB, (int(crng.integers(1, BERT_B + 1)), BERT_T))
+                    try:
+                        reg.predict("m0", x)
+                        with lock:
+                            served_n[0] += 1
+                    except Exception as e:
+                        with lock:
+                            errors.append(e)
+
+            ths = [threading.Thread(target=client, args=(c,), name=f"smoke-gate-{c}")
+                   for c in range(4)]
+            for t in ths:
+                t.start()
+            t0 = time.perf_counter()
+            try:
+                reg.deploy_quantized("m0", qpaths["dequantized"], golden,
+                                     gate=AccuracyGate(max_delta=-1.0), device=self.device, **kw)
+                refused = None
+            except AccuracyGateFailed as e:
+                refused = e
+            gate_s = time.perf_counter() - t0
+            stop.set()
+            for t in ths:
+                t.join(timeout=60)
+            self.check(refused is not None and reg.get("m0") is v1 and v1.version == 1
+                       and not errors and served_n[0] > 0
+                       and np.array_equal(reg.predict("m0", probe[1]), before),
+                       f"residency quantized: a gate of max_delta -1 refused the deploy in "
+                       f"{gate_s:.1f} s ({getattr(refused, 'report', None)}); f32 v1 served "
+                       f"{served_n[0]} requests of 4 clients meanwhile, errors={errors[:3]}, "
+                       f"its answers unchanged")
+            t0 = time.perf_counter()
+            served = reg.deploy_quantized("m0", qpaths["dequantized"], golden,
+                                          gate=AccuracyGate(max_delta=1.0), device=self.device,
+                                          **kw)
+            rep = served.gate_report
+            self.check(served.version == 2 and rep["passed"] and rep["n_examples"] == len(golden),
+                       f"residency quantized: a gate of max_delta 1 deployed v{served.version} in "
+                       f"{time.perf_counter() - t0:.1f} s; top-1 agreement of random-init "
+                       f"BERT-base on {rep['n_examples']} golden rows through the serving path: "
+                       f"{rep['candidate_accuracy']} (delta {rep['accuracy_delta']})")
+            log(f"residency quantized: gate report {rep} [{self.card}]")
+        finally:
+            reg.shutdown()
+            gc.collect()
+
+    def residency_rows(self):
+        """int8 request rows on the char-RNNs (``TextGenerationLSTM(96, 512, 2
+        layers)`` with GravesLSTM, LSTM and GRU cells, rows 1, 3, 5):
+        calibrated on one-hot rows, 8 clients of f32 and int8 rows of 1-64 x
+        T=256; each answer bit for bit the same dtype's at a bucket it may be
+        served at; nothing captured on traffic; for GravesLSTM the 64-row p50
+        and host share of int8 rows against f32 rows."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        from deeplearning4j_tpu_torch.serving.quantize import quantize_archive, quantize_requests
+        eye = np.eye(VOCAB, dtype=np.float32)
+        d = tempfile.mkdtemp(prefix=".chip_smoke-rows-", dir=ROOT)
+        try:
+            for cell in ("graves", "lstm", "gru"):
+                tag = f"residency int8 rows {CHAR_RNN_TAGS[cell]}"
+                kernel = self.cell_module(CHAR_RNN_KERNELS[cell])
+                rng = np.random.default_rng(CHAR_RNN_SEEDS[cell] + 99)
+                ids = lambda n: eye[rng.integers(0, VOCAB, (int(n), SERVE_T))]  # noqa: E731
+                path, qpath = os.path.join(d, f"{cell}.zip"), os.path.join(d, f"{cell}.q.zip")
+                net = MultiLayerNetwork(char_rnn_conf(cell, SERVE_T), device=self.device).init()
+                ModelSerializer.write_model(net, path)
+                del net
+                policy, _ = quantize_archive(path, qpath, [ids(8) for _ in range(4)])
+                reg = ModelRegistry()
+                try:
+                    served = reg.load("rows", qpath, device=self.device, max_batch_size=SERVE_B,
+                                      batch_timeout_ms=5.0, warmup_example=ids(1),
+                                      devices=[self.device], save_manifest=False)
+                    b = served.batcher
+                    graphs = b.compile_count()
+                    self.check(graphs == 2 * len(b.buckets),
+                               f"{tag}: {graphs} graphs after warm-up ({len(b.buckets)} buckets "
+                               f"x f32 and int8)")
+                    reqs = []
+                    for c in range(CLIENTS):
+                        r = []
+                        for k in range(REQUESTS_PER_CLIENT):
+                            x = ids(rng.integers(1, SERVE_B + 1))
+                            r.append(quantize_requests(x, policy) if (c + k) % 2 else x)
+                        reqs.append(r)
+                    counters = all_counters()
+                    batches0 = b.batches
+                    quant0 = served.metrics.snapshot()["quantized_requests_total"]
+                    # ---- the main path: counts from 0 just before, read just after
+                    torch.cuda.synchronize()
+                    for c in counters:
+                        c.reset()
+                    answers, lat, wall, errors = self.serve_clients(reg, "rows", reqs)
+                    torch.cuda.synchronize()
+                    counts = {c.name: c.value for c in counters}
+                    # ----
+                    batches = b.batches - batches0
+                    want = {c.name: 0 for c in counters}
+                    want[kernel.counter.name] = LAYERS * batches
+                    self.check(not errors and counts == want,
+                               f"{tag}: {len(lat)} requests answered (errors={errors[:3]}); "
+                               f"{counts[kernel.counter.name]} {kernel.counter.name} launches "
+                               f"= {LAYERS} x {batches} batches, nothing else")
+                    self.add_launches({kernel.counter.name: counts[kernel.counter.name]})
+                    n_int8 = sum(x.dtype == np.int8 for r in reqs for x in r)
+                    self.check(b.compile_count() == graphs and
+                               served.metrics.snapshot()["quantized_requests_total"] - quant0
+                               == n_int8,
+                               f"{tag}: {b.compile_count()} graphs after the mixed traffic "
+                               f"(nothing captured on traffic); {n_int8} int8 requests counted")
+                    bad = []
+                    for c in range(CLIENTS):
+                        for k, x in enumerate(reqs[c]):
+                            n = x.shape[0]
+                            cands = [self.at_bucket(b, x, bk) for bk in b.buckets if bk >= n]
+                            if answers[c][k] is None or not any(
+                                    np.array_equal(answers[c][k], r) for r in cands):
+                                bad.append((c, k, str(x.dtype)))
+                    self.check(not bad, f"{tag}: f32 and int8 rows coalesced apart, each answer "
+                                        f"bit for bit its dtype's at a bucket it may be served "
+                                        f"at (mismatches {bad[:4]})")
+                    if cell == "graves":
+                        xf = ids(SERVE_B)
+                        xq = quantize_requests(xf, policy)
+                        conc = [[ids(n) for n in rng.integers(1, SERVE_B + 1, SERVING_CONC[1])]
+                                for _ in range(SERVING_CONC[0])]
+                        f32 = self.serving_times(reg, "rows", xf, conc, f"{tag} f32 rows")
+                        q8 = self.serving_times(reg, "rows", xq,
+                                                [[quantize_requests(x, policy) for x in r]
+                                                 for r in conc], f"{tag} int8 rows")
+                        log(f"{tag}: {SERVE_B}-row p50 int8 {q8['p50_ms']:.3f} ms against f32 "
+                            f"{f32['p50_ms']:.3f}; host {q8['host_ms']:.3f} against "
+                            f"{f32['host_ms']:.3f} ms ({100 * q8['host_share']:.1f}% against "
+                            f"{100 * f32['host_share']:.1f}%); rows in {xq.nbytes / 1e6:.2f} "
+                            f"against {xf.nbytes / 1e6:.2f} MB [{self.card}]")
+                        self.check(b.compile_count() == graphs,
+                                   f"{tag}: {b.compile_count()} graphs after the timings")
+                finally:
+                    reg.shutdown()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+    def residency_plan(self, d):
+        """Plan slices: parallel_pipe's dense net under compose(data=2,
+        pipe=4, microbatches=2) over 8 x cuda:0 in fp32 (bit for bit
+        ``net.output`` at the bucket, graphs = buckets x 2, nothing captured
+        on traffic, the manifest replayed, refused flat and admitted sliced
+        under a per-position budget of 0.6 of a copy); BERT-base under
+        compose(data=2, tensor=2) over 4 x cuda:0 in bf16."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.nn import (DenseLayer, InputType, NeuralNetConfiguration,
+                                                 OutputLayer)
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.parallel import ParallelPlan
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import (ContinuousBatcher, HBMBudgetExceeded,
+                                                      ModelRegistry)
+        from deeplearning4j_tpu_torch.train import Sgd
+        env = get_environment()
+        env.set_compute_dtype("float32")
+        try:
+            b_ = NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.05)).list()
+            for _ in range(5):
+                b_ = b_.layer(DenseLayer(n_out=64, activation="tanh"))
+            conf = (b_.layer(OutputLayer(n_out=8, activation="softmax"))
+                    .set_input_type(InputType.feed_forward(32)).build())
+            net = MultiLayerNetwork(conf, device=self.device).init()
+            devs = [self.device] * 8
+            plan = ParallelPlan.compose(data=2, pipe=4, microbatches=2, devices_=devs)
+            rng = np.random.default_rng(2525)
+            reqs = [[rng.normal(0, 1, (int(n), 32)).astype(np.float32)
+                     for n in rng.integers(1, 65, REQUESTS_PER_CLIENT)]
+                    for _ in range(CLIENTS)]
+            reg = ModelRegistry()
+            try:
+                for name, mb in (("pipe", 2), ("pipe-mb1", 1)):
+                    served = reg.register(
+                        name, net, plan=ParallelPlan.compose(
+                            data=2, pipe=4, microbatches=mb, devices_=devs),
+                        replicas=2, devices=devs, max_batch_size=64, batch_timeout_ms=5.0,
+                        warmup_example=np.zeros((1, 32), np.float32))
+                    b = served.batcher
+                    pairs = len(b.buckets) * 2
+                    self.check(b.compile_count() == pairs,
+                               f"residency plan {name}: {b.compile_count()} graphs after "
+                               f"warm-up ({len(b.buckets)} buckets x 2 plan slices)")
+                    answers, lat, wall, errors = self.serve_clients(reg, name, reqs)
+                    bad, worst = [], 0.0
+                    for c in range(CLIENTS):
+                        for k, x in enumerate(reqs[c]):
+                            n = x.shape[0]
+                            cands = []
+                            for bk in (bk for bk in b.buckets if bk >= n):
+                                padded = np.zeros((bk, 32), np.float32)
+                                padded[:n] = x
+                                cands.append(net.output(padded).float().cpu().numpy()[:n])
+                            got = answers[c][k]
+                            if got is None or not any(np.array_equal(got, r) for r in cands):
+                                bad.append((c, k, n))
+                            if got is not None:
+                                worst = max(worst, min(float(np.abs(got - r).max())
+                                                       for r in cands))
+                    if mb == 1:
+                        # every layer at the bucket's rows: net.output's products
+                        self.check(not errors and not bad,
+                                   f"residency plan {name} (microbatches 1): {CLIENTS} x "
+                                   f"{REQUESTS_PER_CLIENT} answers bit for bit net.output at a "
+                                   f"bucket they may be served at (mismatches {bad[:4]}, "
+                                   f"closest max |difference| {worst:.3g}; errors {errors[:3]})")
+                    else:
+                        # the trunk runs on microbatches of half the rows, where
+                        # cuBLAS may sum a row's products in another order
+                        self.check(not errors and worst <= PIPE_MB_TOL,
+                                   f"residency plan {name} (microbatches 2): {CLIENTS} x "
+                                   f"{REQUESTS_PER_CLIENT} answers against net.output at the "
+                                   f"bucket: {len(bad)} not bit for bit, closest max "
+                                   f"|difference| {worst:.3g} <= {PIPE_MB_TOL:g}; errors "
+                                   f"{errors[:3]}")
+                        log(f"residency plan {name}: {CLIENTS * REQUESTS_PER_CLIENT - len(bad)} "
+                            f"of {CLIENTS * REQUESTS_PER_CLIENT} answers bit for bit "
+                            f"net.output at the bucket, the rest within {worst:.3g} (the "
+                            f"trunk's microbatches of half the rows) [{self.card}]")
+                    self.check(b.compile_count() == pairs and
+                               set(served.metrics.snapshot()["replica_batches"]) == {0, 1},
+                               f"residency plan {name}: {b.compile_count()} graphs after traffic "
+                               f"(nothing captured on traffic), batches on both slices "
+                               f"{served.metrics.snapshot()['replica_batches']}")
+                served = reg.get("pipe")
+                b = served.batcher
+                m = b.warmup_manifest()
+                b2 = ContinuousBatcher(net, max_batch_size=m.max_batch_size, batch_timeout_ms=5.0,
+                                       replicas=m.replicas, buckets=list(m.buckets), plan=plan,
+                                       devices=devs, warmup_example=m.example())
+                try:
+                    warm = b2.compile_count()
+                    x = reqs[0][0]
+                    again = b2.submit(x)
+                    self.check(m.plan == plan.describe() and warm == len(m.pairs)
+                               and b2.compile_count() == warm
+                               and np.array_equal(again, reg.predict("pipe", x)),
+                               f"residency plan pipe: the manifest records {m.plan}; a fresh "
+                               f"batcher replayed its {len(m.pairs)} pairs ({warm} graphs, "
+                               f"{b2.compile_count()} after a request answered as the first)")
+                finally:
+                    b2.shutdown()
+            finally:
+                reg.shutdown()
+            copy = sum(t.numel() * t.element_size()
+                       for layer in net.params().values() for t in layer.values())
+            budget = int(0.6 * copy)
+            reg = ModelRegistry(hbm_budget_bytes=budget)
+            try:
+                try:
+                    reg.register("flat", net, devices=devs, max_batch_size=64,
+                                 warmup_example=np.zeros((1, 32), np.float32))
+                    flat = "admitted"
+                except HBMBudgetExceeded:
+                    flat = "refused"
+                reg.register("sliced", net, plan=ParallelPlan.compose(
+                    data=2, pipe=4, microbatches=1, devices_=devs), replicas=2, devices=devs,
+                    max_batch_size=64, warmup_example=np.zeros((1, 32), np.float32))
+                snap = reg.residency_snapshot()
+                per = snap["per_device_bytes"]
+                self.check(flat == "refused" and len(per) == 8 and max(per.values()) <= budget,
+                           f"residency plan pipe: under a per-position budget of {budget} bytes "
+                           f"(0.6 x one {copy}-byte copy) the flat model was {flat}, the "
+                           f"plan-sliced one admitted: per position {per}; per card "
+                           f"{snap['per_physical_device_bytes']}")
+            finally:
+                reg.shutdown()
+        finally:
+            env.allow_bfloat16()
+        # BERT-base, tensor slices
+        kw = self.residency_kw()
+        model = ModelSerializer.restore_model(os.path.join(d, "m0.zip"), device=self.device,
+                                              load_updater=False)
+        devs = [self.device] * 4
+        plan = ParallelPlan.compose(data=2, tensor=2, devices_=devs)
+        reg = ModelRegistry()
+        try:
+            served = reg.register("bert-tp", model, plan=plan, replicas=2, devices=devs,
+                                  max_batch_size=BERT_B, buckets=[1, BERT_B],
+                                  batch_timeout_ms=5.0, warmup_example=kw["warmup_example"])
+            b = served.batcher
+            rng = np.random.default_rng(2626)
+            probe = [rng.integers(0, BERT_VOCAB, (n, BERT_T)) for n in (1, BERT_B, 3, BERT_B)]
+            counters = all_counters()
+            batches0 = b.batches
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            got = [reg.predict("bert-tp", x) for x in probe]
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            batches = b.batches - batches0
+            want = {c.name: 0 for c in counters}
+            want[fa.counter.name] = BERT_LAYERS * 2 * batches
+            self.check(counts == want and b.compile_count() == 4,
+                       f"residency plan bert: {counts[fa.counter.name]} {fa.counter.name} over "
+                       f"{batches} batches = {BERT_LAYERS} layers x 2 tensor pieces a batch "
+                       f"(per replica, {BERT_LAYERS} per piece), nothing else; "
+                       f"{b.compile_count()} graphs (2 buckets x 2 slices)")
+            self.add_launches({fa.counter.name: counts[fa.counter.name]})
+            worst = 0.0
+            with plain_attention():
+                for x, g in zip(probe, got):
+                    n = x.shape[0]
+                    bucket = next(bk for bk in b.buckets if bk >= n)
+                    padded = np.zeros((bucket, BERT_T), x.dtype)
+                    padded[:n] = x
+                    ref = model.output(padded).float().cpu().numpy()[:n]
+                    worst = max(worst, float(np.abs(g - ref).max()))
+            self.check(worst <= BERT_TOL,
+                       f"residency plan bert: answers vs the plain forward max_abs_err="
+                       f"{worst:.3g} tol={BERT_TOL:g}")
+            ms = []
+            x_full = probe[1]
+            reg.predict("bert-tp", x_full)
+            for _ in range(SERVING_SEQ):
+                t0 = time.perf_counter()
+                reg.predict("bert-tp", x_full)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            snap = reg.residency_snapshot()
+            log(f"residency plan bert: compose(data=2, tensor=2) over 4 x {self.device}: "
+                f"{BERT_B}-row p50 {np.median(ms):.3f} ms (min {min(ms):.3f}, max "
+                f"{max(ms):.3f}); per position "
+                f"{ {k: round(v / 2**20, 1) for k, v in snap['per_device_bytes'].items()} } "
+                f"MiB [{self.card}]")
+        finally:
+            reg.shutdown()
+            del model
+
+    def residency_inference(self, d):
+        """``ParallelInference.builder(bert).workers(2)`` on one card clamps
+        to one worker; its 64-row answers bit for bit the registry's for the
+        same archive."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.parallel import ParallelInference
+        from deeplearning4j_tpu_torch.serving import ModelRegistry
+        path = os.path.join(d, "m0.zip")
+        kw = self.residency_kw()
+        model = ModelSerializer.restore_model(path, device=self.device, load_updater=False)
+        pi = ParallelInference.builder(model).workers(2).max_batch_size(BERT_B).build()
+        reg = ModelRegistry()
+        try:
+            reg.load("m0", path, device=self.device, replay_manifest=False, save_manifest=False,
+                     **kw)
+            rng = np.random.default_rng(2727)
+            xs = [rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T)) for _ in range(3)]
+            same = all(np.array_equal(pi.output(x), reg.predict("m0", x)) for x in xs)
+            self.check(pi.workers == 1 and same,
+                       f"residency parallel inference: workers(2) on one card gave "
+                       f"{pi.workers} worker; {len(xs)} {BERT_B}-row answers bit for bit the "
+                       f"registry's for the same archive: {same}")
+        finally:
+            pi.shutdown()
+            reg.shutdown()
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -5974,6 +6791,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--residency"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.residency_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -6004,6 +6831,7 @@ def main() -> int:
         smoke.parallel_phase(workdir)
         smoke.zoo_phase(workdir)
         smoke.serving_phase(workdir)
+        smoke.residency_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

@@ -11,7 +11,8 @@ Ported are the ops of the imported BERT fine-tuning path (the TF import of
 those ``SDVariable``'s operators reach, the shape ops the graph optimizer
 reads through (``expand_dims``; ``concat`` and ``strided_slice`` in shape
 chains), and the ``nn``/``loss`` ops of the ported SameDiff scenarios
-(``relu``, ``dropout``, ``split``, ``mean_squared_error``). Any other name — the JAX registry holds some 800 — raises
+(``relu``, ``dropout``, ``split``, ``mean_squared_error``), and the
+``quantize``/``dequantize`` pair serving's int8 archives are built with. Any other name — the JAX registry holds some 800 — raises
 ``NotImplementedError`` naming the op when a graph applies it
 (:func:`get_op`).
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ops.activations import (gelu_exact_recompute,
@@ -364,6 +366,59 @@ def _sdpa(q, k, v, bias=None, scale=None, boolean_bias=False):
             scores = scores + bias
     weights = torch.softmax(scores, dim=-1)
     return torch.einsum("...qk,...kd->...qd", weights, v)
+
+
+# ---- quantization (JAX :2273-2322) ----
+def _as_tensor(v, dtype=None, device=None) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        t = v if device is None else v.to(device)
+        return t if dtype is None else t.to(dtype)
+    a = np.asarray(v)
+    if a.dtype == np.float64 and dtype is None:
+        a = a.astype(np.float32)  # jnp.asarray with 64-bit off
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _quant_broadcast(v: torch.Tensor, ndim: int, axis) -> torch.Tensor:
+    """A per-channel scale/zero-point array reshaped to broadcast along
+    ``axis`` of a rank-``ndim`` tensor (scalars pass through)."""
+    if v.ndim == 0 or axis is None:
+        return v
+    if v.ndim != 1:
+        raise ValueError(f"per-channel quantization expects a 1-D "
+                         f"scale/zero-point array, got shape {tuple(v.shape)}")
+    shape = [1] * ndim
+    shape[axis % ndim] = v.shape[0]
+    return v.reshape(shape)
+
+
+@register("quantize")
+def _quantize(a, scale=1.0, zero_point=0, dtype="int8", axis=None, narrow_range=False):
+    """Affine quantization ``q = clip(round(a / scale) + zero_point)``:
+    per-channel 1-D ``scale``/``zero_point`` broadcast along ``axis``,
+    ``narrow_range`` drops the most negative code (``[-127, 127]`` for
+    int8), rounding half to even. Integer inputs are cast to float32 and
+    float64 ones to float32 (the JAX package runs with 64-bit off)."""
+    a = _as_tensor(a)
+    if not a.is_floating_point() or a.dtype == torch.float64:
+        a = a.to(torch.float32)
+    scale = _quant_broadcast(_as_tensor(scale, a.dtype, a.device), a.ndim, axis)
+    zp = _quant_broadcast(_as_tensor(zero_point, device=a.device), a.ndim, axis)
+    out = torch_dtype(dtype)
+    info = torch.iinfo(out)
+    lo = info.min + 1 if narrow_range else info.min
+    return torch.clamp(torch.round(a / scale) + zp, lo, info.max).to(out)
+
+
+@register("dequantize")
+def _dequantize(q, scale=1.0, zero_point=0, axis=None, dtype="float32"):
+    """Inverse affine map ``(q - zero_point) * scale`` in ``dtype``, with
+    the per-channel broadcast of :func:`_quantize`."""
+    q = _as_tensor(q)
+    out = torch_dtype(dtype)
+    scale = _quant_broadcast(_as_tensor(scale, out, q.device), q.ndim, axis)
+    zp = _quant_broadcast(_as_tensor(zero_point, device=q.device), q.ndim, axis)
+    return (q.to(out) - zp.to(out)) * scale
 
 
 # Ops that take an executor-injected ``key`` (a per-step, per-node

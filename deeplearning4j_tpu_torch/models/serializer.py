@@ -141,13 +141,17 @@ class ModelSerializer:
     @staticmethod
     def restore_model(path: str, device=None, load_updater: bool = True):
         """Type-dispatching restore on the archive's ``model_type``: a
-        ``MultiLayerNetwork`` or a ``ComputationGraph``."""
+        ``MultiLayerNetwork`` or a ``ComputationGraph``; a quantized archive
+        (``quantization.json``, written by either package's
+        ``quantize_archive``) restores as a
+        :class:`~..serving.quantize.QuantizedModel`."""
         with zipfile.ZipFile(path) as zf:
             names = zf.namelist()
             meta = json.loads(zf.read(_META).decode()) if _META in names else {}
         kind = meta.get("model_type", "MultiLayerNetwork")
         if "quantization.json" in names:
-            kind = "quantized"
+            from deeplearning4j_tpu_torch.serving.quantize import QuantizedModel
+            return QuantizedModel.restore(path, device=device)
         if kind not in ("MultiLayerNetwork", "ComputationGraph"):
             raise NotImplementedError(f"restoring a {kind} archive is not ported to "
                                       "deeplearning4j_tpu_torch yet")

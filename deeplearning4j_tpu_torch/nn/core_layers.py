@@ -53,6 +53,8 @@ class DenseLayer(Layer):
         return params, {}
 
     def preoutput(self, params, x):
+        if not x.is_floating_point():  # integer rows promote as jnp promotes them
+            x = x.to(params["W"].dtype)
         y = x @ params["W"]
         return y + params["b"] if self.has_bias else y
 

@@ -1,9 +1,9 @@
 """Parallel and distributed training (counterpart of
 ``deeplearning4j_tpu.parallel``): :class:`ParallelPlan` and its placement
 rules, :class:`ParallelWrapper` (one process driving a mesh: data, FSDP,
-tensor and pipe plans), the GPipe schedule and its executor, and ring
-attention over the ``seq`` axis. ``ParallelInference`` belongs with the
-serving slice and is not ported here."""
+tensor and pipe plans), the GPipe schedule and its executor, ring attention
+over the ``seq`` axis, and :class:`ParallelInference` (batched serving over
+device replicas)."""
 
 from deeplearning4j_tpu_torch.parallel.sharding import (
     ParallelPlan,
@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.parallel.pipeline import (
     stack_stage_params,
 )
 from deeplearning4j_tpu_torch.parallel.plan_exec import PipePlanExecutor
+from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 
 __all__ = [
     "ParallelPlan",
@@ -41,4 +42,5 @@ __all__ = [
     "stack_stage_params",
     "sequential_reference",
     "PipePlanExecutor",
+    "ParallelInference",
 ]

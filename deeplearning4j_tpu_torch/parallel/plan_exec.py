@@ -217,9 +217,9 @@ class PipePlanExecutor:
         self.model._optimizer = None
 
     # -------------------------------------------------------------- forward
-    def _apply_outer_layer(self, params, new_state, x, i, training, generator):
-        """One head/tail layer as ``MultiLayerNetwork._forward`` runs it.
-        Returns ``(x, last_input)``."""
+    def _apply_outer_layer(self, params, state, new_state, x, i, training, generator):
+        """One head/tail layer as ``MultiLayerNetwork._forward`` runs it, on
+        the layer state ``state``. Returns ``(x, last_input)``."""
         model = self.model
         layer = model.layers[i]
         k = _layer_key(i, layer)
@@ -229,7 +229,7 @@ class PipePlanExecutor:
         if i == len(model.layers) - 1 and hasattr(layer, "compute_loss"):
             x = layer._apply_input_dropout(x, layer._g, training, generator)
             return layer.activate(p, x), x
-        s = model._model_state.get(k, {})
+        s = state.get(k, {})
         x, s_new = layer.forward(p, s, x, training=training, generator=generator, mask=None)
         if s:
             new_state[k] = s_new
@@ -247,18 +247,22 @@ class PipePlanExecutor:
 
         return stage_fn
 
-    def packed_forward(self, params, x, *, training: bool, generator, at=None):
+    def packed_forward(self, params, x, *, training: bool, generator, at=None,
+                       model_state=None):
         """``(out, output layer input, new_state)``: the packed twin of
         ``MultiLayerNetwork._forward`` for the pipeline at ``at`` (the
-        replica's data coordinate)."""
+        replica's data coordinate), over ``model_state`` (default: the
+        network's)."""
         cdt = get_environment().compute_dtype
         if x.is_floating_point() and x.dtype != cdt:
             x = x.to(cdt)
         params = cast_floating(params, cdt)
-        new_state = dict(self.model._model_state)
+        state = self.model._model_state if model_state is None else model_state
+        new_state = dict(state)
         last_in = x
         for i in self.head:
-            x, _ = self._apply_outer_layer(params, new_state, x, i, training, generator)
+            x, _ = self._apply_outer_layer(params, state, new_state, x, i, training,
+                                           generator)
         trunk = tree_map(lambda ts: TensorShards([ts.piece(s, cdt) for s in range(self.S)], 0),
                          params[TRUNK_KEY])
         # the schedule depth must divide this call's rows: the largest
@@ -267,10 +271,27 @@ class PipePlanExecutor:
         x = gpipe(self._stage_fn(training, generator), trunk, x, mesh=self.plan.mesh,
                   n_microbatches=m, at=at)
         for i in self.tail:
-            x, li = self._apply_outer_layer(params, new_state, x, i, training, generator)
+            x, li = self._apply_outer_layer(params, state, new_state, x, i, training,
+                                            generator)
             if li is not None:
                 last_in = li
         return x, last_in, new_state
+
+    # ----------------------------------------------------------------- serve
+    def make_forward(self):
+        """``fwd(packed_params, model_state, x, mask=None) -> output``: the
+        packed twin of ``MultiLayerNetwork.output``'s forward, for serving
+        (JAX ``:404-417``). Serving builds one executor per replica group,
+        so the schedule runs over that group's pipe positions."""
+        def fwd(params, model_state, x, mask=None):
+            if mask is not None:
+                raise NotImplementedError(
+                    "feature masks are not supported under pipe-axis plans")
+            out, _, _ = self.packed_forward(params, x, training=False, generator=None,
+                                            model_state=model_state)
+            return out
+
+        return fwd
 
     def packed_loss(self, params, args, generator, at=None):
         """A replica's training loss through the pipeline: ``args`` are

@@ -171,6 +171,14 @@ def load_library(path, build):
 
 
 # --------------------------------------------------------------------- AOT
+#: Held across every capture and every drop of captured graphs, process
+#: wide: one capture at a time (the collector is off for its duration, and a
+#: second capture ending must not switch it back on under the first), and no
+#: graph is destroyed while a stream captures (destroying one frees its
+#: memory pool, a call no capture tolerates). Replays do not take it.
+CAPTURE_LOCK = threading.RLock()
+
+
 def aot_enabled() -> bool:
     from deeplearning4j_tpu_torch.runtime.environment import get_environment
     return bool(get_environment().aot_dispatch)
@@ -302,15 +310,17 @@ class AotCache:
         return len(self._entries)
 
     def clear(self) -> None:
-        self._entries.clear()
-        self._warm.clear()
+        with CAPTURE_LOCK:
+            self._entries.clear()
+            self._warm.clear()
 
     def evict(self, pred) -> int:
         """Drop every entry whose key satisfies ``pred``; returns how many.
         A replay already launched is unaffected."""
-        dead = [k for k in list(self._entries) if pred(k)]
-        for k in dead:
-            self._entries.pop(k, None)
+        with CAPTURE_LOCK:
+            dead = [k for k in list(self._entries) if pred(k)]
+            for k in dead:
+                self._entries.pop(k, None)
         return len(dead)
 
     def call(self, key: Hashable, fn, *args):
@@ -371,20 +381,21 @@ class AotCache:
         s.wait_stream(torch.cuda.current_stream(dev))
         # a graph that the cyclic garbage collector destroyed mid-capture would
         # invalidate it (no graph may be freed while a stream captures): collect
-        # before, and not during
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            # thread_local: the completion thread of the fit may read an
-            # earlier step's loss meanwhile, which a process-wide capture
-            # would refuse
-            with _native.recording(s) as launches, torch.cuda.graph(
-                    g, pool=pool, stream=s, capture_error_mode="thread_local"):
-                out = fn(*entry.args())
-        finally:
-            if collecting:
-                gc.enable()
+        # before, and not during; one capture at a time (CAPTURE_LOCK)
+        with CAPTURE_LOCK:
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                # thread_local: the completion thread of the fit may read an
+                # earlier step's loss meanwhile, which a process-wide capture
+                # would refuse
+                with _native.recording(s) as launches, torch.cuda.graph(
+                        g, pool=pool, stream=s, capture_error_mode="thread_local"):
+                    out = fn(*entry.args())
+            finally:
+                if collecting:
+                    gc.enable()
         STATS.record("aot_compiles", time.perf_counter() - t0)
         entry.launches = launches
         entry.graph, entry.out = g, out

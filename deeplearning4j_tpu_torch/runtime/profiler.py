@@ -317,15 +317,20 @@ def capacity_stats() -> Dict[str, object]:
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:
-    """Per-device memory statistics (``torch.cuda.memory_stats``: the
-    allocator's current, peak and reserved bytes, allocation counts) for
-    every visible CUDA device; feeds the crash report. Empty without a
-    GPU."""
+    """Per-device memory statistics for every visible CUDA device: the
+    caching allocator's (``torch.cuda.memory_stats``: current, peak and
+    reserved bytes, allocation counts) plus the two keys the JAX package's
+    backends report, ``bytes_limit`` = the card's total memory
+    (``torch.cuda.get_device_properties(i).total_memory``) and
+    ``bytes_in_use`` = ``torch.cuda.memory_allocated(i)``: the measured
+    device budget and its use (``serving/capacity.py``). Feeds the crash
+    report. Empty without a GPU."""
     out = {}
     if not torch.cuda.is_available():
         return out
     for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        if stats:
-            out[f"cuda:{i}"] = {k: int(v) for k, v in stats.items()}
+        stats = {k: int(v) for k, v in torch.cuda.memory_stats(i).items()}
+        stats["bytes_limit"] = int(torch.cuda.get_device_properties(i).total_memory)
+        stats["bytes_in_use"] = int(torch.cuda.memory_allocated(i))
+        out[f"cuda:{i}"] = stats
     return out

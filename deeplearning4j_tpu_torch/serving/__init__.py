@@ -18,6 +18,16 @@
 - :class:`SessionStore` (``sessions.py``) — server-side ``rnnTimeStep``
   state with CRC-framed spills.
 - :class:`ServingMetrics` / :class:`LatencyHistogram` (``metrics.py``).
+- ``paging.py`` — the pager's policy (traffic EWMA, retention weight, the
+  budget), behind the registry's ``hbm_budget_bytes``, ``acquire``,
+  ``page_in``, ``evict`` and ``residency_snapshot``.
+- ``capacity.py`` — the device-byte ledger and the capacity payload
+  (:func:`model_capacity`, :func:`registry_capacity`).
+- ``quantize.py`` — offline int8 archives (:func:`quantize_archive`),
+  :class:`DtypePolicy`, :class:`QuantizedModel` and the
+  :class:`AccuracyGate` ``deploy_quantized`` runs.
+- ``delivery.py`` — the golden-set gate (:class:`GoldenGate`,
+  :class:`GoldenSet`); the staged-rollout half comes with the host side.
 
 Exports resolve lazily (PEP 562), as in the JAX package.
 """
@@ -35,6 +45,8 @@ _EXPORTS = {
     "page_in_retry_after_ms": "admission",
     "ContinuousBatcher": "batcher",
     "default_buckets": "batcher",
+    "model_capacity": "capacity",
+    "registry_capacity": "capacity",
     "LatencyHistogram": "metrics",
     "ServingMetrics": "metrics",
     "ModelRegistry": "registry",
@@ -47,6 +59,17 @@ _EXPORTS = {
     "SessionStore": "sessions",
     "Replica": "replica",
     "ReplicaPool": "replica",
+    "GateFailed": "delivery",
+    "GateRefused": "delivery",
+    "GoldenGate": "delivery",
+    "GoldenSet": "delivery",
+    "AccuracyGate": "quantize",
+    "AccuracyGateFailed": "quantize",
+    "CalibrationError": "quantize",
+    "DtypePolicy": "quantize",
+    "QuantizedModel": "quantize",
+    "quantize_archive": "quantize",
+    "quantize_requests": "quantize",
     "CircuitBreaker": "resilience",
     "CircuitOpen": "resilience",
     "CircuitState": "resilience",

@@ -30,6 +30,15 @@ A failure anywhere — an injected ``serving.batcher.forward`` /
 ``serving.batcher.complete`` chaos fault, a real device error at readback —
 fails only that batch's requests; later batches keep flowing.
 
+Dtype policy (``dtype_policy=``, a :class:`~.quantize.DtypePolicy`): warm-up
+also captures the quantized-dtype twin of each bucket the policy pre-warms,
+int8 and f32 requests coalesce apart by signature into dtype-keyed pad
+buffer pools, the quantized share of traffic is counted and latency-split in
+the metrics, and the manifest records the policy. Plan slices (``plan=``,
+a :class:`~..parallel.sharding.ParallelPlan`): each replica is one plan
+slice (:class:`~.replica.ReplicaPool`), and the manifest records
+``plan.describe()``.
+
 Session steps (:meth:`ContinuousBatcher.enable_sessions`,
 :meth:`ContinuousBatcher.submit_step`) run on a second coalescer at ONE
 fixed bucket, one captured graph per replica, the carries as static inputs
@@ -182,6 +191,8 @@ class ContinuousBatcher:
 
     Inputs: a single array for ``MultiLayerNetwork``-style models, or a
     ``{input_name: array}`` dict for multi-input ``ComputationGraph``s.
+    ``dtype_policy`` serves quantized traffic beside float traffic;
+    ``plan`` makes each replica a plan slice (see the module docstring).
     """
 
     def __init__(self, model, max_batch_size: int = 32,
@@ -193,14 +204,9 @@ class ContinuousBatcher:
                  replicas: int = 1, pipeline_depth: int = 2,
                  devices: Optional[Sequence] = None,
                  dtype_policy=None, plan=None):
-        if dtype_policy is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(dtype_policy=...): quantized serving is not "
-                "ported yet")
-        if plan is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(plan=...): plan-sliced serving is not ported yet")
         self.model = model
+        self.plan = plan
+        self.dtype_policy = dtype_policy
         if getattr(model, "_params", 1) is None:
             model._ensure_init()
         self.max_batch_size = int(max_batch_size)
@@ -210,12 +216,17 @@ class ContinuousBatcher:
         self.pipeline_depth = max(0, int(pipeline_depth))
         self.admission = admission or AdmissionController(queue_limit=queue_limit)
         self._queue: "queue.Queue[_Request]" = queue.Queue()
-        self._pool = ReplicaPool(model, n_replicas=replicas, devices=devices)
+        self._pool = ReplicaPool(model, n_replicas=replicas, devices=devices, plan=plan)
         self._pinned = any(r.device.type == "cuda" for r in self._pool.replicas)
         self.metrics = metrics or ServingMetrics(
             queue_depth_fn=self._queue.qsize,
-            compile_count_fn=self.compile_count,
+            # the pool's count, not a method of the batcher: a bound method
+            # would close a reference cycle through the batcher, and an evicted
+            # model would wait for the collector to leave the card
+            compile_count_fn=self._pool.aot_count,
             inflight_fn=self._pool.total_in_flight)
+        if self.dtype_policy is not None:
+            self.metrics.set_dtype_policy(self.dtype_policy.label())
         self._graph_inputs = list(getattr(getattr(model, "conf", None), "inputs", []) or [])
         self._warmed_pairs: List[tuple] = []  # (bucket, replica, dtype)
         # worker thread mints buckets while a control thread resizes
@@ -280,6 +291,11 @@ class ContinuousBatcher:
             for b in manifest.buckets:
                 self._warm_forward(rep, example, b)
                 self._record_warmed(b, rep.index, example)
+            qex = self._quantized_example(example)
+            if qex is not None:
+                for b in self.dtype_policy.buckets_for(manifest.buckets):
+                    self._warm_forward(rep, qex, b)
+                    self._record_warmed(b, rep.index, qex)
         if self._session_bucket is not None:
             self._warm_session(rep)
         return self._pool.publish_replica(rep)
@@ -309,15 +325,32 @@ class ContinuousBatcher:
         chaos.inject("serving.batcher.warmup")
         example = self._normalize(example)[0]
         self._example = self._zeros_with_rows(example, 1)
+        # the policy's quantized twin: its pairs are captured beside the
+        # float ones, and its pad buffers pool under their own dtype
+        qex = self._quantized_example(example)
+        qbuckets = self.dtype_policy.buckets_for(self.buckets) if qex is not None else []
         n = 0
         for rep in list(self._pool.replicas):
             for b in self.buckets:
                 self._warm_forward(rep, example, b)
                 self._record_warmed(b, rep.index, example)
                 n += 1
+            for b in qbuckets:
+                self._warm_forward(rep, qex, b)
+                self._record_warmed(b, rep.index, qex)
+                n += 1
         for b in self.buckets:  # preallocate the pad buffers
             self._release_buffers(self._gather([], 0, b, template=example)[1])
+        for b in qbuckets:
+            self._release_buffers(self._gather([], 0, b, template=qex)[1])
         return n
+
+    def _quantized_example(self, example: ArrayOrDict) -> Optional[ArrayOrDict]:
+        """The dtype policy's quantized zeros shaped like ``example``, or
+        ``None`` (no policy, or it quantizes no input)."""
+        if self.dtype_policy is None:
+            return None
+        return self.dtype_policy.quantized_zeros(example)
 
     def _warm_forward(self, rep: Replica, example: ArrayOrDict, rows: int) -> None:
         """Capture ``rep``'s graph at ``rows`` rows: a zero pad buffer from
@@ -355,7 +388,9 @@ class ContinuousBatcher:
             self._example, buckets=list(self.buckets),
             replicas=self.replica_count, pairs=pairs,
             max_batch_size=self.max_batch_size,
-            model=type(self.model).__name__)
+            model=type(self.model).__name__,
+            policy=self.dtype_policy.to_dict() if self.dtype_policy is not None else None,
+            plan=self.plan.describe() if self.plan is not None else None)
 
     @staticmethod
     def _zeros_with_rows(x: ArrayOrDict, rows: int) -> ArrayOrDict:
@@ -419,13 +454,46 @@ class ContinuousBatcher:
                 self.metrics.record_rejection("overload")
                 trace.flag_current("shed")  # tail sampling keeps sheds
                 raise
-            req = _Request(xs, rows, self.admission.deadline_for(timeout_ms))
-            self.metrics.record_admitted()
+            quant = (self.dtype_policy is not None
+                     and self.dtype_policy.is_quantized_request(xs))
+            req = _Request(xs, rows, self.admission.deadline_for(timeout_ms), quantized=quant)
+            self.metrics.record_admitted(quantized=quant)
             self._queue.put(req)
         req.event.wait()
         if req.error is not None:
             raise req.error
         return req.result
+
+    def evaluate(self, x: ArrayOrDict) -> np.ndarray:
+        """``x``'s rows through the replicas' graphs at the buckets warmed
+        for their dtype, outside the queue, the admission and the metrics:
+        the accuracy gate's serving path. Chunks of at most the largest
+        such bucket, each padded to the smallest one that holds it; the
+        first output's rows, concatenated."""
+        xs, rows = self._normalize(x)
+        like = next(iter(xs.values())) if isinstance(xs, dict) else xs
+        with self._warm_lock:
+            warmed = sorted({b for b, _, dt in self._warmed_pairs if dt == str(like.dtype)})
+        buckets = warmed or self.buckets
+        outs = []
+        for i in range(0, rows, buckets[-1]):
+            n = min(buckets[-1], rows - i)
+            bucket = next(b for b in buckets if b >= n)
+            part = ({k: v[i:i + n] for k, v in xs.items()} if isinstance(xs, dict)
+                    else xs[i:i + n])
+            padded = self._zeros_with_rows(part, bucket)
+            if isinstance(padded, dict):
+                for k in padded:
+                    padded[k][:n] = part[k]
+            else:
+                padded[:n] = part
+            rep = self._pool.acquire()
+            try:
+                out = self._pool.dispatch(rep, padded).wait()
+            finally:
+                self._pool.release(rep)
+            outs.append((out[0] if isinstance(out, list) else out)[:n])
+        return np.concatenate(outs, axis=0)
 
     # ----------------------------------------------------- session steps
     def enable_sessions(self, example: ArrayOrDict,
@@ -678,9 +746,15 @@ class ContinuousBatcher:
     def _warm_bucket(self, b: int) -> None:
         if self._example is None:
             return  # never warmed and no traffic yet: first dispatch captures
+        qex = self._quantized_example(self._example)
+        if qex is not None and b not in self.dtype_policy.buckets_for([b]):
+            qex = None
         for rep in list(self._pool.replicas):
             self._warm_forward(rep, self._example, b)
             self._record_warmed(b, rep.index)
+            if qex is not None:  # minted buckets stay policy-complete
+                self._warm_forward(rep, qex, b)
+                self._record_warmed(b, rep.index, qex)
 
     # ---------------------------------------------------------- pad buffers
     def _acquire_buf(self, bucket: int, name, like: np.ndarray):
@@ -930,7 +1004,9 @@ class ContinuousBatcher:
         """Stop the pipeline. ``drain=True`` (default) serves whatever is
         already queued AND waits for every in-flight batch to read back;
         either way every still-pending request gets an explicit
-        :class:`ServingShutdown` error — no caller hangs."""
+        :class:`ServingShutdown` error — no caller hangs. Then the replica
+        pool is closed (:meth:`~.replica.ReplicaPool.close`): what the
+        replicas held on the device is freed."""
         with self._submit_lock:
             if drain:
                 self._draining = True
@@ -993,7 +1069,19 @@ class ContinuousBatcher:
         # a worker that outlived its join timeout may have re-parked in the
         # blocking get AFTER the drain above swallowed the first sentinel;
         # leave one more so it can never be parked forever
+        running = False
         if self._worker.is_alive():
             self._queue.put(_SENTINEL)
+            running = True
         if self._session_worker is not None and self._session_worker.is_alive():
             self._session_q.put(_SENTINEL)
+            running = True
+        if self._completer is not None and self._completer.is_alive():
+            running = True
+        if not running:
+            # nothing runs on the replicas any more: their tensors, graphs and
+            # streams go, and the pinned pad buffers with them (a stage that
+            # outlived its join keeps everything it may still touch)
+            self._pool.close()
+            with self._buf_lock:
+                self._buf_pool.clear()

@@ -192,7 +192,7 @@ class SessionStore:
                timeout_ms: Optional[float] = None) -> Session:
         """Open a stream: zero carry, spill frame written immediately (a
         brand-new session already survives a worker SIGKILL)."""
-        served = self._registry.pinned(model_name)
+        served = self._registry.acquire(model_name, timeout_ms)
         try:
             batcher = served.batcher
             if batcher.session_bucket is None:
@@ -229,7 +229,7 @@ class SessionStore:
         persisted output without touching the carry."""
         chaos.inject("serving.session.step")
         t0 = time.monotonic()
-        served = self._registry.pinned(model_name)
+        served = self._registry.acquire(model_name, timeout_ms)
         try:
             sess = self._lookup_or_adopt(model_name, session_id)
             remaining = (None if timeout_ms is None

@@ -179,6 +179,17 @@ OP_CASES = [
           lambda r: [_f(r, 2, 8, 4), _f(r, 2, 8, 4), _f(r, 2, 8, 4),
                      _padding_bias(r, 2, 8).reshape(2, 1, 8)],
           {"scale": 0.5, "boolean_bias": True}),
+    _case("quantize_narrow", "quantize", lambda r: [3 * _f(r, 4, 6)],
+          {"scale": 0.05, "narrow_range": True}, grad=False),
+    _case("quantize_per_channel_uint8", "quantize", lambda r: [_f(r, 4, 3, lo=0.0)],
+          {"scale": np.array([0.01, 0.02, 0.03], np.float32),
+           "zero_point": np.array([3, 0, 7], np.int32), "axis": -1, "dtype": "uint8"},
+          grad=False),
+    _case("dequantize", "dequantize", lambda r: [_ids(r, 255, 4, 6).astype(np.int8)],
+          {"scale": 0.05}, grad=False),
+    _case("dequantize_per_channel", "dequantize", lambda r: [_ids(r, 100, 3, 5).astype(np.int8)],
+          {"scale": np.array([0.5, 0.25, 0.125], np.float32), "zero_point": 2, "axis": 0},
+          grad=False),
 ]
 
 

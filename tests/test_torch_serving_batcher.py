@@ -32,6 +32,7 @@ from deeplearning4j_tpu.train import Sgd as JSgd
 from deeplearning4j_tpu_torch.models import ComputationGraph, ModelSerializer, MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn import DenseLayer, InputType, NeuralNetConfiguration, OutputLayer
 from deeplearning4j_tpu_torch.nn.graph_vertices import MergeVertex
+from deeplearning4j_tpu_torch.parallel import ParallelPlan
 from deeplearning4j_tpu_torch.runtime.chaos import (AddLatency, ChaosController, ChaosError,
                                                     FailNth)
 from deeplearning4j_tpu_torch.runtime.environment import get_environment
@@ -290,8 +291,9 @@ def test_replicas_clamp_to_devices_and_hold_their_own_copies():
             assert a.params[k][name].data_ptr() != b.params[k][name].data_ptr()
             assert a.params[k][name].data_ptr() != t.data_ptr()
             assert (a.params[k][name] == t).all() and a.params[k][name].dtype == t.dtype
-    with pytest.raises(NotImplementedError, match="plan"):
-        ReplicaPool(net, plan=object())
+    with pytest.raises(ValueError, match="4 devices per replica"):
+        ReplicaPool(net, plan=ParallelPlan.compose(pipe=4, devices_=["cpu"] * 4),
+                    devices=CPU2)
 
 
 def test_each_replica_captures_into_its_own_cache():
@@ -570,10 +572,26 @@ def test_batcher_computation_graph_multi_input():
 
 
 def test_unsupported_options_raise_by_name():
-    with pytest.raises(NotImplementedError, match="dtype_policy"):
-        ContinuousBatcher(_net(), dtype_policy=object())
-    with pytest.raises(NotImplementedError, match="plan"):
-        ContinuousBatcher(_net(), plan=object())
+    """What plan-sliced serving refuses, by name: a feature mask through a
+    pipe slice's forward, a session step on a plan slice, and a plan wider
+    than the devices."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import PipePlanExecutor
+    net = _net()
+    plan = ParallelPlan.compose(pipe=2, devices_=CPU2)
+    ex = PipePlanExecutor(net, plan)
+    x = torch.zeros((1, FEATURES))
+    with pytest.raises(NotImplementedError, match="feature masks"):
+        ex.make_forward()(ex.pack_params(net.params()), {}, x, torch.ones((1, FEATURES)))
+    b = ContinuousBatcher(net, plan=plan, devices=CPU2, max_batch_size=2)
+    try:
+        with pytest.raises(ValueError, match="plan slices"):
+            b._pool.step(b._pool.replicas[0], {}, np.zeros((1, FEATURES), np.float32))
+    finally:
+        b.shutdown()
+    with pytest.raises(ValueError, match="2 devices per replica"):
+        ContinuousBatcher(_net(), plan=plan, devices=["cpu"])
 
 
 def test_duck_typed_model_is_one_honest_pseudo_replica():

@@ -9,7 +9,8 @@ manifest inheritance, breaker and retry, health, undeploy), and against live
 JAX runs: a warm-up manifest saved by either package's registry replays in
 the other with the same buckets, replicas and pairs, and the two packages'
 circuit breakers go through the same states under one injected clock.
-Paging and quantized deploys raise ``NotImplementedError`` by name.
+Paging and quantized deploys have their own files
+(``test_torch_serving_paging.py``, ``test_torch_serving_quantize.py``).
 """
 
 import threading
@@ -281,14 +282,34 @@ def test_breaker_opens_sheds_probes_and_closes_through_predict():
 
 
 def test_second_half_names_raise_by_name(tmp_path):
+    """The paging and quantized-deploy names answer on a plain registry:
+    no budget on the CPU, unknown names raise ``KeyError`` naming them, a
+    cold entry whose archive is missing fails its page-in by name and stays
+    cold, and ``deploy_quantized`` refuses a plain archive by name."""
     reg = ModelRegistry()
-    for call in (lambda: reg.hbm_budget_bytes, lambda: reg.register_cold("a", "p"),
-                 lambda: reg.acquire("a"), lambda: reg.page_in("a"), lambda: reg.evict("a"),
-                 lambda: reg.deploy_quantized("a", "p", None), reg.residency_snapshot,
-                 lambda: ModelRegistry(hbm_budget_bytes=1),
-                 lambda: reg.load("a", str(tmp_path / "x.zip"), resident=False)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    try:
+        assert reg.hbm_budget_bytes is None
+        for call in (lambda: reg.acquire("a"), lambda: reg.page_in("a"),
+                     lambda: reg.predict("a", _data(1))):
+            with pytest.raises(KeyError, match="'a'"):
+                call()
+        assert reg.evict("a") is False
+        missing = str(tmp_path / "x.zip")
+        assert reg.load("a", missing, resident=False) is None
+        assert reg.names() == ["a"] and reg.resident_names() == []
+        with pytest.raises(OSError, match="x.zip"):
+            reg.page_in("a")  # the leader raises its load's own error
+        snap = reg.residency_snapshot()
+        assert snap["models"]["a"]["state"] == "cold" and snap["resident_bytes"] == 0
+        assert snap["paging"]["page_in_failures_total"] >= 1
+        plain = str(tmp_path / "plain.zip")
+        ModelSerializer.write_model(_net(), plain)
+        reg.load("b", plain, warmup_example=_data(1), max_batch_size=4)
+        with pytest.raises(ValueError, match="not a quantized archive"):
+            reg.deploy_quantized("b", plain, _data(8))
+        assert ModelRegistry(hbm_budget_bytes=1).hbm_budget_bytes == 1
+    finally:
+        reg.shutdown()
 
 
 # ------------------------------------------------- against live JAX runs
