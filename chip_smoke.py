@@ -138,7 +138,22 @@ the card and exits nonzero if any phase fails:
             ``sd.output(pooled_output)`` (fp32) against the plain attention
             and its p50; 20 steps on every_token's labels, where the loss
             must fall and a fresh batch be labelled. ``--samediff`` runs the
-            build, ``train bert`` and this phase only. Then ``train
+            build, ``train bert`` and this phase only. Then ``tf import``
+            (config #4 by the reference's route): the committed BERT-base
+            GraphDef (``tests/data/bert_base_b64_t128.pb``: B=64, T=128,
+            vocab 30522, its 76 weight matrices stripped) decoded by the
+            port's reader, refilled from ``bert_weights(seed=0)``, imported
+            by ``TFGraphMapper`` (op list, variables and arrays those of
+            ``build_bert_samediff(seed=0)``), ``optimize()``d (25 / 12 / 12
+            fusions, as the builder's), grafted and fit 20 steps as above:
+            12 + 12 + 12 flash launches a step and nothing else, the first 3
+            losses bit for bit the builder route's from the same weights;
+            step ms, samples/s, peak memory, the import's wall time by
+            decode, refill, import and optimize; the importer's seeded
+            draws (``random_uniform``, ``random_normal``,
+            ``truncated_normal``, ``random_categorical``) drawn on the card
+            by a generator there, held by law. ``--tf-import`` runs the
+            build and this phase only. Then ``train
             gru``: the GRU char-RNN as the LSTM cells are trained (1 saving
             forward and 1 backward GRU launch per layer per step, nothing
             else launched).
@@ -175,7 +190,22 @@ the card and exits nonzero if any phase fails:
             clients x 3 requests of 1-64 rows of 784 floats, each answer
             against ``net.output`` (<= 1e-4), the p50 of 20 sequential 64-row
             requests and samples/s. ``--lenet`` runs the build and this
-            phase only. ``--recurrent`` runs the
+            phase only. Then ``solvers``: LBFGS, CONJUGATE_GRADIENT and
+            LINE_GRADIENT_DESCENT (fp32, TF32 off) on the zoo LeNet over
+            the first 5 MNIST batches, layer 0 frozen; LINE_GRADIENT_DESCENT
+            on the GravesLSTM char-RNN (2x512, B=64, T=256, output layer
+            frozen) and CONJUGATE_GRADIENT on the LSTM char-RNN built as a
+            ComputationGraph, 2 batches of 4 iterations each: the loss
+            falls, frozen layers stay bit for bit, the saving forward and
+            backward of the recurrent kernel launch once per layer in every
+            value-and-gradient evaluation (and the inference forward once
+            per layer in each batch's final forward), the first batch's
+            values within 1e-4 of the port's CPU run from the same archive
+            (LeNet's through the final loss, the char-RNNs' through their
+            first iteration); batch ms, evaluations and the accepted
+            steps of card and CPU. ``--solvers`` runs the build and this
+            phase only.
+            ``--recurrent`` runs the
             build, the LSTM and GRU checks, the slice and train phases of
             the three char-RNNs and the times of rows 1-6 only.
             ``--attention`` runs the
@@ -345,7 +375,7 @@ the card and exits nonzero if any phase fails:
             manifest's 3 pairs x page-ins (nothing on traffic), 12 flash
             launches a replay; a 30 ms deadline on a cold model
             (``PagingInProgress``, ``retry_after_ms`` >= the measured
-            page-in cost less the time spent); 5 evict/page-in cycles of
+            page-in cost less the time spent); 3 evict/page-in cycles of
             m0 (each eviction frees at least the ledger's bytes of
             ``memory_allocated``, which after the last is within 16 MiB of
             the first). Quantized deploys: ``quantize_archive`` of m0
@@ -641,6 +671,26 @@ SD_OUTPUT_TOL = 1e-4
 # rate with which the zoo bert phase learns in 20 steps; the same
 # BERT_LOSS_FALL and BERT_MIN_ACC limits.
 SD_LEARN_LR = 2e-5
+# tf import (BASELINE config #4 by the reference's route): the committed
+# BERT-base GraphDef of tests/data (bench.py's build_bert_graphdef(batch=64,
+# seq_len=128), its weight matrices stripped, tests/_torch_bert_fixture.py)
+# refilled from bert_weights(seed=0), imported and optimize()d, then fit as the
+# samediff bert phase fits: TF_STEPS steps under Adam(TF_LR), bf16 over fp32
+# masters; the first TF_CMP_STEPS losses bit for bit the builder route's.
+TF_FIXTURE = os.path.join(ROOT, "tests", "data", "bert_base_b64_t128.pb")
+TF_FIXTURE_SIDECAR = os.path.join(ROOT, "tests", "data", "bert_base_b64_t128.json")
+TF_STEPS, TF_CMP_STEPS, TF_LR = 20, 3, 2e-5
+# solvers: the three line-search algorithms, fp32 with TF32 off, LeNet on the
+# first SOLVER_LENET_BATCHES MNIST batches (the builder's defaults: 10
+# iterations, a line search of 5 steps), and the char-RNNs at the train
+# phase's widths (2x512, B=64, T=TRAIN_T) on SOLVER_RNN_BATCHES batches of
+# SOLVER_RNN_ITERS iterations. The first batch on the card against the port's
+# CPU run from the same archive, relative: LeNet's final loss; the
+# char-RNNs' values through their first SOLVER_RNN_CPU_ITERS iterations (the
+# CPU fits only those: at T=256 an evaluation costs it 2-8 s).
+SOLVER_ALGOS = ("LBFGS", "CONJUGATE_GRADIENT", "LINE_GRADIENT_DESCENT")
+SOLVER_LENET_BATCHES, SOLVER_RNN_BATCHES, SOLVER_RNN_ITERS = 5, 2, 4
+SOLVER_CPU_TOL, SOLVER_RNN_CPU_ITERS = 1e-4, 1
 # conv_stats (TPU row 13): row 13's own shape (s3b1_c1, s3b2_c1), one shape
 # of each other ResNet-50 stage at batch 256 (s0b1_c3 at K = 64 is the widest
 # M; s1b1_c1; s2b1_c3), the widest M at N = 64 (s0b1_c1: the wgmma kernel's
@@ -3086,6 +3136,349 @@ class Smoke:
         del sd, init
         torch.cuda.empty_cache()
         env.allow_bfloat16()
+
+    # ------------------------------------------------------------- tf import
+    def tf_import_phase(self):
+        """BASELINE config #4 by the reference's route: the committed
+        BERT-base GraphDef (B=64, T=128, vocab 30522; ``tests/data/``)
+        decoded by the port's reader, its weight matrices refilled from
+        ``bert_weights(seed=0)``, imported by ``TFGraphMapper`` and
+        ``optimize()``d (25 / 12 / 12 fusions, every attention with the
+        padding bias proven), the op list and arrays those of
+        ``build_bert_samediff(seed=0)``, then ``graft_classifier``,
+        ``convert_to_variable`` and ``fit`` at bf16 over fp32 masters under
+        Adam(2e-5), TF_STEPS steps: the main path, counted (12 saving
+        forwards, 12 dq and 12 dk/dv flash launches a step, nothing else),
+        the first 3 losses bit for bit those of the builder route from the
+        same weights; step ms, samples/s, peak memory, and the import's wall
+        time split into decode, refill, import and optimize."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.autodiff.graph_optimizer import optimize
+        from deeplearning4j_tpu_torch.autodiff.samediff import TrainingConfig
+        from deeplearning4j_tpu_torch.data import ExistingDataSetIterator, MultiDataSet
+        from deeplearning4j_tpu_torch.imports import TFGraphMapper
+        from deeplearning4j_tpu_torch.imports.graphdef_proto import read_graph_def
+        from deeplearning4j_tpu_torch.imports.tf_oracles import (bert_synthetic_batch,
+                                                                 bert_weights,
+                                                                 build_bert_samediff,
+                                                                 graft_classifier,
+                                                                 refill_bert_graphdef)
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.train.updaters import Adam
+        env = get_environment()
+        t0 = time.perf_counter()
+        with open(TF_FIXTURE_SIDECAR) as f:
+            side = json.load(f)
+        gd = read_graph_def(TF_FIXTURE)
+        t1 = time.perf_counter()
+        cfg = side["config"]
+        weights = bert_weights(cfg["seq_len"], cfg["hidden"], cfg["layers"],
+                               cfg["intermediate"], cfg["vocab"], cfg["type_vocab"], cfg["seed"])
+        refill_bert_graphdef(gd, side["refill"], weights)
+        t2 = time.perf_counter()
+        sd = TFGraphMapper.import_graph(gd, optimize=False, device=self.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n_nodes, n_ops = len(gd.node), len(sd.ops)
+        del gd, weights
+        ref, inputs, _, _ = build_bert_samediff(
+            batch=cfg["batch"], seq_len=cfg["seq_len"], hidden=cfg["hidden"],
+            layers=cfg["layers"], heads=cfg["heads"], intermediate=cfg["intermediate"],
+            vocab=cfg["vocab"], seed=cfg["seed"], device=self.device)
+
+        def op_list(g):
+            return [(n.op, n.inputs, n.outputs, n.attrs) for n in g.ops]
+
+        same = (op_list(sd) == op_list(ref) and list(sd.vars) == list(ref.vars)
+                and sorted(sd.arrays) == sorted(ref.arrays)
+                and all(torch.equal(sd.arrays[n], a) for n, a in ref.arrays.items()))
+        self.check(same and side["inputs"] == list(inputs),
+                   f"tf import: {n_nodes} GraphDef nodes -> {n_ops} ops; op list, variables "
+                   f"and arrays those of build_bert_samediff(seed=0): {same}")
+        t4 = time.perf_counter()
+        stats = optimize(sd)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        ref_stats = optimize(ref)
+        want = {"layer_norm": 2 * cfg["layers"] + 1, "gelu_erf": cfg["layers"],
+                "attention": cfg["layers"]}
+        got = {k: stats.get(k) for k in want}
+        sdpa = [n for n in sd.ops if n.op == "scaled_dot_product_attention"]
+        self.check(got == want and stats == ref_stats and op_list(sd) == op_list(ref)
+                   and all(n.attrs.get("boolean_bias") for n in sdpa),
+                   f"tf import: optimize() -> {len(sd.ops)} ops, {stats} (expected {want}, the "
+                   f"builder's {ref_stats}, every attention with the padding bias proven: "
+                   f"{[bool(n.attrs.get('boolean_bias')) for n in sdpa]})")
+        log(f"tf import wall time: decode {t1 - t0:.3f} s ({os.path.getsize(TF_FIXTURE)} "
+            f"bytes), refill {t2 - t1:.3f} s ({len(side['refill'])} matrices from "
+            f"bert_weights), import {t3 - t2:.3f} s, optimize {t5 - t4:.3f} s; {self.card}")
+        for g in (sd, ref):
+            graft_classifier(g, "pooled_output", hidden=cfg["hidden"])
+            g.convert_to_variable(*g.trainable_float_constants())
+            g.set_loss_variables("finetune_loss")
+        init = {n: t.detach().clone() for n, t in sd._trainable().items()}
+        self.check(sorted(init) == sorted(ref._trainable()) and all(
+            torch.equal(ref.arrays[n], t) for n, t in init.items()),
+            f"tf import: {len(init)} trainable arrays, "
+            f"{sum(t.numel() for t in init.values()):,} weights, the builder route's")
+        ids, types, mask, labels = bert_synthetic_batch(cfg["batch"], cfg["seq_len"],
+                                                        cfg["vocab"], seed=1)
+        mds = MultiDataSet(features=[ids, types, mask], labels=[labels])
+
+        def fit(g, steps):
+            with torch.no_grad():
+                for n, t in init.items():
+                    g.arrays[n].copy_(t)
+            g.set_training_config(TrainingConfig(
+                updater=Adam(TF_LR), data_set_feature_mapping=list(inputs),
+                data_set_label_mapping=["labels"]))
+            g._train_iter = 0
+            env.set_compute_dtype(torch.bfloat16)
+            stamps = []
+            g.set_listeners(StepStamps(stamps))
+            return list(g.fit(ExistingDataSetIterator([mds] * steps))), stamps
+
+        counters = all_counters()
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        losses, stamps = fit(sd, TF_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.name: c.value for c in counters}
+        # ----
+        want = {c.name: 0 for c in counters}
+        for c in (fa.lse_counter, fa.bwd_dq_counter, fa.bwd_dkv_counter):
+            want[c.name] = cfg["layers"] * TF_STEPS
+        self.add_launches(counts)
+        self.check(counts == want, f"tf import launch counts over {TF_STEPS} steps: {counts} "
+                                   f"(expected {want})")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        med = step_ms[len(step_ms) // 2]
+        finite = len(losses) == TF_STEPS and all(np.isfinite(v) for v in losses)
+        log(f"tf import fine-tune: {TF_STEPS} steps of B={cfg['batch']} T={cfg['seq_len']} "
+            f"bf16 in {wall:.3f} s; losses " + " ".join(f"{v:.4f}" for v in losses)
+            + f"; step ms over the {len(step_ms)} after the first: median {med:.2f} (min "
+            f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}); {cfg['batch'] / med * 1e3:.0f} "
+            f"samples/s at the median; first step {1e3 * (stamps[0] - t0):.1f} ms; peak "
+            f"device memory {peak:.2f} GiB; {self.card}")
+        ref_losses, _ = fit(ref, TF_CMP_STEPS)
+        self.check(finite and losses[:TF_CMP_STEPS] == ref_losses,
+                   f"tf import first {TF_CMP_STEPS} losses bit for bit the builder route's: "
+                   + " ".join(repr(v) for v in losses[:TF_CMP_STEPS]) + " vs "
+                   + " ".join(repr(v) for v in ref_losses))
+        del sd, ref, init
+        torch.cuda.empty_cache()
+        env.allow_bfloat16()
+        self.tf_import_draws()
+
+    def tf_import_draws(self):
+        """The importer's seeded draws on the card with no executor key, as
+        ``output()`` runs them: each is drawn there, from a generator on the
+        card seeded with the op's seed (the op's numbers are that
+        generator's own draw), the same seed gives the same draw, and each
+        holds its law as tests/test_torch_tf_ops.py holds it on the CPU:
+        mean within 5 sigma, spread within 3% (truncated normal: 0.02 of
+        0.8796), range; class frequencies within 0.03."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.autodiff import ops_registry as ops
+        dev = torch.device(self.device)
+        shape, n = [100, 200], 20000
+
+        def gen(seed):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def trunc(g):
+            t = torch.empty(shape, device=dev)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+            return t
+
+        laws = {"random_uniform": (lambda g: torch.rand(shape, generator=g, device=dev),
+                                   0.5, (1 / 12) ** 0.5, 0.03 * (1 / 12) ** 0.5, (0.0, 1.0)),
+                "random_normal": (lambda g: torch.randn(shape, generator=g, device=dev),
+                                  0.0, 1.0, 0.03, None),
+                "truncated_normal": (trunc, 0.0, 0.8796, 0.02, (-2.0, 2.0))}
+        for name, (own, mean, std, std_tol, bounds) in laws.items():
+            a = ops.get_op(name)(shape=shape, seed=7)
+            there = a.device.type == dev.type and torch.equal(a, own(gen(7)))
+            same = torch.equal(a, ops.get_op(name)(shape=shape, seed=7))
+            other = not torch.equal(a, ops.get_op(name)(shape=shape, seed=8))
+            x = a.double()
+            m, sd, lo, hi = float(x.mean()), float(x.std()), float(x.min()), float(x.max())
+            inside = bounds is None or (bounds[0] <= lo and hi <= bounds[1])
+            self.check(there and same and other and inside
+                       and abs(m - mean) < 5 * std / n ** 0.5 and abs(sd - std) < std_tol,
+                       f"tf import draws: {name} {tuple(a.shape)} on {a.device}, the card "
+                       f"generator's own draw {there}, same seed same draw {same}, another "
+                       f"seed another {other}; mean {m:.5f} (law {mean}), std {sd:.5f} (law "
+                       f"{std:.4f}), range [{lo:.4f}, {hi:.4f}]")
+        probs = np.array([[0.1, 0.6, 0.3], [0.5, 0.25, 0.25]], np.float32)
+        logits = torch.as_tensor(np.log(probs), device=dev)
+        got = ops.get_op("random_categorical")(logits, num_samples=6000, seed=3)
+        own = torch.multinomial(torch.softmax(logits, -1), 6000, replacement=True,
+                                generator=gen(3)).to(torch.int32)
+        freq = np.stack([np.bincount(r, minlength=3) / 6000 for r in got.cpu().numpy()])
+        self.check(got.device.type == dev.type and torch.equal(got, own)
+                   and float(np.abs(freq - probs).max()) < 0.03,
+                   f"tf import draws: random_categorical {tuple(got.shape)} on {got.device}, "
+                   f"the card generator's own draw {torch.equal(got, own)}; class frequencies "
+                   f"{np.round(freq, 4).tolist()} (law {probs.tolist()})")
+
+    # --------------------------------------------------------------- solvers
+    def solvers_phase(self, workdir):
+        """The line-search solvers on the card, fp32 with TF32 off: the zoo
+        LeNet on MnistDataSetIterator(64)'s first SOLVER_LENET_BATCHES
+        batches under each of LBFGS, CONJUGATE_GRADIENT and
+        LINE_GRADIENT_DESCENT (layer 0 frozen); the GravesLSTM char-RNN
+        (2x512, B=64, T=TRAIN_T, full-sequence BPTT, output layer
+        frozen) under LINE_GRADIENT_DESCENT and the LSTM char-RNN built as a
+        ComputationGraph under CONJUGATE_GRADIENT, SOLVER_RNN_BATCHES
+        batches each. Each run is a main path, counted: the recurrent
+        kernels launch their saving forward and backward once per layer in
+        every value-and-gradient evaluation and the inference forward once
+        per layer in each batch's final forward. The loss falls, frozen
+        layers stay bit for bit, and the first batch's values are within
+        SOLVER_CPU_TOL of the port's CPU run from the same archive (oneDNN
+        off): LeNet's through its final loss, the char-RNNs' through their
+        first SOLVER_RNN_CPU_ITERS iterations; batch ms, evaluations and the
+        accepted steps of card and CPU are logged."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        saved = env.compute_dtype
+        env.set_compute_dtype("float32")
+        try:
+            self._solvers(workdir)
+        finally:
+            env.set_compute_dtype(saved)
+
+    def _solvers(self, workdir):
+        import dataclasses
+        torch = self.torch
+        from deeplearning4j_tpu_torch.data import MnistDataSetIterator, NumpyDataSetIterator
+        from deeplearning4j_tpu_torch.models import ComputationGraph, MultiLayerNetwork
+        from deeplearning4j_tpu_torch.models.computation_graph import GraphBuilder
+        from deeplearning4j_tpu_torch.nn import InputType, Layer
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm, fused_lstm_graves
+        from deeplearning4j_tpu_torch.zoo import LeNet
+        train = MnistDataSetIterator(LENET_B, train=True)
+        it = NumpyDataSetIterator(train.features, train.labels, LENET_B, shuffle=True, seed=6)
+        it.reset()
+        lenet_batches = [(b.features, b.labels) for _, b in zip(range(SOLVER_LENET_BATCHES), it)]
+        for algo in SOLVER_ALGOS:
+            conf = LeNet().conf()
+            conf.global_conf.optimization_algo = algo
+            conf.layers[0].frozen = True
+            self.solver_run(f"lenet {algo}", MultiLayerNetwork(conf, device=self.device).init(),
+                            "layer_0", lenet_batches, None, workdir)
+        rnn_batches = char_batches(SOLVER_RNN_BATCHES, seed=41)
+        conf = char_rnn_conf("graves", TRAIN_T)
+        conf.tbptt_fwd_length = conf.tbptt_back_length = None
+        conf.global_conf.optimization_algo = "LINE_GRADIENT_DESCENT"
+        conf.global_conf.solver_iterations = SOLVER_RNN_ITERS
+        conf.layers[-1].frozen = True
+        self.solver_run("graves char-RNN LINE_GRADIENT_DESCENT",
+                        MultiLayerNetwork(conf, device=self.device).init(),
+                        f"layer_{LAYERS}", rnn_batches, fused_lstm_graves, workdir,
+                        cpu_iters=SOLVER_RNN_CPU_ITERS)
+        mconf = char_rnn_conf("lstm", TRAIN_T)
+        g = GraphBuilder(dataclasses.replace(
+            mconf.global_conf, optimization_algo="CONJUGATE_GRADIENT",
+            solver_iterations=SOLVER_RNN_ITERS)).add_inputs("in")
+        prev = "in"
+        for i, layer in enumerate(mconf.layers):
+            g.add_layer(f"layer_{i}", Layer.from_dict(layer.to_dict()), prev)
+            prev = f"layer_{i}"
+        gconf = g.set_outputs(prev).set_input_types(InputType.recurrent(VOCAB)).build()
+        next(n for n in gconf.nodes if n.name == prev).obj.frozen = True
+        self.solver_run("graph LSTM char-RNN CONJUGATE_GRADIENT",
+                        ComputationGraph(gconf, device=self.device).init(), prev,
+                        rnn_batches, fused_lstm, workdir, cpu_iters=SOLVER_RNN_CPU_ITERS)
+
+    def solver_run(self, what, net, frozen, batches, kernels, workdir, cpu_iters=None):
+        """One solver run on the card, counted, against the port's CPU run of
+        the first batch from the same archive: all of its iterations, or its
+        first ``cpu_iters`` (the card's values up to there and its value after
+        them against the CPU's values and final loss)."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        path = os.path.join(workdir, "solver.zip")
+        net.save(path)
+        frozen0 = [t.clone() for t in tree_leaves(net.params()[frozen])]
+        counters = all_counters()
+        batch_ms = []
+        # ---- the main path: counts from 0 just before, read just after
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        for x, y in batches:
+            t0 = time.perf_counter()
+            net.fit(x, y)
+            torch.cuda.synchronize()
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = {c.name: c.value for c in counters}
+        # ----
+        log_ = net._solver_log
+        evals = sum(r["evaluations"] for r in log_)
+        want = {c.name: 0 for c in counters}
+        if kernels is not None:
+            want[kernels.save_counter.name] = LAYERS * evals
+            want[kernels.bwd_counter.name] = LAYERS * evals
+            want[kernels.counter.name] = LAYERS * len(batches)
+        self.add_launches(counts)
+        self.check(counts == want,
+                   f"solvers {what}: launches {dict((k, v) for k, v in counts.items() if v)} "
+                   f"for {evals} value-and-gradient evaluations over {len(batches)} batches "
+                   f"(expected {dict((k, v) for k, v in want.items() if v) or 'none'})")
+        still = all(torch.equal(a, b) for a, b in zip(frozen0, tree_leaves(net.params()[frozen])))
+        first, last = log_[0]["values"][0], log_[-1]["loss"]
+        self.check(still and last < first and all(np.isfinite(r["loss"]) for r in log_),
+                   f"solvers {what}: loss {first:.6f} -> {last:.6f} over {len(batches)} batches "
+                   f"of {len(log_[0]['values'])} iterations; frozen {frozen} unmoved: {still}")
+        log(f"solvers {what}: batch ms " + " ".join(f"{v:.1f}" for v in batch_ms)
+            + "; evaluations a batch " + " ".join(str(r["evaluations"]) for r in log_)
+            + "; ms an evaluation " + " ".join(f"{m / r['evaluations']:.2f}"
+                                              for m, r in zip(batch_ms, log_))
+            + f"; {self.card}")
+        cpu = ModelSerializer.restore_model(path, device="cpu")
+        iters = len(log_[0]["values"])
+        k = iters if cpu_iters is None else min(cpu_iters, iters)
+        cpu.conf.global_conf.solver_iterations = k
+        t0 = time.perf_counter()
+        # oneDNN's fp32 convolutions are the inexact side: on LeNet's first
+        # batch under LINE_GRADIENT_DESCENT they land 1.7e-4 from the
+        # float64 trajectory, PyTorch's own CPU convolutions 3e-7 and the
+        # card's cuDNN 2.4e-7 (PERF.md §6)
+        with torch.backends.mkldnn.flags(enabled=False):
+            cpu.fit(*batches[0])
+        cpu_s = time.perf_counter() - t0
+        card, host = log_[0], cpu._solver_log[0]
+        # the card's values through iteration k: its values before each of
+        # the first k and the value after the k-th (the final loss if k is
+        # all of them)
+        mine = (card["values"] + [card["loss"]])[:k + 1]
+        theirs = host["values"] + [host["loss"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mine, theirs))
+        self.check(len(mine) == len(theirs) and rel <= SOLVER_CPU_TOL,
+                   f"solvers {what}: first batch's loss after {k} of {iters} iterations card "
+                   f"{mine[-1]!r} vs CPU {theirs[-1]!r} ({cpu_s:.1f} s on the CPU), the "
+                   f"{k + 1} values within relative {rel:.3g} tol {SOLVER_CPU_TOL:g}")
+        steps = card["steps"][:k]
+        log(f"solvers {what}: accepted steps of the first {k} iterations, card "
+            + " ".join(f"{s:.6g}" for s in steps)
+            + "; CPU " + " ".join(f"{s:.6g}" for s in host["steps"])
+            + ("" if np.allclose(steps, host["steps"], rtol=1e-3)
+               else " (they differ: a finding)") + f"; evaluations card {card['evaluations']} "
+            f"over {iters} iterations, CPU {host['evaluations']} over {k}")
+        del cpu
 
     # ------------------------------------------------------------- runtime
     def runtime_phase(self, workdir):
@@ -5565,7 +5958,8 @@ class Smoke:
                 f"{budget / 2**20:.1f} [{self.card}]")
             # a 30 ms deadline on a cold model while its page-in is under way
             cold = next(n for n in names if snap["models"][n]["state"] == "cold")
-            est_ms = 1e3 * (snap["models"][cold]["page_in_s"] or 1.0)
+            # the registry's own estimate: the snapshot rounds it to 0.1 ms
+            est_ms = 1e3 * (reg._residency[cold].page_in_s or 1.0)
             leader = {}
 
             def lead():
@@ -5593,7 +5987,7 @@ class Smoke:
                        f"retry_after_ms={getattr(err, 'retry_after_ms', None)} >= measured "
                        f"page-in {est_ms:.0f} ms less the {elapsed_ms:.0f} ms already spent; the "
                        f"leader answered ({leader.get('err')})")
-            # 5 evict/page-in cycles of m0 alone
+            # RESIDENCY_CYCLES evict/page-in cycles of m0 alone
             for n in names:
                 reg.evict(n)
             reg.page_in("m0")
@@ -6732,6 +7126,22 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--tf-import"]:
+        smoke.phase("tf import", smoke.tf_import_phase)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--solvers"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.phase("solvers", lambda: smoke.solvers_phase(workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--samediff"]:
         smoke.phase("train bert", smoke.bert_train_phase)
         smoke.phase("samediff bert", smoke.samediff_phase)
@@ -6824,9 +7234,11 @@ def main() -> int:
         smoke.phase("train graves=False", lambda: smoke.train_phase("lstm"))
         smoke.phase("train bert", smoke.bert_train_phase)
         smoke.phase("samediff bert", smoke.samediff_phase)
+        smoke.phase("tf import", smoke.tf_import_phase)
         smoke.phase("train gru", lambda: smoke.train_phase("gru"))
         smoke.phase("resnet", lambda: smoke.resnet_phase(workdir))
         smoke.phase("lenet", lambda: smoke.lenet_phase(workdir))
+        smoke.phase("solvers", lambda: smoke.solvers_phase(workdir))
         smoke.runtime_phase(workdir)
         smoke.parallel_phase(workdir)
         smoke.zoo_phase(workdir)

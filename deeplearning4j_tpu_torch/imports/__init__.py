@@ -1,13 +1,16 @@
 """Model import (counterpart of ``deeplearning4j_tpu.imports``).
 
-Ported: the imported-BERT workload's builders (:mod:`.tf_oracles`), which
-emit the graph the JAX package's TF import of its BERT GraphDef yields. Not
-ported yet: ``TFGraphMapper`` (it parses a GraphDef with tensorflow),
-``KerasModelImport`` and ``OnnxGraphMapper``.
+Ported: ``TFGraphMapper`` (:mod:`.tf_import`), the TF GraphDef importer,
+reading the protobuf with the port's own reader (:mod:`.graphdef_proto`)
+so that it runs without tensorflow; and the imported-BERT workload's
+builders (:mod:`.tf_oracles`). Not ported yet: ``KerasModelImport`` and
+``OnnxGraphMapper``.
 """
 
+from deeplearning4j_tpu_torch.imports.tf_import import TFGraphMapper
 from deeplearning4j_tpu_torch.imports.tf_oracles import (bert_synthetic_batch,
                                                          build_bert_samediff,
                                                          graft_classifier)
 
-__all__ = ["bert_synthetic_batch", "build_bert_samediff", "graft_classifier"]
+__all__ = ["TFGraphMapper", "bert_synthetic_batch", "build_bert_samediff",
+           "graft_classifier"]

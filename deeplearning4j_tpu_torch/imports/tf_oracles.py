@@ -1,15 +1,20 @@
-"""The imported-BERT fine-tuning workload without TensorFlow.
+"""The imported-BERT fine-tuning workload, with or without TensorFlow.
 
 Counterpart of ``deeplearning4j_tpu/imports/tf_oracles.py``. The JAX
 package builds a frozen BERT encoder GraphDef with TensorFlow
-(``build_bert_graphdef``) and imports it with ``TFGraphMapper``; the port
-has no TF importer (it needs tensorflow to parse a GraphDef), and the card's
-machine has no tensorflow. :func:`build_bert_samediff` draws the same
-weights from the same ``default_rng(seed)`` in the same order (JAX
-``:43-66``) and emits, through the port's SameDiff API, the op graph the
-JAX import of that GraphDef yields before ``optimize()``: the same ops in
-the same order, with the same attrs and the same variable names (TF's node
-names: ``MatMul_5``, its weight ``MatMul_5/b``, ...).
+(``build_bert_graphdef``) and imports it with ``TFGraphMapper``. The port
+takes that route too (:class:`~.tf_import.TFGraphMapper` reads the protobuf
+itself), but the card's machine has no tensorflow to build the graph: a
+GraphDef made on a machine that has it is committed with its weight
+matrices stripped (``tests/data/bert_base_b64_t128.pb``, 80 KB in place of
+440 MB), and :func:`refill_bert_graphdef` refills them from
+:func:`bert_weights`, which draws what ``build_bert_graphdef`` draws (the
+same ``default_rng(seed)`` stream in the same order, JAX ``:43-66``).
+
+:func:`build_bert_samediff` emits, through the port's SameDiff API, the op
+graph the import of that GraphDef yields before ``optimize()``: the same
+ops in the same order, with the same attrs and the same variable names
+(TF's node names: ``MatMul_5``, its weight ``MatMul_5/b``, ...).
 :func:`bert_synthetic_batch` and :func:`graft_classifier` are the JAX
 package's.
 """
@@ -50,6 +55,22 @@ def bert_weights(seq_len: int, hidden: int, layers: int, intermediate: int, voca
     mk("pool_w", (hidden, hidden))
     W["pool_b"] = np.zeros(hidden, np.float32)
     return W
+
+
+def refill_bert_graphdef(graph_def, refill: Dict[str, str],
+                         weights: Dict[str, np.ndarray]) -> None:
+    """Write ``weights[key]`` into the Const node of each ``node: key`` of
+    ``refill`` (the reader's GraphDef, in place); each node's stripped fill
+    must have the weight's shape."""
+    from deeplearning4j_tpu_torch.imports.graphdef_proto import Message, tensor_proto
+    nodes = {n.name: n for n in graph_def.node}
+    for name, key in refill.items():
+        node, arr = nodes[name], weights[key]
+        shape = tuple(int(d.size) for d in node.attr["value"].tensor.tensor_shape.dim)
+        if node.op != "Const" or shape != arr.shape:
+            raise ValueError(f"fixture node {name!r} ({node.op}, {shape}) cannot hold "
+                             f"{key!r} {arr.shape}")
+        node.attr["value"] = Message("AttrValue", tensor=tensor_proto(arr))
 
 
 def _tf_name(kind: str, k: int) -> str:

@@ -51,17 +51,20 @@ dropout masks (:class:`~..runtime.rng.DrawTape`), keeps the forward's
 BatchNormalization statistics, and launches its fused pairs' ``conv_stats``
 again.
 
-Not ported yet, and raising by name: the solver optimization algorithms
-(``optimization_algo`` other than SGD) and ``fit`` on anything but
-``DataSet``s and ``MultiDataSet``s.
+An ``optimization_algo`` other than SGD (LBFGS, CONJUGATE_GRADIENT,
+LINE_GRADIENT_DESCENT) fits each batch with :mod:`~..train.solvers`, as the
+JAX package's ``graph_solver_fit_batch`` does; with tBPTT it raises. Not
+ported yet, and raising by name: ``fit`` on anything but ``DataSet``s and
+``MultiDataSet``s.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import weakref
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -308,6 +311,8 @@ class ComputationGraph:
         self._fused: Dict[str, str] = {}  # 1x1 convolution -> its BatchNormalization
         self._listeners: List[TrainingListener] = []
         self._iteration = 0
+        # the last 16 solver batches' records (train/solvers.py), oldest first
+        self._solver_log: Deque[dict] = collections.deque(maxlen=16)
         self._epoch = 0
         self._score = float("nan")
         # the training runtime's per-graph cache (see MultiLayerNetwork)
@@ -657,10 +662,7 @@ class ComputationGraph:
                     prefetch_buffer: int = 0, profiler=None) -> None:
         from deeplearning4j_tpu_torch.train.prefetch import batch_source
         from deeplearning4j_tpu_torch.train.profiler import submit_timed
-        if self.conf.global_conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
-            raise NotImplementedError(
-                f"optimization_algo={self.conf.global_conf.optimization_algo!r} is not "
-                "ported to deeplearning4j_tpu_torch yet")
+        algo = self.conf.global_conf.optimization_algo
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
@@ -672,10 +674,21 @@ class ComputationGraph:
                 for inputs, labels, masks in src:
                     if self.conf.tbptt_fwd_length and any(
                             is_sequence_array(v) for v in inputs.values()):
+                        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                            raise NotImplementedError(
+                                f"tBPTT training with optimization_algo={algo!r} is not "
+                                "supported; use SGD or full-sequence BPTT")
                         gd.flush()
                         drain()  # tBPTT notifies listeners inline (ordered)
                         ploop.sync(release=True)
                         self._fit_tbptt(inputs, labels, masks)
+                        continue
+                    if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                        from deeplearning4j_tpu_torch.train.solvers import graph_solver_fit_batch
+                        gd.flush()
+                        ploop.sync(release=True)  # the solver writes the parameters
+                        loss = graph_solver_fit_batch(self, inputs, labels, masks)
+                        gd._deliver((inputs, labels, None, masks), loss)  # same bookkeeping
                         continue
                     submit_timed(gd, (inputs, labels, self._step_generator(), masks),
                                  profiler)

@@ -36,7 +36,10 @@ place; on a CUDA device it is captured once and replayed
 (:class:`~..runtime.compile_cache.AotCache`), one graph for a group. A
 truncated-BPTT batch flushes the group, drains the delivery and runs its
 chunks eagerly, the carries detached between chunks (JAX ``:505-524``).
-The inference entry points run under ``torch.inference_mode``, so the
+An ``optimization_algo`` other than SGD (LBFGS, CONJUGATE_GRADIENT,
+LINE_GRADIENT_DESCENT) flushes the group and fits the batch with
+:func:`~..train.solvers.solver_fit_batch` (JAX ``:474-491``); with tBPTT it
+raises. The inference entry points run under ``torch.inference_mode``, so the
 recurrent layers launch the kernels' inference instance there.
 
 Parameters live on one device, chosen at :meth:`init`: ``cuda`` unless the
@@ -46,9 +49,10 @@ caller asks for the CPU (``device="cpu"`` or
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import weakref
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -115,6 +119,8 @@ class MultiLayerNetwork:
         self._restored_updater_leaves: Optional[List[np.ndarray]] = None
         self._listeners: List[TrainingListener] = []
         self._iteration = 0
+        # the last 16 solver batches' records (train/solvers.py), oldest first
+        self._solver_log: Deque[dict] = collections.deque(maxlen=16)
         self._epoch = 0
         self._score = float("nan")
         self._rnn_carries: Optional[Dict[str, Any]] = None
@@ -460,10 +466,7 @@ class MultiLayerNetwork:
                     prefetch_buffer: int = 0, profiler=None) -> None:
         from deeplearning4j_tpu_torch.train.prefetch import batch_source
         from deeplearning4j_tpu_torch.train.profiler import submit_timed
-        if self.conf.global_conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
-            raise NotImplementedError(
-                f"optimization_algo={self.conf.global_conf.optimization_algo!r} is not "
-                "ported to deeplearning4j_tpu_torch yet")
+        algo = self.conf.global_conf.optimization_algo
         for _ in range(epochs):
             for lst in self._listeners:
                 lst.on_epoch_start(self, self._epoch)
@@ -474,10 +477,21 @@ class MultiLayerNetwork:
             try:
                 for x, y, fm, lm in src:
                     if self.conf.tbptt_fwd_length and is_sequence_array(x):
+                        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                            raise NotImplementedError(
+                                "truncated BPTT is only supported with "
+                                "STOCHASTIC_GRADIENT_DESCENT (matching ComputationGraph)")
                         gd.flush()
                         drain()  # tBPTT notifies listeners inline (ordered)
                         ploop.sync(release=True)
                         self._fit_tbptt(x, y, fm, lm)
+                        continue
+                    if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                        from deeplearning4j_tpu_torch.train.solvers import solver_fit_batch
+                        gd.flush()
+                        ploop.sync(release=True)  # the solver writes the parameters
+                        loss = solver_fit_batch(self, x, y, fm, lm)
+                        gd._deliver((x, y, None, fm, lm), loss)  # the same bookkeeping
                         continue
                     submit_timed(gd, (x, y, self._step_generator(), fm, lm), profiler)
             finally:

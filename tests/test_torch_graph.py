@@ -189,9 +189,11 @@ def test_unported_parts_raise_by_name():
     assert tuple(net.fit_external(x, eps)["in"].shape) == x.shape
     out, state = net.rnn_time_step_external(x, state=None)
     assert state == {} and tuple(out.shape) == (B, 5)
-    with pytest.raises(NotImplementedError, match="optimization_algo"):
-        net.conf.global_conf.optimization_algo = "LBFGS"
-        net.fit(x, eps)
+    # the line-search solvers, once refused here, run (held against the
+    # JAX package in test_torch_solvers.py)
+    net.conf.global_conf.optimization_algo = "LBFGS"
+    net.fit(x, eps)
+    assert len(net._solver_log) == 1 and net._solver_log[0]["algorithm"] == "LBFGS"
 
 
 def test_output_matches_jax(jax_graph):

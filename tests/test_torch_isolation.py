@@ -122,8 +122,16 @@ def _entry_points(path):
     from deeplearning4j_tpu_torch.runtime.mesh import create_mesh
     from deeplearning4j_tpu_torch.serving import ModelRegistry
     from deeplearning4j_tpu_torch.zoo import Bert, ResNet50, TextGenerationLSTM
+    from deeplearning4j_tpu_torch.imports import TFGraphMapper
+    from deeplearning4j_tpu_torch.imports.graphdef_proto import Message, tensor_proto
     x = np.zeros((1, 3, 10), np.float32)
+    gd = Message("GraphDef", node=[
+        Message("NodeDef", name="x", op="Placeholder"),
+        Message("NodeDef", name="c", op="Const", attr={
+            "value": Message("AttrValue", tensor=tensor_proto(np.ones(3, np.float32)))}),
+        Message("NodeDef", name="y", op="AddV2", input=["x", "c"])])
     return {
+        "TFGraphMapper.import_graph": lambda: TFGraphMapper.import_graph(gd),
         "zoo.init": lambda: TextGenerationLSTM(vocab_size=10, hidden=8, layers=1).init(),
         "zoo.Bert.init": lambda: Bert.small(vocab_size=10).init(),
         "zoo.ResNet50.init": lambda: ResNet50(num_classes=3, height=32, width=32).init(),
@@ -142,7 +150,7 @@ def _entry_points(path):
     }
 
 
-ENTRY_POINTS = ["zoo.init", "zoo.Bert.init", "zoo.ResNet50.init", "MultiLayerNetwork.init",
+ENTRY_POINTS = ["TFGraphMapper.import_graph", "zoo.init", "zoo.Bert.init", "zoo.ResNet50.init", "MultiLayerNetwork.init",
                 "MultiLayerNetwork.output",
                 "MultiLayerNetwork.rnn_time_step", "MultiLayerNetwork.fit",
                 "MultiLayerNetwork.load",

@@ -240,7 +240,10 @@ def test_op_matches_jax(op, make, attrs, grad, request):
 
 
 def test_every_ported_op_is_held_against_jax():
-    covered = {p.values[0] for p in OP_CASES}
+    # the TF importer's ops are held in test_torch_tf_ops.py
+    import test_torch_tf_ops as tf_ops
+    covered = {p.values[0] for p in OP_CASES} | {c[1] for c in tf_ops.CASES} | \
+        set(tf_ops.BY_LAW)
     assert set(tops.OPS) <= covered, sorted(set(tops.OPS) - covered)
     assert set(tops.OPS) <= set(jops.OPS)  # the port adds no op
     assert tops.RNG_OPS == jops.RNG_OPS
@@ -266,10 +269,10 @@ def test_binary_ops_promote_as_jnp():
 def test_unported_ops_raise_by_name():
     sd = SameDiff.create()
     x = sd.placeholder("x", (2, 3))
-    for call, name in ((lambda: sd.math.cholesky(x), "cholesky"),
-                       (lambda: sd.invoke("conv2d", x, x), "conv2d"),
-                       (lambda: sd.nn.batch_norm(x, x, x), "batch_norm"),
-                       (lambda: sd.random.random_normal(shape=(2, 3)), "random_normal")):
+    for call, name in ((lambda: sd.linalg.svd(x), "svd"),
+                       (lambda: sd.invoke("conv3d", x, x), "conv3d"),
+                       (lambda: sd.nn.swish(x), "swish"),
+                       (lambda: sd.random.random_bernoulli(shape=(2, 3)), "random_bernoulli")):
         with pytest.raises(NotImplementedError, match=name):
             call()
     with pytest.raises(NotImplementedError, match="export_stablehlo"):
@@ -279,12 +282,12 @@ def test_unported_ops_raise_by_name():
 def test_archive_with_an_unported_op_raises_by_name_when_run(tmp_path):
     jsd = JSameDiff.create()
     x = jsd.placeholder("x", (2, 3))
-    jsd.math.cumsum(x, axis=1, name="c")
+    jsd.math.logcumsumexp(x, axis=1, name="c")
     path = str(tmp_path / "c.sdz")
     jsd.save(path)
     sd = SameDiff.load(path)  # loads: ops are data
-    assert [n.op for n in sd.ops] == ["cumsum"]
-    with pytest.raises(NotImplementedError, match="cumsum"):
+    assert [n.op for n in sd.ops] == ["logcumsumexp"]
+    with pytest.raises(NotImplementedError, match="logcumsumexp"):
         sd.output({"x": np.ones((2, 3), np.float32)}, "c")
 
 
