@@ -399,6 +399,35 @@ the card and exits nonzero if any phase fails:
             flash launches per tensor piece a batch, 64-row p50).
             ``ParallelInference.builder(bert).workers(2)`` clamps to 1
             worker and answers bit for bit the registry.
+12. http: (after ``residency``; ``--http`` runs the build and this phase only)
+            serving's host side, each part a phase of its own. Worker: a
+            ``ModelServer`` on 127.0.0.1 over BERT-base (2 replicas on
+            cuda:0, warmed): 64-row requests over JSON (``"dtype":
+            "int64"``, the warm-up example's) and over the binary wire, bit
+            for bit ``registry.predict`` of the same rows, nothing captured
+            on traffic, 12 flash launches a batch (counters and the
+            profiler's kernel names); p50s of 20 sequential requests a
+            protocol beside the in-process p50, bytes each way, and the host
+            cost of printing and parsing the JSON. The GravesLSTM char-RNN
+            at T=256: full-bucket requests over the binary wire bit for bit
+            ``registry.predict`` with its launches, and one JSON request
+            timed. Sessions over HTTP on the LSTM char-RNN: open, ``step``
+            with step indices, a replay of the last step (same answer, carry
+            not advanced), a 409 ``step_conflict``, then the rest of the
+            stream over one connection as Server-Sent Events, every step bit
+            for bit a serial ``rnn_time_step`` loop. Router over two
+            in-process BERT-base workers: routed answers bit for bit the
+            in-process answer whichever worker served, a straggler (chaos
+            latency at ``serving.worker.predict``) hedged with one response
+            a request and each duplicate counted, one worker stopped under 8
+            concurrent clients with no client failure, restarted and
+            readmitted with ``memory_allocated`` back within 1 MiB. Gated
+            deploys of the GravesLSTM char-RNN through the router over an
+            in-process fleet under client traffic: an equal candidate passes
+            the gate and shadow and promotes through the ramped canary; a
+            perturbed head fails a strict gate, and behind a lax one is
+            caught in shadow and rolled back; no client error, the journal's
+            ``delivery.stage`` sequences printed and checked.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -851,6 +880,18 @@ SERVING_REPLICAS, SERVING_DEPTH, SERVING_SEQ, SERVING_CONC = 2, 2, 20, (8, 4)
 # rnn_time_step loop padded to that bucket (the stream in row 0).
 SESSION_BUCKET, SESSION_STREAMS, SESSION_STEPS, SESSION_T = 16, 16, 8, 32
 
+# Serving's host side (phase http): HTTP_SEQ sequential requests a protocol
+# for the p50s; HTTP_CLIENTS concurrent clients through the router while one
+# worker stops; HTTP_HEDGED sequential requests whose first attempt the chaos
+# point serving.worker.predict holds HTTP_STRAGGLE_S, with hedges after at
+# least HTTP_HEDGE_MS; memory_allocated after a worker's restart within
+# HTTP_MEM_SLACK of before its stop. The gated deploys serve the GravesLSTM
+# char-RNN at bucket HTTP_DEPLOY_BUCKET from 2 one-replica workers under
+# HTTP_DEPLOY_CLIENTS clients, the gate on HTTP_GOLDEN rows.
+HTTP_SEQ, HTTP_CLIENTS, HTTP_HEDGED, HTTP_STRAGGLE_S, HTTP_HEDGE_MS = 20, 8, 4, 0.3, 50.0
+HTTP_MEM_SLACK, HTTP_DEPLOY_BUCKET, HTTP_DEPLOY_CLIENTS, HTTP_GOLDEN = 2**20, 4, 3, 4
+FLASH_FWD_KERNEL = re.compile(r"(flash_fwd(?:_mma)?_kernel)")
+
 # Serving's device side, second half (phase residency). Paging: four BERT-base
 # names (two seeds, each twice) registered cold under a budget of
 # RESIDENCY_BUDGET_MODELS x one model's measured ledger bytes (the JAX drill's
@@ -1095,6 +1136,159 @@ def arrays_equal(a, b):
     a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     return a.shape == b.shape and a.dtype == b.dtype and \
         a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
+
+
+def http_json(pool, address, name, x, dtype=True):
+    """One JSON predict of ``x`` (``"dtype"`` declared unless ``dtype`` is
+    false): ``(status, outputs as float32 or None, headers, bytes sent,
+    bytes received)``."""
+    import numpy as np
+    body = {"inputs": x.tolist()}
+    if dtype:
+        body["dtype"] = str(x.dtype)
+    raw = json.dumps(body).encode()
+    status, headers, data = pool.request(address, "POST", f"/v1/models/{name}/predict", body=raw,
+                                         headers={"Content-Type": "application/json"},
+                                         timeout=120)
+    out = np.asarray(json.loads(data)["outputs"], np.float32) if status == 200 else None
+    return status, out, headers, len(raw), len(data)
+
+
+def http_wire(pool, address, name, x):
+    """One binary-wire predict of ``x``: as :func:`http_json`."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import wire
+    frame = wire.encode_predict_request(x)
+    status, headers, data = pool.request(address, "POST", f"/v1/models/{name}/predict",
+                                         body=frame, headers={"Content-Type": wire.CONTENT_TYPE},
+                                         timeout=120)
+    out = None
+    if status == 200:
+        _, _, view, fr = wire.decode_predict_response(data)
+        out = np.array(view)
+        view = None
+        fr.close()
+    return status, out, headers, len(frame), len(data)
+
+
+def http_post(address, path, body, timeout=120):
+    """One JSON POST over a fresh connection: ``(status, headers, body
+    bytes)``; an HTTP error is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://{address}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def p50_ms(fn, n):
+    """Median wall milliseconds of ``n`` sequential calls of ``fn``."""
+    import numpy as np
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def wait_for(pred, timeout_s=30.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return pred()
+
+
+class InProcFleet:
+    """In-process ``ModelServer`` workers behind a ``FleetRouter``, with what
+    a rolling or gated deploy asks of a fleet: ``endpoints``, ``worker_ids``,
+    ``worker_archive`` and ``restart_worker`` (which stops the worker and
+    builds it again from the archive on a new port, as
+    ``tests/test_delivery.py``'s ``_InProcFleet``). ``launch(wid, archive,
+    version)`` returns a started server."""
+
+    def __init__(self, launch):
+        self._launch = launch
+        self._lock = threading.Lock()
+        self._workers = {}
+        self.restarts = []
+
+    def add(self, wid, archive, version=1, server=None):
+        server = server or self._launch(wid, archive, version)
+        with self._lock:
+            self._workers[wid] = {"server": server, "archive": archive,
+                                  "address": f"127.0.0.1:{server.port}"}
+        return server
+
+    def endpoints(self):
+        with self._lock:
+            return {w: s["address"] for w, s in self._workers.items()}
+
+    def worker_ids(self):
+        with self._lock:
+            return list(self._workers)
+
+    def worker_archive(self, wid):
+        with self._lock:
+            return self._workers[wid]["archive"]
+
+    def stop_worker(self, wid):
+        with self._lock:
+            w = self._workers[wid]
+            server, w["server"] = w["server"], None
+        if server is not None:
+            server.stop(shutdown_registry=True)
+
+    def restart_worker(self, wid, archive=None, version=None):
+        self.stop_worker(wid)
+        self.restarts.append((wid, archive))
+        self.add(wid, archive or self.worker_archive(wid), version)
+
+    def stop(self):
+        for wid in self.worker_ids():
+            self.stop_worker(wid)
+
+
+class Clients:
+    """``n`` closed-loop client threads calling ``ask(c, k)`` until stopped:
+    every outcome recorded as ``(client, k, status, answer)``."""
+
+    def __init__(self, n, ask):
+        self.ask = ask
+        self.outcomes = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self.threads = [threading.Thread(target=self._run, args=(c,), name=f"smoke-http-{c}",
+                                         daemon=True) for c in range(n)]
+
+    def _run(self, c):
+        k = 0
+        while not self._stop.is_set():
+            try:
+                status, out = self.ask(c, k)
+            except Exception as e:  # a client-visible failure
+                status, out = f"{type(e).__name__}: {e}", None
+            with self._lock:
+                self.outcomes.append((c, k, status, out))
+            k += 1
+
+    def __enter__(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self.threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in self.threads):
+            self.outcomes.append((None, None, "a client thread hung", None))
 
 
 def attention_pairs(b, h, t_q, t_k, mask, causal):
@@ -2605,10 +2799,11 @@ class Smoke:
         ms = sum(t for k, (t, _) in per.items() if "conv_stats" in k or "column_sums_kernel" in k)
         return new, old, ms
 
-    def recurrent_kernels(self, fn, expect, reps=3, tries=8):
-        """The recurrent kernels one call of ``fn`` launches, by the
-        profiler's names (``RECURRENT_KERNEL``): ``{name: launches per
-        call}`` over ``reps`` calls, to be held against ``expect``. A
+    def recurrent_kernels(self, fn, expect, reps=3, tries=8, pattern=RECURRENT_KERNEL):
+        """The kernels matching ``pattern`` (default the recurrent ones,
+        ``RECURRENT_KERNEL``) one call of ``fn`` launches, by the profiler's
+        names: ``{name: launches per call}`` over ``reps`` calls, to be held
+        against ``expect``. A
         session can lose kernel records, never add one (one saw one of a
         request's two launches: over 3 calls that reads 5/3, not 1; one saw
         none of a check's three launches; a loss of whole calls' records
@@ -2621,7 +2816,7 @@ class Smoke:
             per, _ = self.profile_kernels(fn, reps)
             ran = {}
             for key, (_, n) in per.items():
-                m = RECURRENT_KERNEL.search(key)
+                m = pattern.search(key)
                 if m:
                     ran[m[1]] = ran.get(m[1], 0) + n
             ran = {k: int(n) if float(n).is_integer() else n for k, n in sorted(ran.items())}
@@ -5145,18 +5340,12 @@ class Smoke:
         beside the synchronous eager arm."""
         import numpy as np
         torch = self.torch
-        from deeplearning4j_tpu_torch.models import ModelSerializer
         from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
         from deeplearning4j_tpu_torch.runtime.environment import get_environment
         from deeplearning4j_tpu_torch.serving import ModelRegistry
-        from deeplearning4j_tpu_torch.zoo import Bert
         env = get_environment()
         env.allow_bfloat16()
-        path = os.path.join(workdir, "bert-base.zip")
-        if not os.path.exists(path):
-            net = Bert.base().init(device=self.device)
-            ModelSerializer.write_model(net, path)
-            del net
+        path = self.bert_archive(workdir)
         rng = np.random.default_rng(2121)
         example = rng.integers(0, BERT_VOCAB, (1, BERT_T))
         reg = ModelRegistry()
@@ -6504,6 +6693,664 @@ class Smoke:
             pi.shutdown()
             reg.shutdown()
 
+    # ----------------------------------------------------------------- http
+    def http_phase(self, workdir):
+        """Serving's host side at full width, each part a phase of its own:
+        the BERT-base worker, the GravesLSTM char-RNN worker, sessions over
+        HTTP, the router over two BERT-base workers, gated deploys."""
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        env = get_environment()
+        env.allow_bfloat16()
+        st = {"servers": []}
+        try:
+            for name, part in (("bert", lambda: self.http_bert(workdir, st)),
+                               ("graves", lambda: self.http_graves(workdir, st)),
+                               ("sessions", lambda: self.http_sessions(workdir)),
+                               ("router", lambda: self.http_router(st)),
+                               ("deploy", lambda: self.http_deploy(workdir))):
+                self.phase(f"http {name}", part)
+        finally:
+            for srv in st["servers"]:
+                srv.stop(shutdown_registry=True)
+            env.allow_bfloat16()
+
+    def bert_archive(self, workdir):
+        """``Bert.base()``'s archive in ``workdir``, written once for the
+        phases that serve it."""
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.zoo import Bert
+        path = os.path.join(workdir, "bert-base.zip")
+        if not os.path.exists(path):
+            net = Bert.base().init(device=self.device)
+            ModelSerializer.write_model(net, path)
+            del net
+        return path
+
+    def graves_archive(self, workdir):
+        """The GravesLSTM char-RNN's archive in ``workdir`` (the serving
+        phase's where it wrote one)."""
+        from deeplearning4j_tpu_torch.models import ModelSerializer, MultiLayerNetwork
+        path = os.path.join(workdir, "serving-graves.zip")
+        if not os.path.exists(path):
+            net = MultiLayerNetwork(char_rnn_conf("graves", SERVE_T), device=self.device).init()
+            ModelSerializer.write_model(net, path)
+            del net
+        return path
+
+    def http_bert_kw(self, example):
+        """BERT-base's worker: 64-row requests, 2 replicas on the card, 2
+        batches in flight, warmed on ``example`` before traffic."""
+        return dict(max_batch_size=BERT_B, buckets=[BERT_B], batch_timeout_ms=5.0,
+                    warmup_example=example, devices=[self.device] * SERVING_REPLICAS,
+                    replicas=SERVING_REPLICAS, pipeline_depth=SERVING_DEPTH)
+
+    def http_traffic(self, counters, batcher, requests):
+        """Run ``requests()`` with every launch counter at 0 just before and
+        read just after: ``(its result, counts, batches, replays)``."""
+        torch = self.torch
+        batches0, replays0 = batcher.batches, aot_replays()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        out = requests()
+        torch.cuda.synchronize()
+        counts = {c.name: c.value for c in counters}
+        return out, counts, batcher.batches - batches0, aot_replays() - replays0
+
+    def check_launches(self, tag, counts, counter, per_batch, batches):
+        want = {name: 0 for name in counts}
+        want[counter.name] = per_batch * batches
+        self.check(counts == want, f"{tag}: {counts[counter.name]} {counter.name} launches over "
+                                   f"the traffic (expected {per_batch} x {batches} batches), "
+                                   f"nothing else: {counts}")
+        self.add_launches({counter.name: counts[counter.name]})
+
+    def http_bert(self, workdir, st):
+        """BERT-base behind a ``ModelServer``: 64-row requests over JSON and
+        the binary wire, bit for bit ``registry.predict``, through replays
+        only, 12 flash launches a batch; p50s, bytes and the JSON's host
+        cost."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer, wire
+        tag = "http bert"
+        path = self.bert_archive(workdir)
+        rng = np.random.default_rng(2424)
+        example = rng.integers(0, BERT_VOCAB, (1, BERT_T))
+        reg = ModelRegistry()
+        srv = ModelServer(reg, worker_id="bert-a")
+        st["servers"].append(srv)
+        t0 = time.perf_counter()
+        served = reg.load("bert", path, device=self.device, replay_manifest=False,
+                          save_manifest=False, **self.http_bert_kw(example))
+        address = f"127.0.0.1:{srv.start(0)}"
+        st["bert"] = (srv, reg, example)
+        b = served.batcher
+        graphs = b.compile_count()
+        log(f"{tag}: load + warm-up {time.perf_counter() - t0:.1f} s, {graphs} graphs, serving "
+            f"on {address}")
+        self.check(graphs == SERVING_REPLICAS, f"{tag}: {graphs} graphs after warm-up (expected "
+                                               f"1 bucket x {SERVING_REPLICAS} replicas)")
+        xs = [rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T)) for _ in range(3)]
+        want = [reg.predict("bert", x) for x in xs]
+        pool = wire.ConnectionPool()
+        try:
+            got, counts, batches, replays = self.http_traffic(
+                all_counters(), b,
+                lambda: [(http_json(pool, address, "bert", x), http_wire(pool, address, "bert", x))
+                         for x in xs])
+            statuses = [(j[0], w[0]) for j, w in got]
+            self.check(statuses == [(200, 200)] * len(xs),
+                       f"{tag}: {2 * len(xs)} requests answered 200: {statuses}")
+            for proto, k in (("JSON (parsed back to float32)", 0), ("binary", 1)):
+                same = all(g[k][1] is not None and arrays_equal(g[k][1], w)
+                           for g, w in zip(got, want))
+                self.check(same, f"{tag}: {len(xs)} {BERT_B}-row answers over {proto} bit for "
+                                 f"bit registry.predict of the same rows")
+            h = got[0][1][2]
+            self.check((h.get("X-Worker-Id"), h.get("X-Model-Version")) == ("bert-a", "1"),
+                       f"{tag}: X-Worker-Id / X-Model-Version {h.get('X-Worker-Id')} / "
+                       f"{h.get('X-Model-Version')}")
+            self.check(batches == 2 * len(xs) and replays == batches,
+                       f"{tag}: {replays} graph replays over {batches} batches (one a request, "
+                       f"no batch ran eagerly)")
+            self.check_launches(tag, counts, fa.counter, BERT_LAYERS, batches)
+            self.check(b.compile_count() == graphs,
+                       f"{tag}: {b.compile_count()} graphs after traffic (nothing captured)")
+            log(f"{tag}: JSON ids parse as int64 (declared \"dtype\": \"int64\"), the warm-up "
+                f"example's dtype ({example.dtype}): they replay the warmed (bucket, replica, "
+                f"dtype) graphs {b._warmed_pairs}")
+            expect = {"flash_fwd_mma_kernel": BERT_LAYERS}
+            ran = self.recurrent_kernels(lambda: http_json(pool, address, "bert", xs[0]), expect,
+                                         pattern=FLASH_FWD_KERNEL)
+            self.check(ran == expect, f"{tag}: one JSON request ran {ran} by the profiler's names "
+                                      f"(expected {expect})")
+            per, _ = self.profile_kernels(lambda: reg.predict("bert", xs[0]), 5)
+            busy = sum(ms for ms, _ in per.values())
+            x = xs[0]
+            times = {"in-process": p50_ms(lambda: reg.predict("bert", x), HTTP_SEQ),
+                     "JSON": p50_ms(lambda: http_json(pool, address, "bert", x), HTTP_SEQ),
+                     "binary": p50_ms(lambda: http_wire(pool, address, "bert", x), HTTP_SEQ)}
+            sizes = {"JSON": got[0][0][3:5], "binary": got[0][1][3:5]}
+            self.http_split("bert", x, want[0], busy)
+            log(f"{tag}: p50 of {HTTP_SEQ} sequential {BERT_B}-row requests: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+                + f"; device busy {busy:.3f} ms a request (torch.profiler); bytes sent / "
+                  f"received a request: JSON {sizes['JSON'][0]} / {sizes['JSON'][1]}, binary "
+                  f"{sizes['binary'][0]} / {sizes['binary'][1]} [{self.card}]")
+        finally:
+            pool.close()
+
+    def http_split(self, what, x, out, busy_ms):
+        """The host cost of one JSON request's four conversions, each timed on
+        this host on the same arrays: the client printing the body, the
+        server parsing it, the server printing the answer, the client
+        parsing it; beside the device busy time of one request."""
+        import numpy as np
+        t = {}
+        t0 = time.perf_counter()
+        body = json.dumps({"inputs": x.tolist(), "dtype": str(x.dtype)})
+        t["print request"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = json.loads(body)
+        np.asarray(parsed["inputs"], dtype=np.dtype(parsed["dtype"]))
+        t["parse request"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answer = json.dumps({"model": what, "version": 1, "outputs": np.asarray(out).tolist()})
+        t["print answer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        np.asarray(json.loads(answer)["outputs"], np.float32)
+        t["parse answer"] = time.perf_counter() - t0
+        log(f"http {what} JSON host cost (this host, the same arrays): "
+            + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in t.items())
+            + f"; {len(body)} / {len(answer)} bytes; device busy {busy_ms:.3f} ms a request "
+              f"[{self.card}]")
+
+    def http_graves(self, workdir, st):
+        """The GravesLSTM char-RNN at T=256 behind a ``ModelServer``:
+        full-bucket requests over the binary wire bit for bit
+        ``registry.predict``, 2 launches a batch through replays; p50s; one
+        JSON request timed."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves
+        from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer, wire
+        tag = "http graves=True"
+        path = self.graves_archive(workdir)
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(2525)
+        ids = lambda n: eye[rng.integers(0, VOCAB, (int(n), SERVE_T))]  # noqa: E731
+        reg = ModelRegistry()
+        srv = ModelServer(reg, worker_id="graves")
+        st["servers"].append(srv)
+        t0 = time.perf_counter()
+        served = reg.load("char-rnn", path, device=self.device, max_batch_size=SERVE_B,
+                          buckets=[SERVE_B], batch_timeout_ms=5.0, warmup_example=ids(1),
+                          devices=[self.device] * SERVING_REPLICAS, replicas=SERVING_REPLICAS,
+                          pipeline_depth=SERVING_DEPTH, replay_manifest=False,
+                          save_manifest=False)
+        address = f"127.0.0.1:{srv.start(0)}"
+        b = served.batcher
+        graphs = b.compile_count()
+        log(f"{tag}: load + warm-up {time.perf_counter() - t0:.1f} s, {graphs} graphs")
+        xs = [ids(SERVE_B) for _ in range(3)]
+        want = [reg.predict("char-rnn", x) for x in xs]
+        pool = wire.ConnectionPool()
+        try:
+            got, counts, batches, replays = self.http_traffic(
+                all_counters(), b, lambda: [http_wire(pool, address, "char-rnn", x) for x in xs])
+            same = all(g[0] == 200 and g[1] is not None and arrays_equal(g[1], w)
+                       for g, w in zip(got, want))
+            self.check(same, f"{tag}: {len(xs)} full-bucket ({SERVE_B} x {SERVE_T} x {VOCAB}) "
+                             f"requests over the binary wire bit for bit registry.predict "
+                             f"(statuses {[g[0] for g in got]})")
+            self.check(batches == len(xs) and replays == batches,
+                       f"{tag}: {replays} graph replays over {batches} batches")
+            self.check_launches(tag, counts, fused_lstm_graves.counter, LAYERS, batches)
+            self.check(b.compile_count() == graphs,
+                       f"{tag}: {b.compile_count()} graphs after traffic (nothing captured)")
+            x = xs[0]
+            times = {"in-process": p50_ms(lambda: reg.predict("char-rnn", x), HTTP_SEQ),
+                     "binary": p50_ms(lambda: http_wire(pool, address, "char-rnn", x), HTTP_SEQ)}
+            t0 = time.perf_counter()
+            status, out, _, sent, received = http_json(pool, address, "char-rnn", x)
+            json_ms = 1e3 * (time.perf_counter() - t0)
+            self.check(status == 200 and out is not None and arrays_equal(out, want[0]),
+                       f"{tag}: one full-bucket JSON request (parsed back to float32) bit for "
+                       f"bit registry.predict (status {status})")
+            per, _ = self.profile_kernels(lambda: reg.predict("char-rnn", x), 5)
+            self.http_split("char-rnn", x, want[0], sum(ms for ms, _ in per.values()))
+            log(f"{tag}: p50 of {HTTP_SEQ} sequential full-bucket requests: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+                + f"; one JSON request {json_ms:.1f} ms, {sent} bytes sent / {received} received; "
+                  f"binary {got[0][3]} / {got[0][4]} [{self.card}]")
+        finally:
+            pool.close()
+
+    def http_sessions(self, workdir):
+        """Sessions over HTTP on the LSTM char-RNN (2 replicas on cuda:0):
+        open, ``step`` with step indices, a replay of the last step, a
+        ``step_conflict``, then the rest as Server-Sent Events over one
+        connection; every step bit for bit a serial ``rnn_time_step`` loop
+        padded to SESSION_BUCKET, 2 launches a step batch through replays."""
+        import urllib.request
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm
+        from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+        tag = "http sessions"
+        net = MultiLayerNetwork(char_rnn_conf("lstm", SERVE_T), device=self.device).init()
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(3232)
+        chunks = [eye[rng.integers(0, VOCAB, (1, SESSION_T))] for _ in range(SESSION_STEPS)]
+        half = SESSION_STEPS // 2
+        reg = ModelRegistry()
+        srv = ModelServer(reg, worker_id="sessions",
+                          session_dir=os.path.join(workdir, "http-sessions"),
+                          session_kw={"start_evictor": False})
+        try:
+            served = reg.register("lstm", net, max_batch_size=SERVE_B,
+                                  devices=[self.device] * SERVING_REPLICAS,
+                                  replicas=SERVING_REPLICAS, pipeline_depth=SERVING_DEPTH,
+                                  batch_timeout_ms=5.0)
+            b = served.batcher
+            b.enable_sessions(np.zeros((1, SESSION_T, VOCAB), np.float32),
+                              session_bucket=SESSION_BUCKET)
+            graphs = b.compile_count()
+            address = f"127.0.0.1:{srv.start(0)}"
+            base = "/v1/models/lstm/sessions"
+            steps, lat = [], []
+
+            def stream():
+                status, _, data = http_post(address, base, {})
+                sid = json.loads(data)["session"] if status == 200 else None
+                for i in range(half):
+                    t0 = time.perf_counter()
+                    status, h, data = http_post(address, f"{base}/{sid}/step",
+                                                {"inputs": chunks[i].tolist(),
+                                                 "dtype": "float32", "step": i})
+                    lat.append(time.perf_counter() - t0)
+                    steps.append((status, h.get("X-Session-Step"), json.loads(data)))
+                replay = http_post(address, f"{base}/{sid}/step",
+                                   {"inputs": chunks[half - 1].tolist(), "dtype": "float32",
+                                    "step": half - 1})
+                conflict = http_post(address, f"{base}/{sid}/step",
+                                     {"inputs": chunks[half].tolist(), "dtype": "float32",
+                                      "step": half + 5})
+                t0 = time.perf_counter()
+                sse = http_post(address, f"{base}/{sid}/stream",
+                                {"inputs": [c.tolist() for c in chunks[half:]],
+                                 "dtype": "float32", "step": half})
+                sse_s = time.perf_counter() - t0
+                req = urllib.request.Request(f"http://{address}{base}/{sid}", method="DELETE")
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    closed = resp.status
+                return sid, replay, conflict, sse, sse_s, closed
+
+            b0 = b.metrics.snapshot()["batches_total"]
+            replays0 = aot_replays()
+            counters = all_counters()
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            sid, replay, conflict, sse, sse_s, closed = stream()
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            step_batches = b.metrics.snapshot()["batches_total"] - b0
+            replays = aot_replays() - replays0
+            frames = [f for f in sse[2].decode().split("\n\n") if f.strip()]
+            events = [json.loads(f[len("data:"):]) for f in frames if f.startswith("data:")]
+            ends = [f for f in frames if f.startswith("event: end")]
+            outs = [np.asarray(o["outputs"], np.float32) for _, _, o in steps] + \
+                [np.asarray(e["outputs"], np.float32) for e in events]
+            self.check(sid is not None and [s[:2] for s in steps] ==
+                       [(200, str(i + 1)) for i in range(half)],
+                       f"{tag}: session {sid} opened, {half} steps answered with X-Session-Step "
+                       f"1..{half}: {[s[:2] for s in steps]}")
+            robj = json.loads(replay[2])
+            self.check(replay[0] == 200 and robj.get("replayed") is True
+                       and robj.get("step") == half
+                       and arrays_equal(np.asarray(robj["outputs"], np.float32), outs[half - 1]),
+                       f"{tag}: a replay of step {half - 1} answered its persisted output "
+                       f"(replayed {robj.get('replayed')}, step {robj.get('step')})")
+            self.check(conflict[0] == 409
+                       and json.loads(conflict[2]).get("reason") == "step_conflict",
+                       f"{tag}: a step at the wrong position got {conflict[0]} "
+                       f"{json.loads(conflict[2]).get('reason')}")
+            self.check(sse[0] == 200 and sse[1].get("Content-Type", "").startswith(
+                "text/event-stream") and [e["step"] for e in events] ==
+                list(range(half + 1, SESSION_STEPS + 1)) and len(ends) == 1,
+                f"{tag}: the stream of {SESSION_STEPS - half} steps over one connection gave "
+                f"events at steps {[e['step'] for e in events]} and {len(ends)} end event")
+            self.check(closed == 200, f"{tag}: DELETE closed the session ({closed})")
+            self.check(step_batches == SESSION_STEPS and replays == step_batches,
+                       f"{tag}: {step_batches} step batches for {SESSION_STEPS} steps (the replay "
+                       f"ran nothing), {replays} graph replays")
+            self.check_launches(tag, counts, fused_lstm.counter, LAYERS, step_batches)
+            self.check(b.compile_count() == graphs,
+                       f"{tag}: {b.compile_count()} graphs after the stream (nothing captured)")
+            net.rnn_clear_previous_state()
+            exact = len(outs) == SESSION_STEPS
+            for i, c in enumerate(chunks):
+                xb = np.zeros((SESSION_BUCKET, SESSION_T, VOCAB), np.float32)
+                xb[0] = c[0]
+                ref = net.rnn_time_step(xb).float().cpu().numpy()[:1]
+                exact = exact and i < len(outs) and arrays_equal(outs[i], ref)
+            net.rnn_clear_previous_state()
+            self.check(exact, f"{tag}: {half} unary steps and {SESSION_STEPS - half} streamed "
+                              f"steps bit for bit a serial rnn_time_step loop padded to "
+                              f"{SESSION_BUCKET} rows (the replay advanced no carry)")
+            ms = sorted(1e3 * v for v in lat)
+            log(f"{tag}: unary step p50 {ms[len(ms) // 2]:.3f} ms over HTTP ({SESSION_T} tokens); "
+                f"{SESSION_STEPS - half} streamed steps in {1e3 * sse_s:.1f} ms [{self.card}]")
+        finally:
+            srv.stop(shutdown_registry=True)
+
+    def http_router(self, st):
+        """A ``FleetRouter`` over two in-process BERT-base workers (the
+        ``http bert`` worker and a second registry on cuda:0): routed answers
+        bit for bit the in-process answer whichever worker served; a
+        straggler hedged; one worker stopped under HTTP_CLIENTS clients and
+        restarted, ``memory_allocated`` back where it was."""
+        import gc
+        import numpy as np
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime import chaos
+        from deeplearning4j_tpu_torch.serving import FleetRouter, ModelRegistry, ModelServer, wire
+        tag = "http router"
+        srv_a, reg_a, example = st["bert"]
+        st["servers"].remove(srv_a)  # the fleet stops it now
+        model = reg_a.get("bert").model
+
+        def launch(wid, archive, version):
+            # a registry of its own over the restored model: its own
+            # parameter copies, streams and graphs
+            reg = ModelRegistry()
+            srv = ModelServer(reg, worker_id=wid)
+            reg.register("bert", model, version=version, **self.http_bert_kw(example))
+            srv.start(0)
+            return srv
+
+        fleet = InProcFleet(launch)
+        fleet.add("bert-a", "bert-base.zip", server=srv_a)
+        t0 = time.perf_counter()
+        fleet.add("bert-b", "bert-base.zip")
+        log(f"{tag}: second worker up in {time.perf_counter() - t0:.1f} s")
+        router = FleetRouter(fleet, probe_interval_s=0.05, hedge_initial_ms=HTTP_HEDGE_MS,
+                             hedge_min_ms=HTTP_HEDGE_MS)
+        pool = wire.ConnectionPool()
+        try:
+            address = f"127.0.0.1:{router.start(0)}"
+            self.check(wait_for(lambda: sum(v.ready for v in router.workers().values()) == 2),
+                       f"{tag}: both workers ready behind the router")
+            rng = np.random.default_rng(2626)
+            xs = [rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T)) for _ in range(4)]
+            want = [reg_a.predict("bert", x) for x in xs]
+
+            def exact(k, got):
+                return got is not None and arrays_equal(got, want[k % len(xs)])
+
+            # ---- routed answers, JSON and binary
+            got, counts, batches, _ = self.http_traffic(
+                all_counters(), reg_a.get("bert").batcher,
+                lambda: [(http_json(pool, address, "bert", x), http_wire(pool, address, "bert", x))
+                         for x in xs])
+            ok = all(j[0] == w[0] == 200 and exact(k, j[1]) and exact(k, w[1])
+                     for k, (j, w) in enumerate(got))
+            by = sorted({g[2].get("X-Worker-Id") for pair in got for g in pair})
+            self.check(ok, f"{tag}: {2 * len(xs)} routed requests (JSON, binary) bit for bit the "
+                           f"in-process answer (served by {by})")
+            self.add_launches({fa.counter.name: counts[fa.counter.name]})
+            self.check(counts[fa.counter.name] % BERT_LAYERS == 0
+                       and counts[fa.counter.name] >= BERT_LAYERS * 2 * len(xs),
+                       f"{tag}: {counts[fa.counter.name]} flash launches for {2 * len(xs)} "
+                       f"routed requests (12 a batch)")
+
+            # ---- a straggler hedged: the first attempt of each request held
+            class Straggle(chaos.Policy):
+                def apply(self, point, index, rng_, controller):
+                    if index % 2 == 1:
+                        time.sleep(HTTP_STRAGGLE_S)
+                        return f"latency:{HTTP_STRAGGLE_S}"
+                    return None
+
+            before = router.metrics.snapshot()
+            with chaos.ChaosController(seed=24) as c:
+                c.on("serving.worker.predict", Straggle())
+                hedged = [http_wire(pool, address, "bert", x) for x in xs[:HTTP_HEDGED]]
+            wait_for(lambda: router.metrics.snapshot()["hedges_discarded_total"]
+                     - before["hedges_discarded_total"] >= HTTP_HEDGED, 10.0)
+            after = router.metrics.snapshot()
+            delta = {k: after[k] - before[k] for k in ("hedges_total", "hedge_wins_total",
+                                                       "hedges_discarded_total", "responses_total")}
+            self.check(all(g[0] == 200 and exact(k, g[1]) for k, g in enumerate(hedged))
+                       and delta == {k: HTTP_HEDGED for k in delta},
+                       f"{tag}: {HTTP_HEDGED} requests whose first attempt straggled "
+                       f"{HTTP_STRAGGLE_S} s (chaos at serving.worker.predict): one response "
+                       f"each, bit for bit, served by {[g[2].get('X-Worker-Id') for g in hedged]};"
+                       f" {delta}")
+
+            # ---- one worker stopped under load, restarted, readmitted
+            gc.collect()
+            before_bytes = self.allocated()
+
+            def ask(c, k):
+                status, out, _, _, _ = http_wire(pools[c], address, "bert", xs[(c + k) % len(xs)])
+                return status, exact(c + k, out)
+
+            pools = [wire.ConnectionPool() for _ in range(HTTP_CLIENTS)]
+            try:
+                with Clients(HTTP_CLIENTS, ask) as load:
+                    time.sleep(0.5)
+                    t0 = time.perf_counter()
+                    fleet.stop_worker("bert-b")
+                    stop_s = time.perf_counter() - t0
+                    time.sleep(1.0)
+            finally:
+                for p in pools:
+                    p.close()
+            bad = [o for o in load.outcomes if o[2] != 200 or o[3] is not True]
+            self.check(load.outcomes and not bad,
+                       f"{tag}: {len(load.outcomes)} requests from {HTTP_CLIENTS} clients while "
+                       f"bert-b stopped ({stop_s:.2f} s to stop): {len(bad)} failed or not bit "
+                       f"for bit {bad[:3]}")
+            t0 = time.perf_counter()
+            fleet.add("bert-b", "bert-base.zip")
+            router.readmit("bert-b")
+            ready_s = router.await_ready("bert-b", timeout_s=120.0)
+            router.drain("bert-a", timeout_s=30.0)
+            after_b = [http_wire(pool, address, "bert", x) for x in xs]
+            router.readmit("bert-a")
+            self.check(all(g[0] == 200 and exact(k, g[1]) and g[2].get("X-Worker-Id") == "bert-b"
+                           for k, g in enumerate(after_b)),
+                       f"{tag}: bert-b rebuilt and readmitted in {time.perf_counter() - t0:.1f} s "
+                       f"(ready after {ready_s:.2f} s); with bert-a drained its {len(xs)} answers "
+                       f"bit for bit")
+            gc.collect()
+            after_bytes = self.allocated()
+            self.check(abs(after_bytes - before_bytes) <= HTTP_MEM_SLACK,
+                       f"{tag}: memory_allocated {before_bytes / 2**20:.2f} MiB before the stop, "
+                       f"{after_bytes / 2**20:.2f} MiB after the restart and readmission "
+                       f"({(after_bytes - before_bytes) / 2**20:+.2f} MiB; limit "
+                       f"{HTTP_MEM_SLACK / 2**20:.0f} MiB)")
+            x = xs[0]
+            times = {"router JSON": p50_ms(lambda: http_json(pool, address, "bert", x), HTTP_SEQ),
+                     "router binary": p50_ms(lambda: http_wire(pool, address, "bert", x),
+                                             HTTP_SEQ)}
+            log(f"{tag}: p50 of {HTTP_SEQ} sequential {BERT_B}-row requests through the router: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{self.card}]")
+        finally:
+            pool.close()
+            router.stop()
+            fleet.stop()
+
+    def http_deploy(self, workdir):
+        """Gated deploys of the GravesLSTM char-RNN through the router over
+        an in-process fleet of two one-replica workers under client traffic:
+        an equal candidate promotes (gate, shadow, ramped canary, the fleet
+        rolled); a perturbed head fails a strict gate and, behind a lax one,
+        is caught in shadow and rolled back."""
+        import numpy as np
+        torch = self.torch
+        from deeplearning4j_tpu_torch.models import ModelSerializer
+        from deeplearning4j_tpu_torch.ops.kernels import fused_lstm_graves
+        from deeplearning4j_tpu_torch.runtime import journal
+        from deeplearning4j_tpu_torch.runtime.trees import tree_map
+        from deeplearning4j_tpu_torch.serving import FleetRouter, ModelRegistry, ModelServer, wire
+        from deeplearning4j_tpu_torch.serving.delivery import DeliveryConfig, GateFailed, GoldenSet
+        from deeplearning4j_tpu_torch.serving.slo import SLOTarget
+        tag = "http deploy"
+        d = os.path.join(workdir, "http-deploy")
+        os.makedirs(d, exist_ok=True)
+        src = self.graves_archive(workdir)
+        a1, a2, abad = (os.path.join(d, f"{v}.zip") for v in ("v1", "v2", "bad"))
+        shutil.copyfile(src, a1)
+        shutil.copyfile(src, a2)
+        net = ModelSerializer.restore_model(a1, device=self.device, load_updater=False)
+        params = dict(net.params())
+        head = list(params)[-1]  # the output layer: every class rolled by one
+        params[head] = tree_map(lambda t: torch.roll(t, 1, -1), params[head])
+        net.set_params(params)
+        ModelSerializer.write_model(net, abad)
+        del net, params
+        eye = np.eye(VOCAB, dtype=np.float32)
+        rng = np.random.default_rng(2828)
+        ids = lambda n: eye[rng.integers(0, VOCAB, (int(n), SERVE_T))]  # noqa: E731
+        golden = ids(HTTP_GOLDEN)
+        GoldenSet(golden).save(GoldenSet.sidecar(a2))
+        GoldenSet(golden, max_delta=1.0).save(GoldenSet.sidecar(abad))
+        kw = dict(max_batch_size=HTTP_DEPLOY_BUCKET, buckets=[HTTP_DEPLOY_BUCKET],
+                  batch_timeout_ms=2.0, warmup_example=ids(1), replicas=1, devices=[self.device],
+                  replay_manifest=False, save_manifest=False)
+
+        def launch(wid, archive, version):
+            reg = ModelRegistry()
+            srv = ModelServer(reg, worker_id=wid)
+            try:
+                reg.load("char-rnn", archive, device=self.device, version=version, **kw)
+                srv.start(0)
+            except Exception:
+                srv.stop(shutdown_registry=True)
+                raise
+            return srv
+
+        fleet = InProcFleet(launch)
+        router = None
+        try:
+            t0 = time.perf_counter()
+            fleet.add("w0", a1)
+            fleet.add("w1", a1)
+            log(f"{tag}: two workers up in {time.perf_counter() - t0:.1f} s")
+            router = FleetRouter(fleet, probe_interval_s=0.05, hedge_enabled=False)
+            address = f"127.0.0.1:{router.start(0)}"
+            self.check(wait_for(lambda: sum(v.ready for v in router.workers().values()) == 2),
+                       f"{tag}: both workers ready")
+            probes = [ids(1) for _ in range(4)]
+            pool = wire.ConnectionPool()
+            try:
+                w0 = fleet.endpoints()["w0"]
+                ref = [http_wire(pool, w0, "char-rnn", x)[1] for x in probes]
+            finally:
+                pool.close()
+            pools = [wire.ConnectionPool() for _ in range(HTTP_DEPLOY_CLIENTS)]
+
+            def ask(c, k):
+                status, out, _, _, _ = http_wire(pools[c], address, "char-rnn",
+                                                 probes[(c + k) % len(probes)])
+                return status, out is not None and arrays_equal(out, ref[(c + k) % len(probes)])
+
+            cfg = DeliveryConfig(shadow_fraction=1.0, shadow_min_samples=4,
+                                 canary_fractions=(0.5, 1.0), canary_min_requests=6,
+                                 canary_target=SLOTarget(availability=0.5, latency_ms=5000.0,
+                                                         latency_target=0.5),
+                                 canary_window_s=30, stage_timeout_s=60.0)
+            j = journal.enable(capacity=16384)
+            counters = all_counters()
+            refused, times = None, {}
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            try:
+                with Clients(HTTP_DEPLOY_CLIENTS, ask) as load:
+                    time.sleep(0.2)
+                    t0 = time.perf_counter()
+                    good = router.rolling_deploy(a2, version=2, strategy="gated",
+                                                 model="char-rnn", delivery_config=cfg,
+                                                 ready_timeout_s=120)
+                    times["promote"] = time.perf_counter() - t0
+                    restarts = len(fleet.restarts)
+                    t0 = time.perf_counter()
+                    try:
+                        router.rolling_deploy(abad, version=3, strategy="gated",
+                                              model="char-rnn", delivery_config=cfg,
+                                              golden_set=GoldenSet(golden, max_delta=0.0))
+                    except GateFailed as e:
+                        refused = e.report
+                    times["strict gate"] = time.perf_counter() - t0
+                    strict_restarts = len(fleet.restarts) - restarts
+                    t0 = time.perf_counter()
+                    bad = router.rolling_deploy(abad, version=3, strategy="gated",
+                                                model="char-rnn", delivery_config=cfg,
+                                                ready_timeout_s=120)
+                    times["rollback"] = time.perf_counter() - t0
+                    time.sleep(0.2)
+            finally:
+                for p in pools:
+                    p.close()
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in counters}
+            self.add_launches({fused_lstm_graves.counter.name:
+                               counts[fused_lstm_graves.counter.name]})
+            self.check(good.get("verdict") == "promoted"
+                       and good["delivery"]["client_errors"] == 0
+                       and [fleet.worker_archive(w) for w in ("w0", "w1")] == [a2, a2],
+                       f"{tag}: the equal candidate {good.get('verdict')} in "
+                       f"{times['promote']:.1f} s, the fleet on v2, client errors "
+                       f"{good.get('delivery', {}).get('client_errors')}")
+            # bf16 probabilities of a random head tie often, so a rolled head
+            # keeps the top-1 of some tied rows: most, not all, disagree
+            self.check(refused is not None and refused.get("accuracy_delta", 0.0) > 0.5
+                       and strict_restarts == 0,
+                       f"{tag}: the perturbed head refused by a strict gate in "
+                       f"{times['strict gate']:.1f} s before any worker was touched "
+                       f"(accuracy_delta {None if refused is None else refused.get('accuracy_delta')}, "
+                       f"{strict_restarts} restarts)")
+            self.check(bad.get("verdict") == "rolled_back"
+                       and bad.get("cause") == "shadow_divergence"
+                       and bad["delivery"]["client_errors"] == 0
+                       and [fleet.worker_archive(w) for w in ("w0", "w1")] == [a2, a2],
+                       f"{tag}: behind its lax gate the perturbed head was "
+                       f"{bad.get('verdict')} ({bad.get('cause')}) in {times['rollback']:.1f} s, "
+                       f"the fleet back on v2")
+            failed = [o for o in load.outcomes if o[2] != 200 or o[3] is not True]
+            self.check(load.outcomes and not failed,
+                       f"{tag}: {len(load.outcomes)} client requests across the three deploys, "
+                       f"{len(failed)} failed or not bit for bit the incumbent's {failed[:3]}")
+            stages = {}
+            for e in j.events(types={"delivery.stage"}):
+                stages.setdefault(os.path.basename(e["attrs"]["archive"]), []).append(
+                    e["attrs"]["stage"])
+            gates = [(os.path.basename(e["attrs"]["archive"]), e["attrs"]["verdict"])
+                     for e in j.events(types={"delivery.gate"})]
+            log(f"{tag}: journal delivery.gate {gates}; delivery.stage {stages}")
+            self.check(stages.get("v2.zip") == ["gate", "shadow", "canary", "canary_ramp",
+                                                "promote_ready", "promoted"]
+                       and stages.get("bad.zip") == ["gate", "shadow", "rollback_pending",
+                                                     "rolled_back"]
+                       and gates == [("v2.zip", "pass"), ("bad.zip", "fail"),
+                                     ("bad.zip", "pass")],
+                       f"{tag}: the journal's delivery.gate and delivery.stage sequences")
+            snap = router.metrics.snapshot()
+            log(f"{tag}: shadow mirrors {snap['shadow_mirrors_total']}, canary requests "
+                f"{snap['canary_requests_total']}, rollbacks {snap['rollbacks_total']}, "
+                f"{counts[fused_lstm_graves.counter.name]} GravesLSTM launches (captures and "
+                f"replays) [{self.card}]")
+        finally:
+            if router is not None:
+                router.stop()
+            fleet.stop()
+            journal.enable(capacity=1024)
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -7211,6 +8058,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--http"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.http_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -7244,6 +8101,7 @@ def main() -> int:
         smoke.zoo_phase(workdir)
         smoke.serving_phase(workdir)
         smoke.residency_phase(workdir)
+        smoke.http_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

@@ -27,7 +27,27 @@
   :class:`DtypePolicy`, :class:`QuantizedModel` and the
   :class:`AccuracyGate` ``deploy_quantized`` runs.
 - ``delivery.py`` — the golden-set gate (:class:`GoldenGate`,
-  :class:`GoldenSet`); the staged-rollout half comes with the host side.
+  :class:`GoldenSet`) and the staged rollout (:class:`ShadowComparator`,
+  :class:`DeliveryConfig`, :class:`DeliveryController`) with the
+  feedback flywheel's :class:`FeedbackLog`.
+
+The host side, first half (the HTTP worker and the router tier):
+
+- :class:`ModelServer` (``server.py``) — serves a registry over HTTP: JSON
+  and binary predict, residency, replicas, the session tier with its
+  Server-Sent-Events stream, health, ``/metrics``, capacity, traces, the
+  black box's debug endpoints and feedback. The background scheduler is
+  not ported yet: attaching one raises ``NotImplementedError``.
+- ``wire.py`` — the binary frame codec (byte for byte the JAX package's),
+  the shared-memory hop, :class:`~.wire.KeepAliveHTTPServer` and
+  :class:`~.wire.ConnectionPool`.
+- :class:`FleetRouter` / :class:`StaticFleet` / :class:`RouterMetrics`
+  (``router.py``) — rendezvous ranking, probes, hedging, failover,
+  breakers, rolling and gated deploys over any fleet object.
+- :class:`SLOMonitor` / :class:`SLOTarget` (``slo.py``) — attainment and
+  burn rates.
+- :class:`AnomalyWatchdog` / :class:`BurnRule` / :class:`RateRule`
+  (``blackbox.py``) — the watchdog and the incident bundles.
 
 Exports resolve lazily (PEP 562), as in the JAX package.
 """
@@ -36,6 +56,19 @@ import importlib
 
 _EXPORTS = {
     "AdmissionController": "admission",
+    "AnomalyWatchdog": "blackbox",
+    "BurnRule": "blackbox",
+    "RateRule": "blackbox",
+    "SLOMonitor": "slo",
+    "SLOTarget": "slo",
+    "ModelServer": "server",
+    "FleetRouter": "router",
+    "RouterMetrics": "router",
+    "StaticFleet": "router",
+    "DeliveryConfig": "delivery",
+    "DeliveryController": "delivery",
+    "FeedbackLog": "delivery",
+    "ShadowComparator": "delivery",
     "DeadlineExceeded": "admission",
     "HBMBudgetExceeded": "admission",
     "Overloaded": "admission",

@@ -231,6 +231,9 @@ class ContinuousBatcher:
         self._warmed_pairs: List[tuple] = []  # (bucket, replica, dtype)
         # worker thread mints buckets while a control thread resizes
         self._warm_lock = threading.Lock()  # guards: _warmed_pairs
+        # a whole grow/shrink to a target count (the server's replicas
+        # endpoint), so two racing resizes never overshoot
+        self.resize_lock = threading.Lock()
         self._shutdown = False
         self._draining = False
         self._saw_sentinel = False
