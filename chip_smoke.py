@@ -428,6 +428,40 @@ the card and exits nonzero if any phase fails:
             perturbed head fails a strict gate, and behind a lax one is
             caught in shadow and rolled back; no client error, the journal's
             ``delivery.stage`` sequences printed and checked.
+13. fleet: (after ``http``; ``--fleet`` runs the build and this phase only)
+            serving's host side, second half, each part a phase of its own,
+            every worker straggling (seeded chaos latency on half its
+            requests). Workers: a ``FleetSupervisor`` starts 2 BERT-base
+            worker processes on cuda (bucket 64, one replica each; time to
+            ready printed) behind a ``FleetRouter`` here: every answer bit
+            for bit this process's ``registry.predict`` whichever worker
+            served it, nothing captured on traffic, no kernel built in a
+            worker. Drill: 8 closed-loop clients while the worker the
+            traffic goes to is SIGKILLed (no client error, the relaunch's
+            time to ready printed), then a rolling deploy to a v2 archive
+            of the same weights under the same traffic. Control plane: 2
+            router processes over one ``FleetConfig`` with lease-elected
+            autoscalers behind a ``MultiRouterClient`` under 8 clients: the
+            leader adds a replica on the worker the traffic goes to
+            (captured before it takes traffic), the leader is SIGKILLed
+            with no client error and the next decision comes from the new
+            holder with a larger ``seq``; no router process maps the CUDA
+            driver or opens a card's device file, where every worker does,
+            and ``nvidia-smi`` counts this process and the workers only. Autoscale: the supervisor's ``SLOAutoscaler`` adds a
+            worker process when the replicas are at the max (time to ready
+            printed), its decision in ``/v1/autoscaler``. Scheduler: an
+            in-process ``ModelServer`` with a ``Scheduler``: a fine-tune
+            job (B=64, 20 steps) once uninterrupted (12 + 12 + 12 flash
+            launches a step; a replica added while it runs) and once
+            preempted by traffic and resumed, losses and final weights bit
+            for bit; served answers bit for bit the idle ones; eval through
+            the batcher equal to the direct predict; score; a sweep with
+            the JAX package's trial sequence; a flywheel on BERT-base from
+            256 labeled rows of token ids in a ``FeedbackLog`` (integer
+            features) into a gated deploy over two BERT-base workers; the
+            harvest's drop of ``device_idle_fraction``. No worker or router process outlives
+            the phase; the workers' launch counts, written at their drain,
+            join the kernels line.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (one
 row per kernel instance on a main path: the inference and saving forwards
@@ -890,6 +924,30 @@ SESSION_BUCKET, SESSION_STREAMS, SESSION_STEPS, SESSION_T = 16, 16, 8, 32
 # HTTP_DEPLOY_CLIENTS clients, the gate on HTTP_GOLDEN rows.
 HTTP_SEQ, HTTP_CLIENTS, HTTP_HEDGED, HTTP_STRAGGLE_S, HTTP_HEDGE_MS = 20, 8, 4, 0.3, 50.0
 HTTP_MEM_SLACK, HTTP_DEPLOY_BUCKET, HTTP_DEPLOY_CLIENTS, HTTP_GOLDEN = 2**20, 4, 3, 4
+# Serving's host side, second half (phase fleet): FLEET_CLIENTS closed-loop
+# clients in each drill; every worker straggles (FLEET_STRAGGLE: seeded
+# chaos latency at serving.worker.predict on half the requests), so the
+# routers' latency SLO (FLEET_SLO) burns and their lease-elected (lease
+# FLEET_LEASE_S) autoscalers (FLEET_AUTOSCALER: one replica more at most)
+# act; the fine-tune job runs FLEET_FT_STEPS steps, traffic arriving after
+# FLEET_PREEMPT_AFTER of them; the sweep's trials for seed 7 are the JAX
+# package's (SweepRun._trial_sequence, held equal on the CPU by
+# tests/test_torch_serving_scheduler.py), on an 8-16-4 MLP, the sweep's own
+# (build_net_from_spec). The flywheel fine-tunes the served BERT-base from
+# FLEET_FLY_ROWS labeled feedback rows at T=128, FLEET_FLY_EPOCHS epochs.
+FLEET_FLY_ROWS, FLEET_FLY_EPOCHS = 256, 2
+FLEET_CLIENTS, FLEET_FT_STEPS, FLEET_PREEMPT_AFTER, FLEET_LEASE_S = 8, 20, 3, 1.0
+FLEET_STRAGGLE = {"p": 0.5, "ms": 300.0, "seed": 25}
+FLEET_SLO = {"availability": 0.999, "latency_ms": 250.0, "latency_target": 0.9}
+FLEET_AUTOSCALER = dict(tick_s=0.25, fast_window_s=10, slow_window_s=60, up_burn=2.0,
+                        confirm_burn=1.0, down_burn=0.5, up_cooldown_s=3.0,
+                        down_cooldown_s=3600.0, min_requests=8, max_replicas=2,
+                        predictive=False, lever_timeout_s=120.0)
+FLEET_SWEEP_SPACE = {"lr": [0.05, 0.2], "hidden": [[16], [32]], "activation": ["tanh", "relu"]}
+FLEET_SWEEP_TRIALS = [{"activation": "relu", "hidden": [16], "lr": 0.2},
+                      {"activation": "tanh", "hidden": [16], "lr": 0.05},
+                      {"activation": "relu", "hidden": [16], "lr": 0.05},
+                      {"activation": "tanh", "hidden": [16], "lr": 0.2}]
 FLASH_FWD_KERNEL = re.compile(r"(flash_fwd(?:_mma)?_kernel)")
 
 # Serving's device side, second half (phase residency). Paging: four BERT-base
@@ -1203,6 +1261,65 @@ def wait_for(pred, timeout_s=30.0):
             return True
         time.sleep(0.02)
     return pred()
+
+
+def http_text(address, path, timeout=30):
+    """The body of one GET as text."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://{address}{path}", timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def http_json_get(address, path, timeout=30):
+    """The JSON body of one GET."""
+    return json.loads(http_text(address, path, timeout))
+
+
+def metric(text, name):
+    """The value of an unlabelled Prometheus line ``name value``, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def card_marks(pid):
+    """What ties process ``pid`` to the card, read from ``/proc``: ``libcuda``
+    when it maps the CUDA driver, and each ``/dev/nvidia*`` file it holds
+    open (a context holds its card's ``/dev/nvidia<N>``)."""
+    marks = set()
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            if any("libcuda.so" in line for line in f):
+                marks.add("libcuda")
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                marks.add(target)
+    except OSError as e:
+        marks.add(f"unreadable: {e}")
+    return sorted(marks)
+
+
+def nvidia_smi_apps():
+    """``(pid, used_memory)`` of each process holding the card, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory --format=csv,noheader``
+    lists them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps.append((int(pid), mem.strip()))
+    return apps
 
 
 class InProcFleet:
@@ -7351,6 +7468,725 @@ class Smoke:
             fleet.stop()
             journal.enable(capacity=1024)
 
+    # ------------------------------------------------------------ fleet
+    def fleet_phase(self, workdir):
+        """Serving's host side, second half, each part a phase of its own:
+        BERT-base worker processes under a ``FleetSupervisor``, the kill
+        and rolling-deploy drill, router processes over one ``FleetConfig``
+        with lease-elected autoscalers, the supervisor's worker lever, and
+        a ``Scheduler`` harvesting the card behind an in-process worker.
+        Every process started here is stopped and reaped before the phase
+        ends; the worker processes' launch counts join the kernels line."""
+        import gc
+        from deeplearning4j_tpu_torch.runtime.environment import get_environment
+        from deeplearning4j_tpu_torch.serving import control_plane, fleet
+        torch = self.torch
+        env = get_environment()
+        env.allow_bfloat16()
+        saved = os.environ.get("DL4J_TPU_COMPUTE_DTYPE")
+        os.environ["DL4J_TPU_COMPUTE_DTYPE"] = "bfloat16"  # what the worker processes read
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = {"stop": []}
+        t0 = time.perf_counter()
+        try:
+            for name, part in (("workers", lambda: self.fleet_workers(workdir, st)),
+                               ("drill", lambda: self.fleet_drill(workdir, st)),
+                               ("control plane", lambda: self.fleet_control_plane(workdir, st)),
+                               ("autoscale", lambda: self.fleet_autoscale(st)),
+                               ("scheduler", lambda: self.fleet_scheduler(workdir, st))):
+                if name == "workers" or st.get("sup") is not None:
+                    self.phase(f"fleet {name}", part)
+        finally:
+            for stop in reversed(st["stop"]):
+                try:
+                    stop()
+                except Exception as e:  # keep stopping the rest
+                    self.failures.append(f"fleet teardown: {type(e).__name__}: {e}")
+            if saved is None:
+                os.environ.pop("DL4J_TPU_COMPUTE_DTYPE", None)
+            else:
+                os.environ["DL4J_TPU_COMPUTE_DTYPE"] = saved
+        left = fleet.live_worker_pids() + control_plane.live_router_pids()
+        self.check(not left, f"fleet: no worker or router process outlives the phase (live: {left})")
+        if st.get("run_dir"):
+            self.fleet_worker_launches(st["run_dir"])
+        log(f"fleet: {time.perf_counter() - t0:.1f} s [{self.card}]")
+
+    def fleet_worker_launches(self, run_dir):
+        """The worker processes' own launch counts, written by each at its
+        graceful drain: every inference flash launch a multiple of 12 (one
+        batch through a replay or a warm-up), nothing else launched; added
+        to the kernels line (a SIGKILLed worker writes none)."""
+        import glob
+        files = sorted(glob.glob(os.path.join(run_dir, "*.launches.json")))
+        total = {}
+        for f in files:
+            with open(f) as fh:
+                rec = json.load(fh)
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + int(v)
+        flash = total.get("flash_attention", 0)
+        others = {k: v for k, v in total.items() if v and k != "flash_attention"}
+        self.check(len(files) >= 4 and flash > 0 and flash % BERT_LAYERS == 0 and not others,
+                   f"fleet workers: {len(files)} drained worker processes launched {flash} "
+                   f"inference flash kernels in all (12 a batch), nothing else: {others}")
+        self.add_launches({"flash_attention": flash})
+
+    def fleet_kw(self):
+        """Each worker's batcher: BERT-base at bucket 64, one replica."""
+        return dict(max_batch_size=BERT_B, buckets=[BERT_B], batch_timeout_ms=5.0, replicas=1,
+                    pipeline_depth=SERVING_DEPTH)
+
+    def fleet_workers(self, workdir, st):
+        """A ``FleetSupervisor`` starts 2 BERT-base worker processes on cuda
+        behind a ``FleetRouter`` in this process: every answer bit for bit
+        this process's ``registry.predict``, whichever worker served it;
+        nothing captured on traffic; no worker built a kernel."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.serving import (FleetConfig, FleetRouter, FleetSupervisor,
+                                                      ModelRegistry, WorkerSpec, wire)
+        tag = "fleet workers"
+        path = self.bert_archive(workdir)
+        rng = np.random.default_rng(2525)
+        reg = ModelRegistry()
+        st["stop"].append(lambda: reg.shutdown())
+        reg.load("bert", path, device=self.device, replay_manifest=False, save_manifest=False,
+                 warmup_example=rng.integers(0, BERT_VOCAB, (1, BERT_T)), **self.fleet_kw())
+        xs = [rng.integers(0, BERT_VOCAB, (BERT_B, BERT_T)) for _ in range(4)]
+        st.update(reg=reg, xs=xs, want=[reg.predict("bert", x) for x in xs], archive=path)
+        run_dir = os.path.join(workdir, "fleet-run")
+        st["run_dir"] = run_dir
+        config = FleetConfig(os.path.join(workdir, "fleet-config.json"))
+        st["config"] = config
+        sig = {"__single__": {"shape_tail": [BERT_T], "dtype": "int64"}}
+        specs = [WorkerSpec(worker_id=f"fw{i}", model_name="bert", archive=path,
+                            batcher_kw=self.fleet_kw(), warmup_signature=sig,
+                            straggle=dict(FLEET_STRAGGLE)) for i in range(2)]
+        sup = FleetSupervisor(specs, run_dir=run_dir, heartbeat_timeout_s=60.0, config=config)
+        t0 = time.time()
+        sup.start()
+        st["sup"] = sup
+        st["stop"].append(sup.stop)
+        ready = {w: os.stat(os.path.join(run_dir, f"{w}.port.json")).st_mtime - t0
+                 for w in sup.worker_ids()}
+        log(f"{tag}: 2 BERT-base worker processes on cuda (bucket {BERT_B}, one replica each, "
+            f"spawned together): ready after " + ", ".join(f"{w} {s:.1f} s" for w, s in
+                                                          ready.items()) + f" [{self.card}]")
+        router = FleetRouter(sup, probe_interval_s=0.05, hedge_enabled=False)
+        address = f"127.0.0.1:{router.start(0)}"
+        st.update(router=router, address=address)
+        st["stop"].append(router.stop)
+        self.check(wait_for(lambda: sum(v.ready for v in router.workers().values()) == 2, 60),
+                   f"{tag}: both workers ready behind the router")
+        eps = sup.endpoints()
+        before = {w: http_text(a, "/metrics") for w, a in eps.items()}
+        pool = wire.ConnectionPool()
+        try:
+            served = {}
+            for wid in sup.worker_ids():
+                others = [w for w in sup.worker_ids() if w != wid]
+                for w in others:
+                    router.drain(w, timeout_s=30.0)
+                served[wid] = [http_wire(pool, address, "bert", x) for x in xs]
+                for w in others:
+                    router.readmit(w)
+                    router.await_ready(w, timeout_s=60.0)
+        finally:
+            pool.close()
+        for wid, got in served.items():
+            self.check(all(g[0] == 200 and g[2].get("X-Worker-Id") == wid
+                           and arrays_equal(g[1], w) for g, w in zip(got, st["want"])),
+                       f"{tag}: {len(xs)} {BERT_B}-row requests served by {wid} in its own "
+                       f"process bit for bit this process's registry.predict")
+        after = {w: http_text(a, "/metrics") for w, a in eps.items()}
+        for w in eps:
+            graphs = (metric(before[w], "aot_dispatch_executables_total"),
+                      metric(after[w], "aot_dispatch_executables_total"))
+            misses = metric(after[w], "compile_cache_misses_total")
+            self.check(graphs[0] == graphs[1] == 1 and misses == 0,
+                       f"{tag}: {w}: aot_dispatch_executables_total {graphs[0]:.0f} -> "
+                       f"{graphs[1]:.0f} over the traffic (nothing captured on it), "
+                       f"compile_cache_misses_total {misses:.0f} (no kernel built there)")
+        apps = nvidia_smi_apps()
+        log(f"{tag}: nvidia-smi compute apps (pid, used_memory): {apps}")
+
+    def fleet_drill(self, workdir, st):
+        """8 closed-loop clients through the router while the worker the
+        traffic goes to is SIGKILLed: no client request fails, the watchdog
+        relaunches it (time to readiness printed); then a rolling deploy to
+        a v2 archive with the same weights completes under the same traffic,
+        answers unchanged."""
+        from deeplearning4j_tpu_torch.serving import wire
+        tag = "fleet drill"
+        sup, router, address = st["sup"], st["router"], st["address"]
+        xs, want = st["xs"], st["want"]
+        victim = router.ranked_workers("bert")[0].worker_id
+        old = sup.endpoints()[victim]
+        pools = [wire.ConnectionPool() for _ in range(FLEET_CLIENTS)]
+
+        def ask(c, k):
+            status, out, h, _, _ = http_wire(pools[c], address, "bert", xs[(c + k) % len(xs)])
+            return status, (out is not None and arrays_equal(out, want[(c + k) % len(xs)]),
+                            h.get("X-Model-Version"))
+
+        v2 = os.path.join(workdir, "bert-base-v2.zip")
+        if not os.path.exists(v2):
+            os.link(st["archive"], v2)  # the same weights under a new name
+        try:
+            with Clients(FLEET_CLIENTS, ask) as load:
+                time.sleep(0.5)
+                t0 = time.perf_counter()
+                pid = sup.kill_worker(victim)
+                back = wait_for(lambda: victim in sup.endpoints()
+                                and sup.endpoints()[victim] != old, 180.0)
+                ready_s = time.perf_counter() - t0
+                router.await_ready(victim, timeout_s=60.0)
+                n_kill = len(load.outcomes)
+                sup.prewarm_manifest(v2)
+                t0 = time.perf_counter()
+                report = router.rolling_deploy(v2, version=2, ready_timeout_s=180.0)
+                deploy_s = time.perf_counter() - t0
+                time.sleep(0.5)
+        finally:
+            for p in pools:
+                p.close()
+        bad = [o[:3] for o in load.outcomes if o[2] != 200 or not (o[3] and o[3][0] is True)]
+        self.check(back, f"{tag}: {victim} (pid {pid}, the worker the traffic went to) SIGKILLed "
+                         f"and relaunched by the watchdog, ready {ready_s:.1f} s after the kill "
+                         f"[{self.card}]")
+        versions = sorted({o[3][1] for o in load.outcomes if o[2] == 200})
+        self.check(load.outcomes and not bad and versions == ["1", "2"],
+                   f"{tag}: {n_kill} requests from {FLEET_CLIENTS} clients across the kill and "
+                   f"{len(load.outcomes) - n_kill} across the rolling deploy to v2 "
+                   f"({deploy_s:.1f} s, {str(report)[:160]}): {len(bad)} failed or not bit for bit "
+                   f"{bad[:3]}; versions served {versions}")
+
+    def fleet_control_plane(self, workdir, st):
+        """2 router processes under a ``RouterSupervisor`` over one
+        ``FleetConfig``, each with a lease-elected ``SLOAutoscaler``; a
+        ``MultiRouterClient`` under 8 clients. The straggled workers burn
+        the latency SLO: the leader adds a replica on the worker the traffic
+        goes to (captured before it takes traffic); the leader is SIGKILLed
+        under load with no client error, and the next decision comes from
+        the new holder with a larger ``seq``. No router holds the card."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.serving import MultiRouterClient, RouterSpec, RouterSupervisor
+        tag = "fleet control plane"
+        sup, config, xs, want = st["sup"], st["config"], st["xs"], st["want"]
+        target = st["router"].ranked_workers("bert")[0].worker_id
+        graphs0 = metric(http_text(sup.endpoints()[target], "/metrics"),
+                         "aot_dispatch_executables_total")
+        specs = [RouterSpec(router_id=f"fr{i}", config_path=config.path, lease_s=FLEET_LEASE_S,
+                            router_kw={"probe_interval_s": 0.1, "hedge_enabled": False},
+                            slo_windows_s=[10, 60], slo_target=dict(FLEET_SLO),
+                            autoscaler=dict(FLEET_AUTOSCALER)) for i in range(2)]
+        rsup = RouterSupervisor(specs, run_dir=os.path.join(workdir, "router-run"),
+                                heartbeat_timeout_s=60.0, max_restarts=2)
+        t0 = time.perf_counter()
+        rsup.start()
+        st["stop"].append(rsup.stop)
+        log(f"{tag}: 2 router processes ready in {time.perf_counter() - t0:.1f} s")
+        self.check(wait_for(lambda: len(config.routers()) == 2, 30.0),
+                   f"{tag}: both routers registered in the shared config")
+        # the card holders are this process and the workers, never a router:
+        # a context holds its card's device file open, which /proc shows in
+        # this pid namespace (nvidia-smi reports pids of another one, so it
+        # only counts the holders)
+        apps = nvidia_smi_apps()
+        workers, routers = sup.managed_pids(), rsup.managed_pids()
+        marks = {pid: card_marks(pid) for pid in workers + routers}
+        holds = {pid: any(re.fullmatch(r"/dev/nvidia\d+", m) for m in ms)
+                 for pid, ms in marks.items()}
+        self.check(routers and workers and not any(holds[p] for p in routers)
+                   and all(holds[p] for p in workers) and len(apps) == 1 + len(workers),
+                   f"{tag}: no router process holds a card's device file open, every worker "
+                   f"does (routers {routers}, workers {workers}; from /proc: {marks}); "
+                   f"nvidia-smi --query-compute-apps counts {len(apps)} card holders, this "
+                   f"process and its {len(workers)} workers ({apps})")
+        client = MultiRouterClient(config=config, timeout_s=120.0)
+
+        def ask(c, k):
+            x = xs[(c + k) % len(xs)]
+            status, payload = client.predict("bert", x, timeout_ms=60000)
+            out = payload.get("outputs")
+            return status, isinstance(out, np.ndarray) and arrays_equal(out, want[(c + k) % len(xs)])
+
+        routers = config.routers()
+
+        def decisions(rid):
+            return http_json_get(routers[rid], "/v1/autoscaler")
+
+        acted = leader = None
+        try:
+            with Clients(FLEET_CLIENTS, ask) as load:
+                t0 = time.perf_counter()
+
+                def replica_added():
+                    nonlocal acted, leader
+                    for rid in ("fr0", "fr1"):
+                        rep = decisions(rid)
+                        for d in rep["decisions"]:
+                            if d["action"] == "scale_up_replica" and d["ok"]:
+                                acted, leader = d, rid
+                                return True
+                    return False
+
+                added = wait_for(replica_added, 60.0)
+                add_s = time.perf_counter() - t0
+                seq0 = decisions(leader)["election"]["seq"] if leader else None
+                n_before = len(load.outcomes)
+                survivor = "fr1" if leader == "fr0" else "fr0"
+                if leader is not None:
+                    rsup.kill_router(leader)
+                took = False
+                if leader is not None:
+                    def new_leader():
+                        rep = decisions(survivor)
+                        return rep["election"]["role"] == "leader" and any(
+                            d["role"] == "leader" and d["model"] == "bert"
+                            for d in rep["decisions"])
+                    took = wait_for(new_leader, 30.0)
+                time.sleep(0.5)
+        finally:
+            client.close()
+        bad = [o[:3] for o in load.outcomes if o[2] != 200 or o[3] is not True]
+        self.check(load.outcomes and not bad,
+                   f"{tag}: {n_before} requests from {FLEET_CLIENTS} clients through the "
+                   f"MultiRouterClient before the leader's SIGKILL and "
+                   f"{len(load.outcomes) - n_before} after: {len(bad)} failed or not bit for "
+                   f"bit {bad[:3]}; failovers {client.snapshot()['failovers_total']}")
+        self.check(added and acted["worker"] == target,
+                   f"fleet autoscale: the leader ({leader}) added a replica on {target}, the "
+                   f"worker the traffic goes to, {add_s:.1f} s into the straggled traffic: "
+                   f"{acted and {k: acted[k] for k in ('action', 'ok', 'role', 'worker', 'detail')}}"
+                   f"; burn fast/slow "
+                   f"{acted and (acted['burn']['burn_fast'], acted['burn']['burn_slow'])}")
+        cap = http_json_get(sup.endpoints()[target], "/v1/capacity")["models"]["bert"]
+        graphs1 = metric(http_text(sup.endpoints()[target], "/metrics"),
+                         "aot_dispatch_executables_total")
+        self.check(cap["replicas"] == 2 and graphs1 == graphs0 + 1 == cap["aot_executables"],
+                   f"fleet autoscale: {target} serves from {cap['replicas']} replicas, "
+                   f"{graphs0:.0f} -> {graphs1:.0f} graphs (the new replica captured at its "
+                   f"warm-up, before it took traffic; every answer above bit for bit)")
+        if took:
+            rep = decisions(survivor)
+            after = [d for d in rep["decisions"] if d["role"] == "leader" and d["model"] == "bert"]
+            self.check(rep["election"]["seq"] > seq0,
+                       f"fleet autoscale: after {leader}'s SIGKILL the next decision "
+                       f"({after[0]['action']}) comes from {survivor}, the new holder, seq "
+                       f"{seq0} -> {rep['election']['seq']}; every decision in /v1/autoscaler")
+        else:
+            self.check(False, f"fleet autoscale: no decision from a new lease holder after "
+                              f"{leader}'s SIGKILL")
+        relaunched = wait_for(lambda: len(rsup.endpoints()) == 2, 60.0)
+        self.check(relaunched and leader in config.routers(),
+                   f"{tag}: {leader} relaunched by the watchdog and registered again")
+
+    def fleet_autoscale(self, st):
+        """The worker lever lives beside the supervisor (a router process
+        holds none, as in the JAX package): an ``SLOAutoscaler`` with the
+        fleet over this process's router; with the target's replicas at
+        the max it clones the worker's spec and adds a worker process
+        (time to ready printed). The decision is in ``/v1/autoscaler``."""
+        from deeplearning4j_tpu_torch.runtime import journal
+        from deeplearning4j_tpu_torch.serving import (AutoscalerConfig, FleetRouter,
+                                                      SLOAutoscaler, wire)
+        from deeplearning4j_tpu_torch.serving.slo import SLOMonitor, SLOTarget
+        tag = "fleet autoscale"
+        sup, xs, want = st["sup"], st["xs"], st["want"]
+        j = journal.enable(capacity=16384)
+        router = FleetRouter(sup, probe_interval_s=0.05, hedge_enabled=False,
+                             slo=SLOMonitor(target=SLOTarget(**FLEET_SLO), windows_s=(10, 60)))
+        address = f"127.0.0.1:{router.start(0)}"
+        st["stop"].append(router.stop)
+        self.check(wait_for(lambda: sum(v.ready for v in router.workers().values()) == 2, 60),
+                   f"{tag}: a second router in this process sees both workers")
+        auto = SLOAutoscaler(router, fleet=sup,
+                             config=AutoscalerConfig(**FLEET_AUTOSCALER, max_workers=3))
+        pools = [wire.ConnectionPool() for _ in range(FLEET_CLIENTS)]
+
+        def ask(c, k):
+            status, out, _, _, _ = http_wire(pools[c], address, "bert", xs[(c + k) % len(xs)])
+            return status, out is not None and arrays_equal(out, want[(c + k) % len(xs)])
+
+        try:
+            with Clients(FLEET_CLIENTS, ask) as load:
+                auto.start()
+                st["stop"].append(auto.stop)
+                grew = wait_for(lambda: any(d["action"] == "scale_up_worker" and d["ok"]
+                                            for d in auto.decision_log()), 120.0)
+                time.sleep(0.5)
+        finally:
+            auto.stop()
+            for p in pools:
+                p.close()
+        log_ = auto.decision_log()
+        d = next((d for d in log_ if d["action"] == "scale_up_worker"), None)
+        new = (d or {}).get("detail", {}).get("worker_id")
+        spawn = [e for e in j.events(types=("fleet.worker_spawn",))
+                 if e["attrs"].get("worker") == new]
+        ready_s = (os.stat(os.path.join(sup.run_dir, f"{new}.port.json")).st_mtime
+                   - spawn[0]["ts"]) if new and spawn else None
+        self.check(grew and new in sup.endpoints(),
+                   f"{tag}: replicas at the max on {d and d['worker']}, the autoscaler added "
+                   f"worker {new} (clone_spec + add_worker), ready {ready_s and round(ready_s, 1)} "
+                   f"s after its spawn [{self.card}]; decisions "
+                   f"{[x['action'] for x in log_]}")
+        served = http_json_get(address, "/v1/autoscaler")["decisions"]
+        self.check([x["action"] for x in served] == [x["action"] for x in log_],
+                   f"{tag}: /v1/autoscaler serves the {len(served)} decisions")
+        bad = [o[:3] for o in load.outcomes if o[2] != 200 or o[3] is not True]
+        self.check(load.outcomes and not bad,
+                   f"{tag}: {len(load.outcomes)} requests while the fleet grew: {len(bad)} "
+                   f"failed or not bit for bit {bad[:3]}")
+        if new in sup.endpoints():
+            text = http_text(sup.endpoints()[new], "/metrics")
+            pool = wire.ConnectionPool()
+            try:
+                g = http_wire(pool, sup.endpoints()[new], "bert", xs[0])
+            finally:
+                pool.close()
+            self.check(g[0] == 200 and arrays_equal(g[1], want[0])
+                       and metric(text, "compile_cache_misses_total") == 0,
+                       f"{tag}: {new} answers bit for bit and built no kernel")
+
+    def fleet_scheduler(self, workdir, st):
+        """An in-process ``ModelServer`` serves BERT-base with a
+        ``Scheduler`` attached: a fine-tune job (B=64, 20 steps) run through
+        once, and once preempted by traffic and resumed, the two bit for bit
+        (losses and weights); a replica added while the job runs; then eval,
+        score, a sweep and a flywheel into a gated deploy."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime.trees import tree_leaves
+        from deeplearning4j_tpu_torch.serving import (JobStore, ModelServer, Scheduler,
+                                                      SchedulerConfig, FleetConfig, capacity, wire)
+        from deeplearning4j_tpu_torch.serving.scheduler import (FineTuneRun, FlywheelRun,
+                                                                capacity_signals)
+        torch = self.torch
+        tag = "fleet scheduler"
+        reg, xs, want, path = st["reg"], st["xs"], st["want"], st["archive"]
+        srv = ModelServer(reg, worker_id="fleet-sched")
+        address = f"127.0.0.1:{srv.start(0)}"
+        st["stop"].append(srv.stop)
+        rng = np.random.default_rng(2727)
+        n = BERT_B * 4
+        labels = rng.integers(0, 2, n)
+        data = os.path.join(workdir, "finetune.npz")
+        np.savez(data, x=rng.integers(0, BERT_VOCAB, (n, BERT_T)),
+                 y=np.eye(2, dtype=np.float32)[labels], labels=labels)
+        finals, stepped, splits, fly_features = {}, {}, {}, {}
+
+        class Run(FineTuneRun):
+            """The fine-tune runner, keeping its final weights on the card and
+            its exchange split, and signalling its steps."""
+
+            def step(self):
+                done = super().step()
+                stepped.setdefault(self.job["id"], threading.Event())
+                if self.steps_done >= FLEET_PREEMPT_AFTER:
+                    stepped[self.job["id"]].set()
+                return done
+
+            def result(self):
+                finals[self.job["id"]] = [t.detach().clone()
+                                          for t in tree_leaves(self.trainer.net._params)]
+                splits[self.job["id"]] = self.trainer.stats.headline()
+                return super().result()
+
+        class Fly(FlywheelRun):
+            """The flywheel runner, keeping the dtype and shape of its features."""
+
+            def __init__(self, job, ctx):
+                super().__init__(job, ctx)
+                if self.net is not None:
+                    fly_features[job["id"]] = (self.x.dtype.name, self.x.shape)
+
+        store = JobStore(FleetConfig(os.path.join(workdir, "jobs.json")))
+        sched = Scheduler(store, signals=capacity_signals(reg), worker_id="fleet-sched",
+                          registry=reg, config=SchedulerConfig(tick_s=0.05),
+                          runners={"finetune": Run, "flywheel": Fly})
+        srv.scheduler = sched
+        sched.start()
+        st["stop"].append(sched.stop)
+        metrics = reg.get("bert").metrics
+
+        def job(jtype, payload, timeout_s=300.0):
+            jid = store.submit(jtype, payload)
+            wait_for(lambda: store.get(jid)["state"] in ("completed", "failed", "cancelled"),
+                     timeout_s)
+            return jid, store.get(jid)
+
+        def finetune(name):
+            return {"archive": path, "data": data, "steps": FLEET_FT_STEPS, "batch_size": BERT_B,
+                    "seed": 3, "threshold": 0.0,
+                    "checkpoint_dir": os.path.join(workdir, f"ft-{name}")}
+
+        # ---- run A: uninterrupted, a replica added while it runs
+        metrics.reset_window()
+        torch.cuda.synchronize()
+        for c in all_counters():
+            c.reset()
+        t0 = time.perf_counter()
+        jid_a = store.submit("finetune", finetune("a"))
+        wait_for(lambda: jid_a in stepped and stepped[jid_a].is_set(), 120.0)
+        graphs0 = reg.get("bert").batcher.compile_count()
+        t1 = time.perf_counter()
+        status, _, body = http_post(address, "/v1/models/bert/replicas", {"delta": 1})
+        resize_s = time.perf_counter() - t1
+        running = store.get(jid_a)["state"] in ("started", "resumed")
+        pool = wire.ConnectionPool()
+        try:
+            probe = [http_wire(pool, address, "bert", x) for x in xs]
+        finally:
+            pool.close()
+        wait_for(lambda: store.get(jid_a)["state"] in ("completed", "failed"), 300.0)
+        run_a = store.get(jid_a)
+        a_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = {c.name: c.value for c in all_counters()}
+        self.check(status == 200 and running
+                   and reg.get("bert").batcher.compile_count() == graphs0 + 1
+                   and all(g[0] == 200 and arrays_equal(g[1], w) for g, w in zip(probe, want)),
+                   f"{tag}: a replica added while the fine-tune ran ({resize_s:.2f} s, job "
+                   f"{'running' if running else 'not running'}; its capture and the job's steps "
+                   f"exclude each other): graphs {graphs0} -> "
+                   f"{reg.get('bert').batcher.compile_count()}, {len(xs)} answers after bit for "
+                   f"bit: {body[:120]!r}")
+        steps = FLEET_FT_STEPS
+        want_counts = {fa.lse_counter.name: BERT_LAYERS * steps,
+                       fa.bwd_dq_counter.name: BERT_LAYERS * steps,
+                       fa.bwd_dkv_counter.name: BERT_LAYERS * steps}
+        got_counts = {k: counts[k] for k in want_counts}
+        self.check(run_a["state"] == "completed" and got_counts == want_counts,
+                   f"{tag}: fine-tune job ({steps} steps of {BERT_B} x {BERT_T}, dropout 0.1) "
+                   f"{run_a['state']} in {a_s:.1f} s ({1e3 * a_s / steps:.0f} ms a step, the "
+                   f"host exchange: {splits.get(jid_a)}); {got_counts} launches (12 + 12 + 12 a "
+                   f"step) [{self.card}]; losses "
+                   f"{[round(x, 4) for x in (run_a['result'] or {}).get('losses', [])[:3]]}...")
+        self.add_launches(got_counts)
+        self.add_launches({fa.counter.name: counts[fa.counter.name]})
+        http_post(address, "/v1/models/bert/replicas", {"delta": -1})
+
+        # ---- run B: traffic preempts it, then it resumes
+        pools = [wire.ConnectionPool() for _ in range(FLEET_CLIENTS)]
+
+        def ask(c, k):
+            status, out, _, _, _ = http_wire(pools[c], address, "bert", xs[(c + k) % len(xs)])
+            return status, out is not None and arrays_equal(out, want[(c + k) % len(xs)])
+
+        t0 = time.perf_counter()
+        jid_b = store.submit("finetune", finetune("b"))
+        wait_for(lambda: jid_b in stepped and stepped[jid_b].is_set(), 120.0)
+        try:
+            metrics.reset_window()
+            with Clients(FLEET_CLIENTS, ask) as load:
+                preempted = wait_for(lambda: store.get(jid_b)["state"] == "preempted", 60.0)
+                progress = store.get(jid_b)["progress"]
+                time.sleep(0.5)
+        finally:
+            for p in pools:
+                p.close()
+        metrics.reset_window()
+        wait_for(lambda: store.get(jid_b)["state"] in ("completed", "failed"), 300.0)
+        run_b = store.get(jid_b)
+        b_s = time.perf_counter() - t0
+        bad = [o[:3] for o in load.outcomes if o[2] != 200 or o[3] is not True]
+        self.check(load.outcomes and not bad,
+                   f"{tag}: {len(load.outcomes)} requests from {FLEET_CLIENTS} clients while the "
+                   f"job ran and was preempted: {len(bad)} failed or not bit for bit the idle "
+                   f"answers {bad[:3]}")
+        same_losses = (run_a.get("result") or {}).get("losses") == \
+            (run_b.get("result") or {}).get("losses")
+        fa_, fb_ = finals.get(jid_a), finals.get(jid_b)
+        same_weights = fa_ is not None and fb_ is not None and len(fa_) == len(fb_) and all(
+            a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+                a.contiguous().reshape(-1).view(torch.uint8),
+                b.contiguous().reshape(-1).view(torch.uint8))
+            for a, b in zip(fa_, fb_))
+        self.check(preempted and run_b["state"] == "completed" and same_losses and same_weights,
+                   f"{tag}: traffic preempted the second fine-tune at step "
+                   f"{progress.get('steps_done')} (the capacity signal), it resumed and completed "
+                   f"in {b_s:.1f} s; its {steps} losses and final weights bit for bit the "
+                   f"uninterrupted run's: losses {same_losses}, weights {same_weights}")
+        snap = sched.harvest_snapshot()
+        self.check(snap["preemptions_total"] >= 1 and snap["resumes_total"] >= 1,
+                   f"{tag}: harvested {snap['harvested_busy_s']:.2f} s of the card so far "
+                   f"(preemptions {snap['preemptions_total']}, resumes {snap['resumes_total']})")
+
+        # ---- eval through the batcher, score, a sweep: the harvest window
+        metrics.reset_window()
+        sched.reset_harvest()
+        ev = os.path.join(workdir, "eval.npz")
+        ex = rng.integers(0, BERT_VOCAB, (2 * BERT_B, BERT_T))
+        el = rng.integers(0, 2, 2 * BERT_B)
+        np.savez(ev, x=ex, labels=el)
+        _, rec = job("eval", {"model": "bert", "data": ev, "batch_size": BERT_B})
+        direct = np.concatenate([np.asarray(reg.predict("bert", ex[i:i + BERT_B]))
+                                 for i in range(0, len(ex), BERT_B)])
+        acc = round(float((direct.argmax(-1) == el).mean()), 6)
+        self.check(rec["state"] == "completed" and rec["result"]["accuracy"] == acc,
+                   f"{tag}: eval through the batcher {rec['result']} = the direct predict's "
+                   f"accuracy {acc}")
+        out = os.path.join(workdir, "scores.npz")
+        _, rec = job("score", {"archive": path, "data": ev, "batch_size": BERT_B, "out": out})
+        scores = np.load(out)["outputs"] if rec["state"] == "completed" else None
+        err = None if scores is None else float(np.abs(scores - direct).max())
+        self.check(scores is not None and scores.shape == direct.shape
+                   and np.isfinite(scores).all() and err <= BERT_TOL,
+                   f"{tag}: score wrote {None if scores is None else scores.shape} outputs, max "
+                   f"abs err {err} against the served answers (tolerance {BERT_TOL})")
+        sw = os.path.join(workdir, "sweep.npz")
+        sx = rng.normal(size=(64, 8)).astype(np.float32)
+        np.savez(sw, x=sx, y=np.eye(4, dtype=np.float32)[rng.integers(0, 4, 64)])
+        _, rec = job("sweep", {"data": sw, "space": FLEET_SWEEP_SPACE, "mode": "random",
+                               "trials": len(FLEET_SWEEP_TRIALS), "seed": 7, "steps": 5,
+                               "batch_size": 16, "base": {"updater": "sgd"}})
+        trials = [r["params"] for r in (rec.get("result") or {}).get("results", [])]
+        bare = [{k: v for k, v in t.items() if k in FLEET_SWEEP_SPACE} for t in trials]
+        self.check(rec["state"] == "completed" and bare == FLEET_SWEEP_TRIALS
+                   and all(np.isfinite(r["score"]) for r in rec["result"]["results"]),
+                   f"{tag}: sweep of {len(trials)} trials, the JAX package's trial sequence for "
+                   f"seed 7; scores {[r['score'] for r in (rec.get('result') or {}).get('results', [])]}")
+        cap = http_json_get(address, "/v1/capacity")
+        util = cap["utilization"]
+        plain = capacity.device_utilization(cap["models"], harvested_busy_s=0.0)
+        self.check(util["harvested_busy_s"] > 0
+                   and util["device_idle_fraction"] < plain["device_idle_fraction"],
+                   f"{tag}: over the eval, score and sweep jobs the scheduler harvested "
+                   f"{util['harvested_busy_s']:.3f} s of a {util['device_window_s']:.3f} s "
+                   f"window: device_idle_fraction {plain['device_idle_fraction']:.4f} without "
+                   f"the harvest, {util['device_idle_fraction']:.4f} with it [{self.card}]")
+        self.fleet_flywheel(workdir, store, sched, fly_features)
+
+    def fleet_flywheel(self, workdir, store, sched, seen):
+        """A flywheel job on BERT-base: FLEET_FLY_ROWS labeled rows of token
+        ids at T=128 (a ``FeedbackLog`` joined to an access log) fine-tune
+        the served archive by transfer learning on the card, on integer ids
+        (float ids would round to other tokens under bf16), and its
+        candidate goes through a gated rolling deploy over two in-process
+        BERT-base workers under client traffic. Its launches (the workers'
+        replays, the job's training steps) join the kernels line."""
+        import numpy as np
+        from deeplearning4j_tpu_torch.ops.kernels import flash_attention as fa
+        from deeplearning4j_tpu_torch.runtime import journal
+        from deeplearning4j_tpu_torch.serving import FleetRouter, ModelRegistry, ModelServer, wire
+        from deeplearning4j_tpu_torch.serving.delivery import (DeliveryConfig, FeedbackLog,
+                                                               GoldenSet)
+        from deeplearning4j_tpu_torch.serving.slo import SLOTarget
+        torch = self.torch
+        tag = "fleet scheduler"
+        d = os.path.join(workdir, "flywheel")
+        os.makedirs(d, exist_ok=True)
+        rng = np.random.default_rng(2929)
+        base = os.path.join(d, "bert.zip")
+        try:
+            os.link(self.bert_archive(workdir), base)
+        except OSError:
+            shutil.copyfile(self.bert_archive(workdir), base)
+        n = FLEET_FLY_ROWS
+        ids = rng.integers(0, BERT_VOCAB, (n, BERT_T))
+        labels = rng.integers(0, 2, n)
+        GoldenSet(ids[:4], max_delta=1.0).save(GoldenSet.sidecar(base))
+        access, labeled = os.path.join(d, "access.jsonl"), os.path.join(d, "labeled.jsonl")
+        with open(access, "w") as f:
+            for i in range(n):
+                f.write(json.dumps({"log": "dl4j_tpu_access", "trace_id": f"t{i}",
+                                    "model": "bert", "outcome": 200}) + "\n")
+        fb = FeedbackLog(access_log_path=access, out_path=labeled)
+        for i in range(n):
+            fb.record(f"t{i}", label=int(labels[i]), inputs=ids[i].tolist())
+        kw = dict(self.fleet_kw(), warmup_example=ids[:1], replay_manifest=False,
+                  save_manifest=False)
+
+        def launch(wid, archive, version):
+            reg = ModelRegistry()
+            srv = ModelServer(reg, worker_id=wid)
+            try:
+                reg.load("bert", archive, device=self.device, version=version, **kw)
+                srv.start(0)
+            except Exception:
+                srv.stop(shutdown_registry=True)
+                raise
+            return srv
+
+        torch.cuda.synchronize()
+        for c in all_counters():
+            c.reset()
+        fleet = InProcFleet(launch)
+        router = None
+        try:
+            fleet.add("b0", base)
+            fleet.add("b1", base)
+            router = FleetRouter(fleet, probe_interval_s=0.05, hedge_enabled=False)
+            address = f"127.0.0.1:{router.start(0)}"
+            self.check(wait_for(lambda: sum(v.ready for v in router.workers().values()) == 2),
+                       f"{tag}: the flywheel's two BERT-base workers ready")
+            cfg = DeliveryConfig(shadow_fraction=1.0, shadow_min_samples=4,
+                                 shadow_max_disagreement=1.0, canary_fractions=(0.5, 1.0),
+                                 canary_min_requests=6,
+                                 canary_target=SLOTarget(availability=0.5, latency_ms=5000.0,
+                                                         latency_target=0.5),
+                                 canary_window_s=30, stage_timeout_s=120.0)
+            j = journal.enable(capacity=16384)
+            sched.ctx.deploy_fn = lambda archive, payload: router.rolling_deploy(
+                archive, version=2, strategy="gated", model="bert", delivery_config=cfg,
+                ready_timeout_s=120)
+            pools = [wire.ConnectionPool() for _ in range(3)]
+
+            def ask(c, k):
+                status, out, _, _, _ = http_wire(pools[c], address, "bert",
+                                                 ids[(c + k) % 16][None])
+                return status, out is not None and bool(np.isfinite(out).all())
+
+            t0 = time.perf_counter()
+            try:
+                with Clients(3, ask) as load:
+                    jid = store.submit("flywheel", {
+                        "base_archive": base, "model": "bert", "feedback_file": labeled,
+                        "out_archive": os.path.join(d, "candidate.zip"), "min_examples": BERT_B,
+                        "max_epochs": FLEET_FLY_EPOCHS, "patience": FLEET_FLY_EPOCHS,
+                        "lr": 1e-3, "batch_size": BERT_B})
+                    wait_for(lambda: store.get(jid)["state"] in ("completed", "failed"), 300.0)
+                    rec = store.get(jid)
+            finally:
+                for p in pools:
+                    p.close()
+            fly_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in all_counters()}
+            res = rec.get("result") or {}
+            stages = [e["attrs"].get("stage") for e in j.events(types=("delivery.stage",))]
+            bad = [o[:3] for o in load.outcomes if o[2] != 200 or o[3] is not True]
+            feats = seen.get(jid)
+            self.check(rec["state"] == "completed" and res.get("status") == "trained"
+                       and res.get("examples") == n and np.isfinite(res.get("best_score", np.nan))
+                       and feats is not None and feats[0].startswith("int")
+                       and feats[1] == (n, BERT_T) and res.get("deployed")
+                       and (res.get("deploy") or {}).get("verdict") == "promoted" and not bad,
+                       f"{tag}: flywheel job on BERT-base {rec['state']} ({rec.get('error')}) in "
+                       f"{fly_s:.1f} s: {res.get('examples')} labeled rows of {BERT_T} token ids "
+                       f"(features {feats}), {res.get('epochs')} epochs of {n // BERT_B} steps, "
+                       f"best loss {res.get('best_score')}; candidate "
+                       f"{(res.get('deploy') or {}).get('verdict')} through the gated deploy "
+                       f"(stages {stages}); {len(load.outcomes)} client requests, {len(bad)} "
+                       f"failed [{self.card}]")
+            steps = FLEET_FLY_EPOCHS * (n // BERT_B)
+            trained = {k: counts.get(k, 0) for k in (fa.lse_counter.name, fa.bwd_dq_counter.name,
+                                                      fa.bwd_dkv_counter.name)}
+            self.check(trained[fa.bwd_dq_counter.name] == trained[fa.bwd_dkv_counter.name]
+                       == BERT_LAYERS * steps <= trained[fa.lse_counter.name]
+                       and counts.get(fa.counter.name, 0) > 0,
+                       f"{tag}: the flywheel's {steps} training steps launched {trained} (12 + "
+                       f"12 + 12 a step); the workers and the job's scoring "
+                       f"{counts.get(fa.counter.name, 0)} inference flash kernels")
+            self.add_launches(counts)
+        finally:
+            if router is not None:
+                router.stop()
+            fleet.stop()
+
     def times_phase(self):
         """Every kernel's time at its main path's shape: rows 1-6, 7-9,
         10-12 and 13."""
@@ -8068,6 +8904,16 @@ def main() -> int:
         for f in smoke.failures:
             log("FAIL " + f)
         return 1 if smoke.failures else 0
+    if sys.argv[1:] == ["--fleet"]:
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
+        try:
+            smoke.fleet_phase(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        for f in smoke.failures:
+            log("FAIL " + f)
+        return 1 if smoke.failures else 0
     if sys.argv[1:] == ["--resnet"]:
         smoke.phase("kernels conv_stats", smoke.conv_stats_checks)
         workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
@@ -8102,6 +8948,7 @@ def main() -> int:
         smoke.serving_phase(workdir)
         smoke.residency_phase(workdir)
         smoke.http_phase(workdir)
+        smoke.fleet_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.phase("ops", smoke.ops_phase)

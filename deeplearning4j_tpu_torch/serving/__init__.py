@@ -36,8 +36,8 @@ The host side, first half (the HTTP worker and the router tier):
 - :class:`ModelServer` (``server.py``) — serves a registry over HTTP: JSON
   and binary predict, residency, replicas, the session tier with its
   Server-Sent-Events stream, health, ``/metrics``, capacity, traces, the
-  black box's debug endpoints and feedback. The background scheduler is
-  not ported yet: attaching one raises ``NotImplementedError``.
+  black box's debug endpoints and feedback; with a :class:`Scheduler`
+  attached, ``/v1/scheduler`` and the ``scheduler_*`` families.
 - ``wire.py`` — the binary frame codec (byte for byte the JAX package's),
   the shared-memory hop, :class:`~.wire.KeepAliveHTTPServer` and
   :class:`~.wire.ConnectionPool`.
@@ -49,6 +49,23 @@ The host side, first half (the HTTP worker and the router tier):
 - :class:`AnomalyWatchdog` / :class:`BurnRule` / :class:`RateRule`
   (``blackbox.py``) — the watchdog and the incident bundles.
 
+The host side, second half (the process tier):
+
+- :class:`FleetSupervisor` / :class:`WorkerSpec` (``fleet.py``) — worker
+  processes (``python -m deeplearning4j_tpu_torch.serving.fleet``) on
+  ``cuda`` unless a spec asks for the CPU, with a heartbeat and exit-code
+  watchdog, budgeted restarts, rolling relaunches and leak-guarded pids.
+- ``control_plane.py`` — :class:`FleetConfig` (the shared versioned
+  config file and its exactly-once action ledger), :class:`LeaseElection`,
+  :class:`RouterSupervisor` over router processes that never touch the
+  card, and :class:`MultiRouterClient`.
+- :class:`SLOAutoscaler` / :class:`AutoscalerConfig` (``autoscale.py``) —
+  burn-rate driven replica, placement and worker levers, the decision log
+  in the journal, lease-elected leader and followers.
+- :class:`Scheduler` / :class:`JobStore` / :class:`SchedulerConfig`
+  (``scheduler.py``) — preemptible background jobs (fine-tune, eval,
+  score, sweep, flywheel) in the gaps serving leaves.
+
 Exports resolve lazily (PEP 562), as in the JAX package.
 """
 
@@ -56,6 +73,19 @@ import importlib
 
 _EXPORTS = {
     "AdmissionController": "admission",
+    "AutoscalerConfig": "autoscale",
+    "SLOAutoscaler": "autoscale",
+    "forecast_rate": "autoscale",
+    "FleetConfig": "control_plane",
+    "LeaseElection": "control_plane",
+    "MultiRouterClient": "control_plane",
+    "RouterSpec": "control_plane",
+    "RouterSupervisor": "control_plane",
+    "FleetSupervisor": "fleet",
+    "WorkerSpec": "fleet",
+    "JobStore": "scheduler",
+    "Scheduler": "scheduler",
+    "SchedulerConfig": "scheduler",
     "AnomalyWatchdog": "blackbox",
     "BurnRule": "blackbox",
     "RateRule": "blackbox",

@@ -39,9 +39,9 @@ worker serves on whatever device its registry's models sit on. Endpoints:
   ``/v1/journal``, ``/v1/debug/stacks``, ``GET /v1/debug/bundle`` and
   ``POST /v1/feedback`` — the machine-readable twins the router
   aggregates fleet-wide, and the black box
-- ``GET  /v1/scheduler`` — 404 ``no scheduler attached``: the background
-  scheduler is not ported yet, and attaching one raises (see
-  :attr:`ModelServer.scheduler`)
+- ``GET  /v1/scheduler`` — the attached background scheduler's harvest
+  counters, admission config and the shared job store's records (404
+  ``no scheduler attached`` without one; see :attr:`ModelServer.scheduler`)
 
 Predict request body::
 
@@ -160,21 +160,11 @@ class ModelServer:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._capacity_provider = None  # our profiler attachment (stop)
+        # background-job scheduler: attach one to surface GET /v1/scheduler
+        # and the scheduler_* /metrics section; the owner starts/stops it
+        # (the server only reads snapshots)
+        self.scheduler = None
         self.port: Optional[int] = None
-
-    @property
-    def scheduler(self):
-        """The background-job scheduler behind ``GET /v1/scheduler`` and
-        the ``scheduler_*`` ``/metrics`` section: always ``None`` here."""
-        return None
-
-    @scheduler.setter
-    def scheduler(self, value):
-        if value is not None:
-            raise NotImplementedError(
-                "the background scheduler (deeplearning4j_tpu_torch/serving/"
-                "scheduler.py) is not ported yet; a ModelServer serves without "
-                "one and answers GET /v1/scheduler with 404")
 
     # ------------------------------------------------------------ handlers
     @staticmethod
@@ -474,9 +464,14 @@ class ModelServer:
                 payload["sessions"] = self.sessions.snapshot()
             return 200, payload
         if path == "/v1/scheduler":
-            # the background-job scheduler's view: none can be attached
-            # (see the ``scheduler`` property), as a JAX worker without one
-            return 404, {"error": "no scheduler attached"}
+            # background-job scheduler: harvest counters, admission config
+            # and the shared job store's records — the machine-readable
+            # twin of the scheduler_* /metrics section
+            if self.scheduler is None:
+                return 404, {"error": "no scheduler attached"}
+            return 200, {"worker": self.worker_id,
+                         "scheduler": self.scheduler.harvest_snapshot(),
+                         "jobs": self.scheduler.store.jobs()}
         if path == "/v1/metricsz":
             # machine-readable twin of /metrics: summable counters + raw
             # bucket histograms so the router can aggregate fleet-wide
@@ -922,6 +917,14 @@ class ModelServer:
             pass  # capacity must never be able to break a scrape
         if self.sessions is not None:
             parts.append(self._render_sessions())
+        if self.scheduler is not None:
+            # the harvest ledger's /metrics view
+            from deeplearning4j_tpu_torch.serving import scheduler as _sched
+            try:
+                parts.append(_sched.render_prometheus(
+                    self.scheduler.harvest_snapshot()).rstrip("\n"))
+            except Exception:
+                pass  # the scheduler must never break a scrape
         # binary transport frame/error counters
         parts.append("\n".join(wire.render_prometheus()))
         # the black box's ring health: journal_* gauges

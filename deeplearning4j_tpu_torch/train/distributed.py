@@ -9,8 +9,10 @@ the rank's residual), frames it with a CRC32 header, allgathers the frames
 in two phases (sizes, then payloads padded to the round's max) and decodes
 every rank's frame in rank order into the combined update, which the
 network's own optimizer applies. ``threshold == 0`` selects the dense
-float32 transport. A corrupted or failed exchange raises
-:class:`ExchangeError`, never a silent divergence.
+float32 transport; at world 1 it has no peer, so (without overlap or a chaos
+controller) the gradient is applied where it was computed, with the
+combine's arithmetic, bit for bit the exchanged update. A corrupted or
+failed exchange raises :class:`ExchangeError`, never a silent divergence.
 
 - :class:`CollectiveExchange` moves the frames over ``torch.distributed``
   (gloo, host byte tensors; :func:`~..runtime.mesh.initialize_multihost`
@@ -423,9 +425,9 @@ class DistributedTrainer:
         net._ensure_optimizer().step(net._params, tree_unflatten_like(net._params, grads))
         net._apply_constraints()
 
-    def _local_grad(self, rank_ix: int, x, y, generator):
-        """One rank's ``(loss, flat scaled gradient, exchange)`` through the
-        captured-graph path."""
+    def _device_grad(self, rank_ix: int, x, y, generator):
+        """One rank's ``(loss, flat gradient)`` on the network's device,
+        through the captured-graph path."""
         net = self.net
         xt, yt = net._as_input(x), net._as_input(y)
         if self.plan is not None:
@@ -438,12 +440,41 @@ class DistributedTrainer:
                                                      list(tree_leaves(state)))
         if new_leaves:
             self._rank_model_states[rank_ix] = tree_unflatten_like(state, list(new_leaves))
+        return loss, flat
+
+    def _local_grad(self, rank_ix: int, x, y, generator):
+        """One rank's ``(loss, flat scaled gradient, exchange)`` on the host."""
+        loss, flat = self._device_grad(rank_ix, x, y, generator)
         ex = self._exchanges[rank_ix]
         flat = flat.cpu().numpy()
         # scale BEFORE encoding, so the decoded sum approximates the MEAN
         # gradient (the dense path's learning-rate semantics)
         flat /= np.float32(self.world)
         return float(loss), flat, ex
+
+    def _exchange_in_place(self) -> bool:
+        """World 1, dense transport, synchronous, no chaos controller: there
+        is no peer, and the frame would bring the contribution back
+        unchanged, so the step skips the host round trip (the gradient's
+        bytes to the host and back, two CRC32 passes, the copies)."""
+        return (self.world == 1 and self._exchanges[0].dense
+                and not self.config.overlap_window and not chaos.active())
+
+    def _apply_in_place(self, loss, flat) -> float:
+        """Apply a world-1 contribution on the device with the exchange's
+        arithmetic, so the trajectory is the host path's bit for bit: the
+        combine's ``0 + g`` (a -0.0 becomes +0.0) and the frame's float32
+        loss. Returns that loss."""
+        t0 = time.perf_counter()
+        combined = torch.zeros_like(flat).add_(flat)
+        self._apply_aot.call(("apply",), self._apply_step, combined)
+        self.net._model_state = assign_state(self.net._model_state, self._rank_model_states[0])
+        self.stats.record("apply", time.perf_counter() - t0)
+        self.stats.record_bytes(4 * self._exchanges[0].codec.size, 0, 0)
+        mean_loss = float(np.float32(float(loss)))
+        self.losses.append(mean_loss)
+        self._last_mean_loss = mean_loss
+        return mean_loss
 
     def _apply(self, combined: np.ndarray) -> None:
         t0 = time.perf_counter()
@@ -473,6 +504,27 @@ class DistributedTrainer:
             net._seed_device_generator()
         seed = int(torch.randint(0, 2 ** 62, (), generator=net.rng.next_generator()))
         chaos.inject("train.distributed.exchange")
+        if self._exchange_in_place():
+            loss, flat = self._device_grad(0, x, y, self._generator(seed))
+            mean_loss = self._apply_in_place(loss, flat)
+        else:
+            mean_loss = self._exchange_step(x, y, n_local, seed)
+        step_no = int(net._iteration) + 1
+        net._iteration = step_no
+        net._score = mean_loss
+        if self.config.resync_every and step_no % self.config.resync_every == 0:
+            self.flush()
+            self.resync_params()
+        if (self.config.checkpoint_every and self.config.checkpoint_dir
+                and step_no % self.config.checkpoint_every == 0):
+            self.flush()
+            self._checkpoint(step_no)
+        if self.config.heartbeat_file:
+            self._beat(step_no)
+        return mean_loss
+
+    def _exchange_step(self, x, y, n_local: int, seed: int) -> float:
+        """The local gradients framed, gathered, combined and applied."""
         if self.loopback:
             send, lsum = [], 0.0
             for r in range(self.world):
@@ -490,22 +542,8 @@ class DistributedTrainer:
         handle = self._begin_gather(send)
         if self.config.overlap_window:
             prev, self._inflight = self._inflight, handle
-            mean_loss = self._complete_exchange(prev) if prev is not None else float(loss)
-        else:
-            mean_loss = self._complete_exchange(handle)
-        step_no = int(net._iteration) + 1
-        net._iteration = step_no
-        net._score = mean_loss
-        if self.config.resync_every and step_no % self.config.resync_every == 0:
-            self.flush()
-            self.resync_params()
-        if (self.config.checkpoint_every and self.config.checkpoint_dir
-                and step_no % self.config.checkpoint_every == 0):
-            self.flush()
-            self._checkpoint(step_no)
-        if self.config.heartbeat_file:
-            self._beat(step_no)
-        return mean_loss
+            return self._complete_exchange(prev) if prev is not None else float(loss)
+        return self._complete_exchange(handle)
 
     # --------------------------------------------------- overlapped exchange
     def _exchange_worker(self) -> None:

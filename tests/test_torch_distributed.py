@@ -182,6 +182,31 @@ def test_loopback_world1_equals_collective_world1():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("loopback", [True, False])
+def test_world1_dense_applies_in_place_bit_for_bit_the_exchange(loopback):
+    """At world 1 with dense transport the gradient skips the host round
+    trip; the trajectory is the framed exchange's bit for bit, which a
+    chaos controller (with no policy) still forces."""
+    def fit():
+        net = MultiLayerNetwork(_conf(Adam(1e-2))).init()
+        tr = DistributedTrainer(net, DistributedConfig(threshold=0.0), world=1,
+                                rank=None if loopback else -1)
+        tr.fit(_iterator(), epochs=2)
+        return tr
+
+    fast = fit()
+    with chaos.ChaosController(seed=0):
+        framed = fit()
+    assert fast.losses == framed.losses and len(fast.losses) == 2 * N_BATCHES
+    for a, b in zip(_params(fast.net), _params(framed.net)):
+        np.testing.assert_array_equal(a, b)
+    rep_fast, rep_framed = fast.stats.report(), framed.stats.report()
+    assert rep_fast["comms_bytes_per_step"] == 0 and rep_fast["encode_total_s"] == 0.0
+    assert rep_framed["comms_bytes_per_step"] > rep_framed["dense_bytes_per_step"]
+    assert rep_fast["dense_bytes_per_step"] == rep_framed["dense_bytes_per_step"]
+    assert rep_fast["steps"] == rep_framed["steps"] == 2 * N_BATCHES
+
+
 def test_loopback_encoded_compresses():
     tr = _fit_loopback(1e-3, world=2, epochs=3, updater=Adam(1e-2))
     rep = tr.stats.report()

@@ -10,7 +10,10 @@ capacity (``tests/test_paging.py:377``, ``:429``, ``:879``), sessions over
 HTTP with the Server-Sent-Events stream against a serial ``rnn_time_step``
 loop (and the JAX server's answers), feedback (``tests/test_delivery.py:376``),
 the journal, stacks and bundle endpoints (``tests/test_journal.py:624``),
-and the scheduler, which is not ported: attaching one raises by name.
+and the scheduler hook: without a scheduler ``/v1/scheduler`` answers 404 as
+a JAX worker's does, with one attached it answers 200 and ``/metrics``
+gains the ``scheduler_*`` families (the rest in
+``test_torch_serving_scheduler.py``).
 """
 
 import io
@@ -270,16 +273,28 @@ def test_shed_and_fault_answers_match_over_http(exc):
             s.stop()
 
 
-def test_scheduler_is_refused_by_name(pair):
+def test_scheduler_is_refused_by_name(pair, tmp_path):
+    """The scheduler hook (the name kept from when attaching raised): none
+    attached answers 404 as the JAX worker; an attached scheduler answers
+    200 and renders its families; detaching goes back to 404."""
+    from deeplearning4j_tpu_torch.serving.control_plane import FleetConfig
+    from deeplearning4j_tpu_torch.serving.scheduler import JobStore, Scheduler
     ports, servers, _ = pair
     srv = servers["port"]
-    with pytest.raises(NotImplementedError, match="serving/scheduler.py"):
-        srv.scheduler = object()
-    srv.scheduler = None  # detaching nothing is fine
     assert srv.scheduler is None
     assert request(ports["port"], "GET", "/v1/scheduler")[:1] == \
         request(ports["jax"], "GET", "/v1/scheduler")[:1] == (404,)
     assert "scheduler_" not in request(ports["port"], "GET", "/metrics")[2].decode()
+    srv.scheduler = Scheduler(JobStore(FleetConfig(str(tmp_path / "fleet.json"))),
+                              signals=lambda: {}, worker_id=srv.worker_id)
+    try:
+        status, _, body = request(ports["port"], "GET", "/v1/scheduler")
+        assert status == 200 and sorted(json.loads(body)) == ["jobs", "scheduler", "worker"]
+        assert "scheduler_harvested_busy_s 0" in \
+            request(ports["port"], "GET", "/metrics")[2].decode()
+    finally:
+        srv.scheduler = None
+    assert request(ports["port"], "GET", "/v1/scheduler")[:1] == (404,)
 
 
 # ========================================================= paging surfaces
